@@ -8,29 +8,35 @@ PyTorch built for CUDA. It imports no JAX. In order it:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
-2. builds the flash-attention kernel (``csrc/flash_attn_fwd.cu``) with nvcc
-   and prints the build time;
-3. holds the kernel against the plain ``sdpa`` at every shape the main path
-   gives it, and times the kernel, ``sdpa`` and, as a baseline only,
-   ``torch.nn.functional.scaled_dot_product_attention``;
+2. builds the kernel libraries (``csrc/flash_attn_fwd.cu``,
+   ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``), one nvcc each, all started
+   together, and prints each build time with the registers and spills;
+3. holds every kernel against its plain PyTorch version at the shapes the
+   main path gives it, with a stated bound, and times the kernel, the plain
+   version and, as a yardstick only, the one library call or composition for
+   the same function: flash attention (K1), the fused GN+SiLU+conv3x3 (K3,
+   with a border case that tells a zero halo from a ``silu(b)`` halo), the
+   GroupNorm moments and fold (K5a), the GroupNorm apply (K5b) and the
+   nearest 2x upsample (K5c);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
    the CPU, and holds the two against each other;
 5. builds the full-width ``configs/instarevive_v1.yaml`` pipeline in bf16
    with seeded random weights, runs ``process`` on a 4x512x512 batch and
    ``process_tiled`` on a 1024x1024 image, checks the outputs and that every
-   attention went through the kernel, and prints seconds, MP/s and peak
-   memory;
+   kernel was launched exactly as often as the configuration says, and
+   prints seconds, MP/s and peak memory;
 6. runs the CLI (``python -m instarevive_tpu_torch.inference``) on two PNGs.
 
-It then prints one JSON line describing the kernel, the card line again and,
-last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-that last line; without a CUDA device it exits 1 at once.
+It then prints one JSON line describing the kernels, the card line again
+and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before that last line; without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +50,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # f32, so a few bf16 steps; 1e-2. f32: only the summation order differs
 # (online softmax over key tiles against one softmax); 1e-4.
 BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
+# The VAE kernels against their plain versions. Inputs are N(offset, scale^2)
+# per channel, so |normalised x| stays under about 8 and, with weights of
+# variance 1/(9C), |out| of the convolution under about 4.
+# f32: the kernel and the plain version sum in other orders; 2e-4.
+# bf16 norm: both round one f32 value of size < 8 to bf16 (spacing 2^-5
+# there), and the two f32 values differ by summation order, which can move a
+# value across a rounding boundary: one bf16 step, 3.2e-2.
+# bf16 conv: the same for the output (|out| < 4: one step is 1.6e-2), plus
+# the few activations among 9C that the two versions round to neighbouring
+# bf16 values before the products; 4e-2.
+# The fold (a, b) is f32 whatever x is, and its size follows the data's
+# scale: it is held to 1e-5 relative to max(|a|, |b|) (max_rel_err), and the
+# absolute error max(|da|, |db|) is reported beside it (max_abs_err).
+NORM_BOUNDS = {"bf16": 3.2e-2, "f32": 2e-4}
+CONV_BOUNDS = {"bf16": 4e-2, "f32": 2e-4}
+FOLD_REL_BOUND = 1e-5
+# The card's published peaks (H100 SXM): device memory bytes/s, dense
+# tensor-core bf16 FLOP/s, f32 FLOP/s outside the tensor cores.
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # The small f32 pipeline, card against CPU: convolutions and matmuls sum in
 # other orders (TF32 is off), outputs are in [0, 1].
 PIPELINE_F32_BOUND = 1e-3
@@ -74,6 +99,232 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dt: str):
+    """(least ms the card could take, which limit sets it): bytes moved once
+    over the memory rate, or operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / (PEAK_BF16 if dt == "bf16" else PEAK_F32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+def vae_inputs(gen, dt, n, h, w, c, co=None):
+    """Activations with a per-channel offset and scale, so that mean and
+    variance matter; norm parameters near (1, 0); weights ~ N(0, 1/(9C))."""
+    import torch
+
+    dtype = getattr(torch, DTYPES[dt])
+    offset = torch.randn(c, device="cuda", generator=gen)
+    scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    x = x.mul_(scale).add_(offset).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    if co is None:
+        return x, gamma, beta
+    wk = (torch.randn(3, 3, c, co, device="cuda", generator=gen) * (9 * c) ** -0.5).to(dtype)
+    bias = 0.1 * torch.randn(co, device="cuda", generator=gen)
+    return x, gamma, beta, wk, bias
+
+
+def max_err(out, ref) -> float:
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def conv_phase():
+    """K3 against the plain version at every shape of the main path; the
+    yardstick is group_norm -> silu -> conv2d in channels-last. ``ms`` is the
+    wrapper's time, the moments and fold launches inside it included;
+    ``conv_only_ms`` is the convolution kernel alone on a fold made before.
+    Returns per-shape records."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops import gn_conv
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+    from instarevive_tpu_torch.ops.norm_kernels import gn_affine
+
+    b4 = [  # process at 4 x 512 x 512: (H = W, C, Co)
+        (512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
+        (128, 512, 512), (64, 512, 512), (256, 512, 256), (512, 256, 128),
+    ]
+    cases = [(f"b4_{hw}_{c}_{co}", (4, hw, hw, c, co), ("bf16",)) for hw, c, co in b4]
+    encode = [(1024, 128, 128), (512, 128, 256), (512, 256, 256), (256, 256, 512), (256, 512, 512), (128, 512, 512)]
+    cases += [(f"tiled_encode_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in encode]
+    tile = [(72, 512, 512), (144, 512, 512), (288, 512, 256), (288, 256, 256), (576, 256, 128), (576, 128, 128)]
+    cases += [(f"tile576_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in tile]
+    cases += [("b4_64_512_512", (4, 64, 64, 512, 512), ("f32",)),
+              ("tile576_72_512_512", (1, 72, 72, 512, 512), ("f32",)),
+              ("small_128_128_128", (2, 128, 128, 128, 128), ("f32",))]
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, (n, h, w, c, co), dts in cases:
+        for dt in dts:
+            x, gamma, beta, wk, bias = vae_inputs(gen, dt, n, h, w, c, co)
+            x_cl = x.permute(0, 3, 1, 2)  # the same memory as a channels-last NCHW tensor
+            w_oihw = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            gl, bl, biasl = gamma.to(x.dtype), beta.to(x.dtype), bias.to(x.dtype)
+
+            def library():
+                return F.conv2d(F.silu(F.group_norm(x_cl, 32, gl, bl, 1e-6)), w_oihw, biasl, padding=1)
+
+            with torch.no_grad():
+                out = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+                torch.cuda.synchronize()
+                ref = gn_silu_conv3x3_plain(x, gamma, beta, wk, bias)
+                err = max_err(out, ref)
+                if not torch.isfinite(out).all():
+                    fail(f"gn_conv {name} {dt}: kernel output is not finite")
+                del ref
+                iters = 5 if n * h * w >= 2**20 else 10
+                ms = cuda_ms(lambda: gn_silu_conv3x3(x, gamma, beta, wk, bias), iters=iters)
+                a, b = gn_affine(x, gamma, beta)
+                conv_ms = cuda_ms(lambda: gn_conv._launch(x, a, b, wk, bias), iters=iters)
+                plain_ms = cuda_ms(lambda: gn_silu_conv3x3_plain(x, gamma, beta, wk, bias), iters=3, warmup=1)
+                lib_ms = cuda_ms(library, iters=iters)
+            flops = 2.0 * n * h * w * 9 * c * co
+            nbytes = x.element_size() * (x.numel() + wk.numel() + out.numel())
+            b_ms, b_by = bound(nbytes, flops, dt)
+            rec = dict(name=name, dtype=dt, shape=[n, h, w, c, co], max_abs_err=err, bound=CONV_BOUNDS[dt], ms=ms,
+                       includes="gn_stats_fold", conv_only_ms=conv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
+            print(f"[gn_conv] {name:27s} {dt:4s} N,H,W,C,Co={n},{h},{w},{c},{co} max_abs_err={err:.3e} "
+                  f"(bound {CONV_BOUNDS[dt]:.0e}) ms={ms:.4f} ({rec['tflops']:.1f} TFLOP/s; conv alone {conv_ms:.4f}) "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            if not err <= CONV_BOUNDS[dt]:
+                fail(f"gn_conv {name} {dt}: kernel differs from the plain version by {err} > {CONV_BOUNDS[dt]}")
+            records.append(rec)
+            del x, x_cl, wk, w_oihw, out
+
+    # A constant image with beta != 0 normalises to beta everywhere. With equal
+    # weights an interior pixel sums 9 taps of silu(beta), an edge 6, a corner
+    # 4; a halo of silu(b) instead of zero would give 9 everywhere.
+    c = 64
+    x = torch.full((1, 8, 20, c), 0.5, device="cuda", dtype=torch.bfloat16)
+    beta = torch.full((c,), 1.5, device="cuda")
+    wk = torch.full((3, 3, c, 32), 1.0 / c, device="cuda", dtype=torch.bfloat16)
+    out = gn_silu_conv3x3(x, torch.ones(c, device="cuda"), beta, wk, torch.zeros(32, device="cuda")).float()
+    s = F.silu(beta[0]).to(torch.bfloat16).float().item()
+    for (yy, xx), taps in (((3, 9), 9), ((0, 0), 4), ((7, 19), 4), ((0, 5), 6), ((4, 19), 6), ((4, 0), 6)):
+        got = out[0, yy, xx, 0].item()
+        if abs(got - taps * s) > 2e-2 * taps * s:
+            fail(f"gn_conv border: pixel ({yy}, {xx}) is {got}, expected {taps} taps of {s}: the halo is not zero")
+    print(f"[gn_conv] border case: corner 4, edge 6, interior 9 taps of silu(beta)={s:.4f}: the halo is zero", flush=True)
+    return records
+
+
+def norm_phase():
+    """K5a (moments + fold), K5b (apply) and K5c (upsample) against their plain
+    versions. Yardsticks: torch.var_mean for the moments, F.group_norm
+    (+ F.silu) for moments + apply, F.interpolate for the upsample. Returns
+    (stats records, apply records, upsample records)."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops.norm_kernels import (
+        affine_silu, affine_silu_plain, gn_affine, gn_affine_plain, group_norm_silu, group_norm_silu_plain,
+        upsample2x_nearest, upsample2x_nearest_plain,
+    )
+
+    shapes = [  # (name, (N, H, W, C), dtypes)
+        ("b4_64_512", (4, 64, 64, 512), ("bf16", "f32")),         # AttnBlock.norm, encoder norm_out
+        ("b4_512_128", (4, 512, 512, 128), ("bf16",)),            # decoder norm_out; level-0 ResnetBlocks
+        ("b4_256_256", (4, 256, 256, 256), ("bf16",)),
+        ("b4_128_512", (4, 128, 128, 512), ("bf16",)),
+        ("tiled_encode_1024_128", (1, 1024, 1024, 128), ("bf16",)),
+        ("tiled_encode_128_512", (1, 128, 128, 512), ("bf16",)),
+        ("tile576_72_512", (1, 72, 72, 512), ("bf16",)),
+        ("tile576_576_128", (1, 576, 576, 128), ("bf16",)),
+    ]
+    stats, applies, ups = [], [], []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, (n, h, w, c), dts in shapes:
+        for dt in dts:
+            x, gamma, beta = vae_inputs(gen, dt, n, h, w, c)
+            x_cl = x.permute(0, 3, 1, 2)
+            esize = x.element_size()
+            with torch.no_grad():
+                a, b = gn_affine(x, gamma, beta)
+                torch.cuda.synchronize()
+                a_ref, b_ref = gn_affine_plain(x, gamma, beta)
+                scale = max(a_ref.abs().max().item(), b_ref.abs().max().item())
+                abs_err = max(max_err(a, a_ref), max_err(b, b_ref))
+                err = abs_err / scale
+                if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                    fail(f"gn_affine {name} {dt}: the fold is not finite")
+                ms = cuda_ms(lambda: gn_affine(x, gamma, beta))
+                plain_ms = cuda_ms(lambda: gn_affine_plain(x, gamma, beta), iters=3, warmup=1)
+                xg = x.view(n, h * w, 32, c // 32)
+                lib_ms = cuda_ms(lambda: torch.var_mean(xg, dim=(1, 3)))
+            b_ms, b_by = bound(esize * x.numel() + 8 * n * c, 3.0 * x.numel(), "f32")
+            rec = dict(name=name, dtype=dt, shape=[n, h, w, c], max_abs_err=abs_err, max_rel_err=err,
+                       rel_bound=FOLD_REL_BOUND, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by,
+                       gbytes_per_s=esize * x.numel() / ms / 1e6)
+            print(f"[gn_stats] {name:22s} {dt:4s} N,H,W,C={n},{h},{w},{c} max_abs_err(a,b)={abs_err:.3e} "
+                  f"rel_err={err:.3e} (bound {FOLD_REL_BOUND:.0e}) ms={ms:.4f} ({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
+                  f"var_mean_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            if not err <= FOLD_REL_BOUND:
+                fail(f"gn_affine {name} {dt}: fold differs from the plain version by {err} (relative)")
+            stats.append(rec)
+
+            for silu in (True, False):
+                gl, bl = gamma.to(x.dtype), beta.to(x.dtype)
+
+                def library():
+                    y = F.group_norm(x_cl, 32, gl, bl, 1e-6)
+                    return F.silu(y) if silu else y
+
+                with torch.no_grad():
+                    out = group_norm_silu(x, gamma, beta, silu=silu)
+                    torch.cuda.synchronize()
+                    err = max_err(out, group_norm_silu_plain(x, gamma, beta, silu=silu))
+                    if not torch.isfinite(out).all():
+                        fail(f"group_norm_silu {name} {dt}: kernel output is not finite")
+                    ms = cuda_ms(lambda: affine_silu(x, a, b, silu))
+                    plain_ms = cuda_ms(lambda: affine_silu_plain(x, a, b, silu), iters=3, warmup=1)
+                    both_ms = cuda_ms(lambda: group_norm_silu(x, gamma, beta, silu=silu))
+                    lib_ms = cuda_ms(library)
+                b_ms, b_by = bound(2 * esize * x.numel(), 6.0 * x.numel(), "f32")
+                rec = dict(name=name, dtype=dt, shape=[n, h, w, c], silu=silu, max_abs_err=err,
+                           bound=NORM_BOUNDS[dt], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                           bound_by=b_by, stats_and_apply_ms=both_ms, gbytes_per_s=2 * esize * x.numel() / ms / 1e6)
+                print(f"[gn_apply] {name:22s} {dt:4s} silu={silu!s:5s} max_abs_err={err:.3e} "
+                      f"(bound {NORM_BOUNDS[dt]:.1e}) ms={ms:.4f} ({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
+                      f"stats+apply_ms={both_ms:.4f} group_norm_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                if not err <= NORM_BOUNDS[dt]:
+                    fail(f"group_norm_silu {name} {dt} silu={silu}: differs from the plain version by {err}")
+                applies.append(rec)
+                del out
+            del x, x_cl, xg
+
+    up_shapes = [("b4_64_512", (4, 64, 64, 512)), ("b4_128_512", (4, 128, 128, 512)), ("b4_256_256", (4, 256, 256, 256)),
+                 ("tile576_72_512", (1, 72, 72, 512)), ("tile576_144_512", (1, 144, 144, 512)),
+                 ("tile576_288_256", (1, 288, 288, 256))]
+    for name, (n, h, w, c) in up_shapes:
+        x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(torch.bfloat16)
+        x_cl = x.permute(0, 3, 1, 2)
+        out = upsample2x_nearest(x)
+        torch.cuda.synchronize()
+        err = max_err(out, upsample2x_nearest_plain(x))
+        ms = cuda_ms(lambda: upsample2x_nearest(x))
+        plain_ms = cuda_ms(lambda: upsample2x_nearest_plain(x))
+        lib_ms = cuda_ms(lambda: F.interpolate(x_cl, scale_factor=2, mode="nearest"))
+        b_ms, b_by = bound(5 * 2 * x.numel(), 0.0, "bf16")
+        rec = dict(name=name, dtype="bf16", shape=[n, h, w, c], max_abs_err=err, bound=0.0, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, gbytes_per_s=10 * x.numel() / ms / 1e6)
+        print(f"[upsample] {name:22s} bf16 N,H,W,C={n},{h},{w},{c} max_abs_err={err:.1e} (exact) ms={ms:.4f} "
+              f"({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} interpolate_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if err != 0.0:
+            fail(f"upsample2x_nearest {name}: differs from the plain version by {err}")
+        ups.append(rec)
+        del x, x_cl, out
+    return stats, applies, ups
 
 
 def kernel_phase():
@@ -113,11 +364,16 @@ def kernel_phase():
                 plain_ms = cuda_ms(lambda: sdpa(q, k, v, kv_mask=mask))
                 attn_mask = None if mask is None else mask[:, None, None, :]
                 lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+            # the work this run's data needs: masked keys take no product
+            keys = b * nk if mask is None else int(mask.sum().item())
+            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), 4.0 * h * nq * keys * d, dt)
             rec = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=masked,
-                       max_abs_err=err, bound=BOUNDS[dt], ms=ms, plain_ms=plain_ms, torch_sdpa_ms=lib_ms)
+                       max_abs_err=err, bound=BOUNDS[dt], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
             print(f"[kernel] {name:17s} {dt:4s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} "
                   f"mask={masked!s:5s} max_abs_err={err:.3e} (bound {BOUNDS[dt]:.0e}) "
-                  f"ms={ms:.4f} sdpa_ms={plain_ms:.4f} torch_sdpa_ms={lib_ms:.4f}", flush=True)
+                  f"ms={ms:.4f} sdpa_ms={plain_ms:.4f} torch_sdpa_ms={lib_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
             if not err <= BOUNDS[dt]:
                 fail(f"{name} {dt}: kernel differs from sdpa by {err} > {BOUNDS[dt]}")
             records.append(rec)
@@ -125,12 +381,51 @@ def kernel_phase():
     return records
 
 
+def counters():
+    """name -> wrapper; each wrapper's ``launches`` counts its kernel launches."""
+    from instarevive_tpu_torch.ops.attention import flash_attention
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+    from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
+
+    return {"flash_attn_fwd": flash_attention, "gn_silu_conv3x3": gn_silu_conv3x3, "gn_stats_fold": gn_affine,
+            "gn_apply": group_norm_silu, "upsample2x": upsample2x_nearest}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int):
+    """Launches the configuration implies: per VAE encode 2 fused convs for
+    each of levels * blocks + 2 ResnetBlocks, per decode levels * (blocks + 1)
+    + 2; one moments launch inside every fused conv and one for each of the
+    two standalone norms of an encode or a decode, which also launch the
+    apply kernel; levels - 1 upsamples per decode; attention twice per DiT
+    block and once per VAE mid block."""
+    levels, blocks = len(pipe.vae.ch_mult), len(pipe.vae.encoder.down[0].block)
+    convs = encodes * 2 * (levels * blocks + 2) + decodes * 2 * (levels * (blocks + 1) + 2)
+    norms = 2 * (encodes + decodes)
+    return {"flash_attn_fwd": dit_forwards * 2 * pipe.dit.depth + encodes + decodes, "gn_silu_conv3x3": convs,
+            "gn_stats_fold": convs + norms, "gn_apply": norms, "upsample2x": decodes * (levels - 1)}
+
+
+def check_counts(what: str, pipe, dit_forwards: int, encodes: int, decodes: int):
+    got, want = read_counts(), expected_counts(pipe, dit_forwards, encodes, decodes)
+    if got != want:
+        fail(f"{what}: kernel launches {got}, expected {want}")
+    return got
+
+
 def small_pipeline_phase(cfg_full):
     """Full widths, cut depth: f32 on the card against f32 on the CPU."""
     import torch
 
     from instarevive_tpu_torch.config import merge
-    from instarevive_tpu_torch.ops.attention import flash_attention
     from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
 
     cfg = merge(cfg_full, {"swinir": {"depths": [2, 2], "num_heads": [6, 6]}, "dit": {"depth": 2}})
@@ -142,10 +437,9 @@ def small_pipeline_phase(cfg_full):
         gpu.load_state_dict(sd)
         lq = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(3))
         y = cpu.dit.y_embedder.y_embedding[:300][None].repeat(2, 1, 1)
-        before = flash_attention.launches
+        reset_counts()
         outs[label] = gpu.process(lq.cuda(), y.cuda()).cpu()
-        if flash_attention.launches - before != 2 * 2 + 2:
-            fail("small pipeline: attention did not go through the kernel")
+        check_counts(f"small pipeline {label}", gpu, 1, 1, 1)
     ref = cpu.process(lq, y)
     err32 = (outs["f32"] - ref).abs().max().item()
     err16 = (outs["bf16"] - ref).abs().max().item()
@@ -168,67 +462,74 @@ def check_image(out, shape, what):
         fail(f"{what}: output outside [0, 1]")
 
 
-def pipeline_phase(cfg):
+def tally_conv_shapes(call, what, conv_records, key):
+    """Run ``call`` with every kernel count at 0 and the fused convolution
+    tallying its launches by shape. Every shape the call gave the kernel must
+    be one the kernel phase held against the plain version; its measured
+    count goes into that record under ``key``. Returns the call's output."""
     import torch
 
-    from instarevive_tpu_torch.ops.attention import flash_attention
-    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
-    from instarevive_tpu_torch.pipelines.restore import auto_tile_geometry, tile_grid
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+
+    held = {tuple(r["shape"]): r for r in conv_records if r["dtype"] == "bf16"}
+    reset_counts()
+    gn_silu_conv3x3.shapes = {}
+    try:
+        out = call()
+        torch.cuda.synchronize()
+        seen = gn_silu_conv3x3.shapes
+    finally:
+        gn_silu_conv3x3.shapes = None
+    missing = sorted(set(seen) - set(held))
+    if missing:
+        fail(f"{what}: gn_silu_conv3x3 ran at shapes the kernel phase did not hold: {missing}")
+    if sum(seen.values()) != gn_silu_conv3x3.launches:
+        fail(f"{what}: {sum(seen.values())} launches tallied by shape, {gn_silu_conv3x3.launches} counted")
+    for shape, rec in held.items():
+        rec[key] = seen.get(shape, 0)
+    print(f"[pipeline] {what}: gn_silu_conv3x3 launches by (N, H, W, C, Co): "
+          + ", ".join(f"{k}x{v}" for k, v in sorted(seen.items())), flush=True)
+    return out
+
+
+def pipeline_phase(conv_records):
+    import torch
+
+    from instarevive_tpu_torch.pipelines.restore import tile_grid
+    from instarevive_tpu_torch.tools.time_restore import build_v1, wall
 
     t0 = time.time()
-    pipe = init_params(build_pipeline(cfg, dtype=torch.bfloat16, device="cuda"), seed=0)
+    v1 = build_v1(REPO)
     torch.cuda.synchronize()
     print(f"[pipeline] built instarevive_v1 in bf16 with seeded random weights in {time.time() - t0:.1f}s", flush=True)
-    depth = pipe.dit.depth
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    b, size = 4, 512
-    lq = torch.rand(b, size, size, 3, device="cuda", generator=gen)
-    y = pipe.dit.y_embedder.y_embedding[:300][None].float().repeat(b, 1, 1)
+    b, size = v1.batch, v1.size
 
-    flash_attention.launches = 0
-    out = pipe.process(lq, y)
-    torch.cuda.synchronize()
-    launches = flash_attention.launches
+    out = tally_conv_shapes(v1.process, "process", conv_records, "launches_process")
+    launches = check_counts("process", v1.pipe, 1, 1, 1)
     check_image(out, (b, size, size, 3), "process")
-    if launches != 2 * depth + 2:
-        fail(f"process launched the kernel {launches} times, expected {2 * depth + 2}")
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        t = time.time()
-        pipe.process(lq, y)
-        torch.cuda.synchronize()
-        times.append(time.time() - t)
+    times = wall(v1.process, 3)
     sec = sorted(times)[1]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[pipeline] process 4x512x512: kernel launches={launches} (= 2*depth+2), "
+    print(f"[pipeline] process 4x512x512: kernel launches={launches} (as the configuration implies), "
           f"warm s/batch={sec:.4f} (runs {', '.join(f'{t:.4f}' for t in times)}), "
           f"MP/s={b * size * size / 1e6 / sec:.3f}, peak allocated={peak:.2f} GiB", flush=True)
 
-    tile, stride = auto_tile_geometry(1024, 1024)
-    n_tiles = len(tile_grid(128, 128, tile // 8, stride // 8))
-    lq1 = torch.rand(1, 1024, 1024, 3, device="cuda", generator=gen)
-    y1 = y[:1]
-    expected = 1 + -(-n_tiles // 4) * 2 * depth + n_tiles
-    flash_attention.launches = 0
-    out1 = pipe.process_tiled(lq1, y1, tile_size=tile, tile_stride=stride)
-    torch.cuda.synchronize()
-    tiled_launches = flash_attention.launches
-    check_image(out1, (1, 1024, 1024, 3), "process_tiled")
-    if tiled_launches != expected:
-        fail(f"process_tiled launched the kernel {tiled_launches} times, expected {expected}")
+    tile, stride, large = v1.tile, v1.stride, v1.large
+    n_tiles = len(tile_grid(large // 8, large // 8, tile // 8, stride // 8))
+    out1 = tally_conv_shapes(v1.process_tiled, "process_tiled", conv_records, "launches_tiled")
+    # one encode of the whole image, a DiT forward per 4 tiles, a decode per tile
+    tiled_launches = check_counts("process_tiled", v1.pipe, -(-n_tiles // 4), 1, n_tiles)
+    check_image(out1, (1, large, large, 3), "process_tiled")
     torch.cuda.reset_peak_memory_stats()
-    t = time.time()
-    pipe.process_tiled(lq1, y1, tile_size=tile, tile_stride=stride)
-    torch.cuda.synchronize()
-    sec1 = time.time() - t
+    sec1 = wall(v1.process_tiled, 1)[0]
     peak1 = torch.cuda.max_memory_allocated() / 2**30
     print(f"[pipeline] process_tiled 1x1024x1024 tile {tile}/{stride} ({n_tiles} tiles): "
-          f"kernel launches={tiled_launches}, warm s={sec1:.4f}, MP/s={1024 * 1024 / 1e6 / sec1:.3f}, "
+          f"kernel launches={tiled_launches}, warm s={sec1:.4f}, MP/s={large * large / 1e6 / sec1:.3f}, "
           f"peak allocated={peak1:.2f} GiB", flush=True)
-    del pipe
+    del v1
     torch.cuda.empty_cache()
-    return launches
+    return launches, tiled_launches
 
 
 def cli_phase():
@@ -254,6 +555,27 @@ def cli_phase():
         print(f"[cli] wrote {made} in {time.time() - t:.1f}s, sizes (w, h) {got}", flush=True)
 
 
+def kernel_entry(name, source, replaces, launches, tiled_launches, records, main_name):
+    """One entry of the ``kernels`` line: the main-path shape's times at top
+    level, the largest bf16 error over all shapes, every shape below."""
+    main_rec = next(r for r in records if r["name"] == main_name and r["dtype"] == "bf16")
+    bf16 = [r for r in records if r["dtype"] == "bf16"]
+    entry = {
+        "name": name, "route": "cuda", "source": f"instarevive_tpu_torch/csrc/{source}", "replaces": replaces,
+        "launches": launches[name], "launches_tiled": tiled_launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16),
+        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+        "main_shape": main_rec["shape"], "shapes": records,
+    }
+    if "max_rel_err" in main_rec:  # the fold is held to a relative bound
+        entry["max_rel_err"] = max(r["max_rel_err"] for r in bf16)
+    for key in ("includes", "conv_only_ms"):  # the fused convolution's ms covers its moments launches
+        if key in main_rec:
+            entry[key] = main_rec[key]
+    return entry
+
+
 def main() -> None:
     import torch
 
@@ -261,38 +583,42 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, REPO)
     from instarevive_tpu_torch.config import load_config
-    from instarevive_tpu_torch.ops import attention as attn_mod
     from instarevive_tpu_torch.ops import cuda_build
+    from instarevive_tpu_torch.pipelines.build import set_precision
 
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
-    t = time.time()
-    cached = cuda_build.library_path("flash_attn_fwd", ["flash_attn_fwd.cu"]).exists()
-    attn_mod._kernel()
-    print(f"[build] flash_attn_fwd.cu for sm_90a: {time.time() - t:.1f}s"
-          f"{' (cached build)' if cached else ''}", flush=True)
+    for name, (seconds, cached, log) in cuda_build.build_libraries().items():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"[build] {', '.join(cuda_build.LIBRARIES[name])} for sm_90a: {seconds:.1f}s"
+              + (" (cached build)" if cached else f" (nvcc runs together; registers {regs}, spill stores {spills} B)"),
+              flush=True)
 
-    records = kernel_phase()
+    attn_records = kernel_phase()
+    conv_records = conv_phase()
+    stats_records, apply_records, up_records = norm_phase()
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
     small_pipeline_phase(cfg)
-    launches = pipeline_phase(cfg)
+    launches, tiled = pipeline_phase(conv_records)
     cli_phase()
 
-    main_rec = next(r for r in records if r["name"] == "dit_self" and r["dtype"] == "bf16")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "instarevive_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "instarevive_tpu/ops/attention.py:63",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in records if r["dtype"] == "bf16"),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "shapes": records,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
+                     launches, tiled, attn_records, "dit_self"),
+        kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
+                     launches, tiled, conv_records, "b4_512_128_128"),
+        kernel_entry("gn_stats_fold", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:77",
+                     launches, tiled, stats_records, "b4_512_128"),
+        kernel_entry("gn_apply", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:86",
+                     launches, tiled, apply_records, "b4_512_128"),
+        kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
+                     launches, tiled, up_records, "b4_256_256"),
+    ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

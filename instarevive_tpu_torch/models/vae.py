@@ -1,10 +1,23 @@
 """AutoencoderKL, the SD VAE (``instarevive_tpu/models/vae.py``).
 
 CompVis Encoder/Decoder with the reference key layout (``encoder.down.0.block.0.conv1``
-and so on). Public methods take and return NHWC; the convolutions run NCHW
-inside. GroupNorm is (32 groups, eps 1e-6) with f32 statistics. The single
-mid-block attention goes through ``attention``, hence the CUDA flash kernel
-on the card (head dim = 512 channels at the SD width).
+and so on). Public methods take and return NHWC. Inside, tensors are NCHW in
+shape and channels-last in memory: the NHWC input permuted to (0, 3, 1, 2) is
+such a tensor, the library convolutions keep the layout, and the port's
+kernels read the NHWC view, so nothing is transposed on the way.
+
+GroupNorm is (32 groups, eps 1e-6) with f32 statistics. On the card
+* both halves of every ResnetBlock, ``conv(silu(norm(x)))``, run as the fused
+  GN+SiLU+conv3x3 kernel (``ops/gn_conv.py``), as the JAX package's VAE does
+  under ``IR_GN_CONV``;
+* the norms it does not cover (``AttnBlock.norm``, ``norm_out`` + SiLU) run as
+  the moments and apply kernels (``ops/norm_kernels.py``);
+* the decoder's nearest upsamples run as the upsample kernel;
+* the mid-block attention runs as the flash kernel (``ops/attention.py``,
+  head dim = 512 channels at the SD width).
+The 1x1 convolutions, ``conv_in``, ``conv_out``, the stride-2 downsample and
+the convolution after an upsample are library convolutions. On the CPU each
+op runs its plain PyTorch version through the same code.
 """
 
 from __future__ import annotations
@@ -17,11 +30,19 @@ from torch import nn
 
 from instarevive_tpu_torch.nn.layers import Conv2d, GroupNorm
 from instarevive_tpu_torch.ops.attention import attention
-from instarevive_tpu_torch.ops.resize import interpolate
+from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+from instarevive_tpu_torch.ops.norm_kernels import upsample2x_nearest
 
 
 def _gn(ch: int) -> GroupNorm:
     return GroupNorm(32, ch, eps=1e-6)
+
+
+def _norm_silu_conv(norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(silu(norm(x)))`` for a 3x3 SAME ``conv``, through the fused op."""
+    w, bias = conv.hwio()
+    y = gn_silu_conv3x3(x.permute(0, 2, 3, 1), *norm.affine_f32(), w, bias, norm.num_groups, norm.eps)
+    return y.permute(0, 3, 1, 2)
 
 
 class ResnetBlock(nn.Module):
@@ -34,8 +55,8 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = _norm_silu_conv(self.norm1, self.conv1, x)
+        h = _norm_silu_conv(self.norm2, self.conv2, h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -56,12 +77,11 @@ class AttnBlock(nn.Module):
         b, c, h, w = x.shape
         y = self.norm(x)
 
-        def tokens(t):  # (B, C, H, W) -> (B, 1, HW, C)
-            return t.reshape(b, c, h * w).transpose(1, 2)[:, None]
+        def tokens(t):  # (B, C, H, W) channels-last -> (B, 1, HW, C), a view
+            return t.permute(0, 2, 3, 1).reshape(b, 1, h * w, c)
 
         out = attention(tokens(self.q(y)), tokens(self.k(y)), tokens(self.v(y)), scale=c**-0.5)
-        out = out[:, 0].transpose(1, 2).reshape(b, c, h, w)
-        return x + self.proj_out(out)
+        return x + self.proj_out(out.reshape(b, h, w, c).permute(0, 3, 1, 2))
 
 
 class _Level(nn.Module):
@@ -116,7 +136,7 @@ class Encoder(nn.Module):
                 # CompVis Downsample: asymmetric (0,1,0,1) pad + stride-2 VALID conv
                 h = level.downsample.conv(F.pad(h, (0, 1, 0, 1)))
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -143,8 +163,8 @@ class Decoder(nn.Module):
             for blk in level.block:
                 h = blk(h)
             if hasattr(level, "upsample"):
-                h = level.upsample.conv(interpolate(h, scale_factor=2, spatial_axes=(-2, -1)))
-        return self.conv_out(F.silu(self.norm_out(h)))
+                h = level.upsample.conv(upsample2x_nearest(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -5,18 +5,25 @@ layer with ``dtype=`` casts to its compute dtype, so one ``module.to(bf16)``
 turns a model into bf16 compute. ``LayerNorm`` and ``GroupNorm`` take their
 statistics in f32 whatever the activation dtype, as flax does. Parameter
 names are torch's own, so the reference checkpoints' keys load as they are.
+
+``GroupNorm`` runs through ``ops/norm_kernels.group_norm_silu`` (the CUDA
+moments and apply kernels on the card). What the kernels read in another
+form than the state dict holds (f32 norm vectors, HWIO conv weights) is
+derived once per module by ``derived`` and rebuilt when its source changes.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from instarevive_tpu_torch.ops.norm_kernels import group_norm_silu
 
 
 @lru_cache(maxsize=32)
@@ -26,6 +33,40 @@ def device_constant(make: Callable[..., np.ndarray], args: tuple, device: torch.
     a caller that records autograd may use it too."""
     with torch.inference_mode(False):
         return torch.from_numpy(make(*args)).to(device)
+
+
+def derived(module: nn.Module, name: str, sources: Sequence[torch.Tensor], make: Callable[[], object]):
+    """``make()`` cached on ``module`` under ``name`` until one of ``sources``
+    changes: an in-place write (an optimizer step, ``copy_``) bumps its
+    version, and ``DerivedCache`` drops the whole cache on ``.to(...)`` and
+    ``load_state_dict``. The cache is a plain attribute, not a buffer, so
+    state-dict keys stay as they are. Made outside inference mode, so any
+    later caller may use it."""
+    # An inference tensor has no version counter: written in place by other
+    # means than load_state_dict, it keeps its stale pack.
+    key = tuple((None if t.is_inference() else t._version, t.dtype, t.device, t.data_ptr()) for t in sources)
+    cache = module.__dict__.setdefault("_derived", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            hit = cache[name] = (key, make())
+    return hit[1]
+
+
+class DerivedCache:
+    """Mixin for a module that uses ``derived``: conversions (``.to``,
+    ``.cuda``, ``.half``: all go through ``_apply``) and ``load_state_dict``
+    drop the cache. The key alone would miss ``.to(bf16).to(float32)``
+    without a forward between, where version, dtype and device come back
+    and the allocator may hand back the old address."""
+
+    def _apply(self, *args, **kwargs):
+        self.__dict__.pop("_derived", None)
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.__dict__.pop("_derived", None)
+        return super()._load_from_state_dict(*args, **kwargs)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -38,11 +79,18 @@ class Linear(nn.Linear):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(DerivedCache, nn.Conv2d):
     """NCHW convolution computing in the weight's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x.to(self.weight.dtype), self.weight, self.bias)
+
+    def hwio(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weight as contiguous (kh, kw, Cin, Cout) in its own dtype, bias in
+        f32): what ``ops/gn_conv.gn_silu_conv3x3`` reads. Packed once, not
+        per call."""
+        return derived(self, "hwio", (self.weight, self.bias), lambda: (
+            self.weight.detach().permute(2, 3, 1, 0).contiguous(), self.bias.detach().float()))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -54,13 +102,20 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps).to(x.dtype)
 
 
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm on NCHW with f32 statistics; output in x.dtype."""
+class GroupNorm(DerivedCache, nn.GroupNorm):
+    """GroupNorm on NCHW with f32 statistics and an optional SiLU; output in
+    x.dtype. On the card x must lie channels-last in memory: the kernels read
+    its NHWC view, and nothing here copies a tensor into that layout."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(
-            x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps
-        ).to(x.dtype)
+    def affine_f32(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weight, bias) in f32, as the kernels read them."""
+        return derived(self, "affine_f32", (self.weight, self.bias),
+                       lambda: (self.weight.detach().float(), self.bias.detach().float()))
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        gamma, beta = self.affine_f32()
+        y = group_norm_silu(x.permute(0, 2, 3, 1), gamma, beta, self.num_groups, self.eps, silu)
+        return y.permute(0, 3, 1, 2)
 
 
 class Mlp(nn.Module):

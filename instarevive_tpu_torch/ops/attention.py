@@ -55,7 +55,7 @@ def sdpa(
 
 
 def _kernel():
-    fn = load_library("flash_attn_fwd", ["flash_attn_fwd.cu"]).flash_attn_fwd
+    fn = load_library("flash_attn_fwd").flash_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]

@@ -15,15 +15,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel, in the compiler's output
 )
+# Every library of the port: name -> sources, relative to ``csrc``.
+LIBRARIES: Dict[str, Tuple[str, ...]] = {
+    "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "norm_kernels": ("norm_kernels.cu",),
+    "gn_conv": ("gn_conv.cu",),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,19 +52,39 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``sources`` (paths relative to ``csrc``) unless a build of the
-    same sources exists, then load the library once per process."""
-    if name in _loaded:
-        return _loaded[name]
-    so = library_path(name, sources)
-    if not so.exists():
+def build_libraries(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, bool, str]]:
+    """Compile the named libraries of ``LIBRARIES`` (all by default) that have
+    no build of their current sources, one ``nvcc`` each, all started together.
+    Returns name -> (seconds until its compiler ended, whether a build was
+    already there, the compiler's output with the ptxas resource lines)."""
+    names = list(LIBRARIES if names is None else names)
+    start = time.time()
+    running, result = {}, {}
+    for name in names:
+        so = library_path(name, LIBRARIES[name])
+        if so.exists():
+            result[name] = (0.0, True, "")
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in LIBRARIES[name])]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cmd, tmp, so)
+    for name, (proc, cmd, tmp, so) in running.items():
+        out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+            for other, *_ in running.values():
+                if other.poll() is None:
+                    other.kill()
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
         os.replace(tmp, so)
-    _loaded[name] = ctypes.CDLL(str(so))
+        result[name] = (time.time() - start, False, out)
+    return result
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The named library of ``LIBRARIES``, compiled unless a build of its
+    current sources exists, and loaded once per process."""
+    if name not in _loaded:
+        build_libraries([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name, LIBRARIES[name])))
     return _loaded[name]

@@ -11,17 +11,52 @@ import pytest
 import torch
 
 from instarevive_tpu_torch.ops.attention import flash_attention, sdpa
+from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+from instarevive_tpu_torch.ops.norm_kernels import (
+    gn_affine, gn_affine_plain, group_norm_silu, group_norm_silu_plain, upsample2x_nearest,
+    upsample2x_nearest_plain,
+)
+from instarevive_tpu_torch.pipelines.build import set_precision
 
 # bf16: both outputs rounded to bf16 and P rounded to bf16 before P.V in the
 # kernel; f32: summation order only (V in [-1, 1], so |out| <= 1).
 BOUNDS = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
+# The VAE kernels against their plain versions. Inputs are N(offset, scale^2)
+# per channel, so |normalised x| stays under about 5 and, with weights of
+# variance 1/(9C), |out| under about 4.
+# f32: the kernels and the plain versions sum in other orders; 2e-4.
+# bf16 norm: both round one f32 value of size <= 8 to bf16 (spacing 2^-5
+# there), and the two f32 values differ by summation order, which can move a
+# value across a rounding boundary: one bf16 step, 3.2e-2.
+# bf16 conv: as above for the output (|out| < 4: step 1.6e-2), plus the few
+# activations among 9C that the two versions round to neighbouring bf16
+# values before the products; 4e-2.
+NORM_BOUNDS = {torch.bfloat16: 3.2e-2, torch.float32: 2e-4}
+CONV_BOUNDS = {torch.bfloat16: 4e-2, torch.float32: 2e-4}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    set_precision()  # the plain versions' f32 convolutions stay out of TF32
     return torch.device("cuda")
+
+
+def _vae_inputs(cuda, dtype, n, h, w, c, co=None, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    offset = torch.randn(c, device=cuda, generator=gen)
+    scale = torch.rand(c, device=cuda, generator=gen) + 0.5
+    x = (torch.randn(n, h, w, c, device=cuda, generator=gen) * scale + offset).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=cuda, generator=gen)
+    beta = 0.1 * torch.randn(c, device=cuda, generator=gen)
+    if co is None:
+        return x, gamma, beta
+    wk = (torch.randn(3, 3, c, co, device=cuda, generator=gen) * (9 * c) ** -0.5).to(dtype)
+    bias = 0.1 * torch.randn(co, device=cuda, generator=gen)
+    return x, gamma, beta, wk, bias
 
 
 @pytest.mark.cuda
@@ -60,3 +95,109 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
     q = torch.randn(1, 2, 8, 72, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("n,h,w,c", [(2, 64, 64, 512), (1, 37, 53, 96), (3, 2, 3, 32), (1, 300, 200, 1024)])
+def test_group_norm_silu_matches_plain(cuda, dtype, silu, n, h, w, c):
+    x, gamma, beta = _vae_inputs(cuda, dtype, n, h, w, c)
+    stats, applies = gn_affine.launches, group_norm_silu.launches
+    a, b = gn_affine(x, gamma, beta)
+    out = group_norm_silu(x, gamma, beta, silu=silu)
+    torch.cuda.synchronize()
+    assert (gn_affine.launches, group_norm_silu.launches) == (stats + 2, applies + 1)
+    a_ref, b_ref = gn_affine_plain(x, gamma, beta)
+    torch.testing.assert_close(a, a_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(b, b_ref, atol=1e-5, rtol=1e-5)
+    ref = group_norm_silu_plain(x, gamma, beta, silu=silu)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert (out.float() - ref.float()).abs().max().item() <= NORM_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+def test_gn_affine_is_finite_on_a_constant_input_and_repeats(cuda):
+    x = torch.full((1, 64, 64, 64), 3.1415927, device=cuda)
+    a, b = gn_affine(x, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    x, gamma, beta = _vae_inputs(cuda, torch.bfloat16, 1, 256, 256, 128)
+    first = gn_affine(x, gamma, beta)
+    for _ in range(3):  # no atomics: bit-equal from run to run
+        again = gn_affine(x, gamma, beta)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.int32])
+@pytest.mark.parametrize("n,h,w,c", [(2, 64, 64, 512), (1, 5, 7, 32), (1, 1, 1, 8)])
+def test_upsample2x_matches_plain(cuda, dtype, n, h, w, c):
+    x = (torch.randn(n, h, w, c, device=cuda) * 100).to(dtype)
+    before = upsample2x_nearest.launches
+    out = upsample2x_nearest(x)
+    torch.cuda.synchronize()
+    assert upsample2x_nearest.launches == before + 1
+    assert torch.equal(out, upsample2x_nearest_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "n,h,w,c,co",
+    [
+        (2, 64, 64, 512, 512),
+        (1, 72, 72, 256, 128),   # the 576 tile's latent size: ragged against the 8 x 16 pixel tile
+        (2, 9, 21, 128, 256),    # odd H and W
+        (1, 1, 1, 32, 32),
+        (1, 3, 40, 96, 96),      # C, Co multiples of 32 only: the 64-wide channel tile, ragged
+        (1, 16, 16, 64, 160),
+    ],
+)
+def test_gn_silu_conv3x3_matches_plain(cuda, dtype, n, h, w, c, co):
+    x, gamma, beta, wk, bias = _vae_inputs(cuda, dtype, n, h, w, c, co)
+    convs, stats = gn_silu_conv3x3.launches, gn_affine.launches
+    out = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+    torch.cuda.synchronize()
+    assert (gn_silu_conv3x3.launches, gn_affine.launches) == (convs + 1, stats + 1)
+    ref = gn_silu_conv3x3_plain(x, gamma, beta, wk, bias)
+    assert out.dtype == dtype and out.shape == (n, h, w, co) and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= CONV_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_silu_conv3x3_pads_with_zero_after_the_silu(cuda, dtype):
+    """A constant image with beta != 0 normalises to beta everywhere. With ones
+    for weights, an interior pixel sums 9 C silu(beta) and a corner 4 C: a halo
+    of silu(beta) instead of zero would give 9 C at the corner too."""
+    c = 64
+    x = torch.full((1, 8, 20, c), 0.5, device=cuda, dtype=dtype)
+    beta = torch.full((c,), 1.5, device=cuda)
+    wk = torch.full((3, 3, c, 32), 1.0 / 64, device=cuda, dtype=dtype)
+    out = gn_silu_conv3x3(x, torch.ones(c, device=cuda), beta, wk, torch.zeros(32, device=cuda)).float()
+    s = torch.nn.functional.silu(beta[0]).to(dtype).float().item()
+    for (yy, xx), taps in (((3, 9), 9), ((0, 0), 4), ((7, 19), 4), ((0, 5), 6), ((4, 19), 6)):
+        assert abs(out[0, yy, xx, 0].item() - taps * s) <= 2e-2 * taps * s, (yy, xx)
+
+
+@pytest.mark.cuda
+def test_vae_kernels_refuse_what_they_cannot_run(cuda):
+    x, gamma, beta, wk, bias = _vae_inputs(cuda, torch.bfloat16, 1, 8, 8, 64, 64)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        gn_silu_conv3x3(x[..., :48].contiguous(), gamma[:48], beta[:48], wk[:, :, :48].contiguous(), bias)
+    with pytest.raises(ValueError, match="contiguous as NHWC"):
+        gn_silu_conv3x3(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), gamma, beta, wk, bias)
+    with pytest.raises(ValueError, match="contiguous as NHWC"):
+        group_norm_silu(x[:, :, ::2], gamma, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_silu_conv3x3(x, gamma, beta, wk.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_silu_conv3x3(x, gamma, beta, wk.float(), bias)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gn_silu_conv3x3(x.float().requires_grad_(), gamma, beta, wk.float(), bias)
+    with pytest.raises(RuntimeError, match="no backward"):
+        group_norm_silu(x, gamma.requires_grad_(), beta)
+    with pytest.raises(ValueError, match="16 bytes"):
+        upsample2x_nearest(x[..., :4].contiguous())
+    with pytest.raises(TypeError):
+        group_norm_silu(x.half(), gamma, beta)

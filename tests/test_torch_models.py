@@ -68,6 +68,47 @@ def test_vae_encode_decode_match_jax(pipes):
     np.testing.assert_allclose(timg.numpy(), np.asarray(img), atol=ATOL, rtol=0)
 
 
+def test_vae_runs_through_the_kernel_ops_in_channels_last(pipes, monkeypatch):
+    """The path the card takes, minus the kernels: every ResnetBlock half goes
+    through ``gn_silu_conv3x3``, the two other norms of an encode or a decode
+    through ``group_norm_silu`` and the decoder's upsamples through
+    ``upsample2x_nearest``, here with their plain versions called by name;
+    each is handed a contiguous NHWC view (a copy on the way would be a hidden
+    transpose on the card); the result is held against the JAX VAE."""
+    from instarevive_tpu_torch.models import vae as vae_mod
+    from instarevive_tpu_torch.nn import layers as layers_mod
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3_plain
+    from instarevive_tpu_torch.ops.norm_kernels import group_norm_silu_plain, upsample2x_nearest_plain
+
+    jpipe, params, tpipe = pipes
+    calls = {"conv": 0, "norm": 0, "up": 0}
+
+    def counted(kind, plain):
+        def op(x, *args, **kwargs):
+            assert x.is_contiguous() and x.dim() == 4, (kind, x.shape, x.stride())
+            calls[kind] += 1
+            return plain(x, *args, **kwargs)
+        return op
+
+    monkeypatch.setattr(vae_mod, "gn_silu_conv3x3", counted("conv", gn_silu_conv3x3_plain))
+    monkeypatch.setattr(layers_mod, "group_norm_silu", counted("norm", group_norm_silu_plain))
+    monkeypatch.setattr(vae_mod, "upsample2x_nearest", counted("up", upsample2x_nearest_plain))
+
+    x = _rand((2, 64, 64, 3), 6) * 2 - 1
+    vae = {"params": params["vae"]}
+    z = jax.jit(lambda p, a: jpipe.vae.apply(p, a, method=jpipe.vae.encode_mode))(vae, jnp.asarray(x))
+    img = jax.jit(lambda p, a: jpipe.vae.apply(p, a, method=jpipe.vae.decode))(vae, z)
+    levels, blocks = len(TINY["vae"]["ch_mult"]), TINY["vae"]["num_res_blocks"]
+    with torch.no_grad():
+        tz = tpipe.vae.encode_mode(torch.from_numpy(x))
+        assert calls == {"conv": 2 * (levels * blocks + 2), "norm": 2, "up": 0}
+        calls.update(conv=0, norm=0)
+        timg = tpipe.vae.decode(torch.from_numpy(np.array(z)))
+        assert calls == {"conv": 2 * (levels * (blocks + 1) + 2), "norm": 2, "up": levels - 1}
+    np.testing.assert_allclose(tz.numpy(), np.asarray(z), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(timg.numpy(), np.asarray(img), atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("lens", [None, [16, 5, 0]])
 def test_pixart_matches_jax(pipes, lens):
     """With no mask, and with a ragged caption mask holding an empty row."""
