@@ -9,15 +9,17 @@ PyTorch built for CUDA. It imports no JAX. In order it:
 1. prints the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
 2. builds the kernel libraries (``csrc/flash_attn_fwd.cu``,
-   ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``), one nvcc each, all started
-   together, and prints each build time with the registers and spills;
+   ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``, ``csrc/swin_attention.cu``),
+   one nvcc each, all started together, and prints each build time with the
+   registers and spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
    the same function: flash attention (K1), the fused GN+SiLU+conv3x3 (K3,
    with a border case that tells a zero halo from a ``silu(b)`` halo), the
-   GroupNorm moments and fold (K5a), the GroupNorm apply (K5b) and the
-   nearest 2x upsample (K5c);
+   GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
+   nearest 2x upsample (K5c) and the Swin window attention (K4, shifted and
+   unshifted, bf16 and f32);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
    the CPU, and holds the two against each other;
 5. builds the full-width ``configs/instarevive_v1.yaml`` pipeline in bf16
@@ -25,7 +27,12 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``process_tiled`` on a 1024x1024 image, checks the outputs and that every
    kernel was launched exactly as often as the configuration says, and
    prints seconds, MP/s and peak memory;
-6. runs the CLI (``python -m instarevive_tpu_torch.inference``) on two PNGs.
+6. runs the CLI (``python -m instarevive_tpu_torch.inference``) on two PNGs;
+7. starts the port's server (``instarevive_tpu_torch.serve``) in this process
+   at full width in bf16, sends it concurrent ``POST /restore`` requests in
+   two shape buckets, checks every answer and ``/healthz``, runs the demo's
+   restorer (``instarevive_tpu_torch.interface``) on one image, and holds one
+   answer of a depth-cut f32 server against ``process`` called directly.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -66,6 +73,14 @@ BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
 NORM_BOUNDS = {"bf16": 3.2e-2, "f32": 2e-4}
 CONV_BOUNDS = {"bf16": 4e-2, "f32": 2e-4}
 FOLD_REL_BOUND = 1e-5
+# Window attention against its plain version, v in [-1, 1] so |out| <= 1.
+# The bf16 kernel keeps 16 bits of P (two bf16 terms) and exact q, k, v, so
+# before the output is rounded it differs from the plain version's f32 value
+# by summation order only. Both then round to bf16: at most one bf16 step
+# below 1 apart, 2^-8 (4e-3); against the unrounded f32 reference the kernel
+# is within half a step, 2^-9, plus that order (2.1e-3). f32: order only, 1e-5.
+SWIN_BOUNDS = {"bf16": 4e-3, "f32": 1e-5}
+SWIN_F32_REF_BOUND = 2.1e-3
 # The card's published peaks (H100 SXM): device memory bytes/s, dense
 # tensor-core bf16 FLOP/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -304,7 +319,11 @@ def norm_phase():
 
     up_shapes = [("b4_64_512", (4, 64, 64, 512)), ("b4_128_512", (4, 128, 128, 512)), ("b4_256_256", (4, 256, 256, 256)),
                  ("tile576_72_512", (1, 72, 72, 512)), ("tile576_144_512", (1, 144, 144, 512)),
-                 ("tile576_288_256", (1, 288, 288, 256))]
+                 ("tile576_288_256", (1, 288, 288, 256)),
+                 # SwinIR's upsampler, 64 features: process at 4 x 512 x 512, then the tiled call's whole image
+                 ("swinir_b4_64_64", (4, 64, 64, 64)), ("swinir_b4_128_64", (4, 128, 128, 64)),
+                 ("swinir_b4_256_64", (4, 256, 256, 64)), ("swinir_b1_128_64", (1, 128, 128, 64)),
+                 ("swinir_b1_256_64", (1, 256, 256, 64)), ("swinir_b1_512_64", (1, 512, 512, 64))]
     for name, (n, h, w, c) in up_shapes:
         x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(torch.bfloat16)
         x_cl = x.permute(0, 3, 1, 2)
@@ -381,14 +400,111 @@ def kernel_phase():
     return records
 
 
+def swin_phase():
+    """K4 against its plain version (roll, partition, ``sdpa``, reverse, roll
+    back) at every shape the main path, the CLI and the server give it, plus
+    non-square maps and batch 1, shifted with the mask and unshifted without.
+    Yardsticks: ``library_ms`` is one ``F.scaled_dot_product_attention`` call
+    with the additive mask on already partitioned (B * nW, heads, 64, hd)
+    tensors; ``library_composition_ms`` is the whole composition around that
+    call (roll, partition, head split, the call, reverse, roll back). Returns
+    per-shape records."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops import window as W
+    from instarevive_tpu_torch.ops.swin_attention import swin_window_attention, swin_window_attention_plain
+
+    heads, hd, win = 6, 30, 8
+    c, n, scale = heads * hd, win * win, hd**-0.5
+    cases = [  # (name, (B, H, W), dtypes)
+        ("process_b4_64x64", (4, 64, 64), ("bf16", "f32")),
+        ("tiled_b1_128x128", (1, 128, 128), ("bf16", "f32")),
+        ("one_512_b1_64x64", (1, 64, 64), ("bf16", "f32")),
+        ("serve_b2_64x64", (2, 64, 64), ("bf16",)),
+        ("serve_b3_64x64", (3, 64, 64), ("bf16",)),
+        ("serve_b1_64x80", (1, 64, 80), ("bf16",)),
+        ("cli_b1_64x104", (1, 64, 104), ("bf16",)),
+        ("nonsquare_b1_64x48", (1, 64, 48), ("bf16", "f32")),
+        ("nonsquare_b2_64x48", (2, 64, 48), ("bf16",)),
+        ("small_b2_16x16", (2, 16, 16), ("bf16", "f32")),
+    ]
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, (b, h, w), dts in cases:
+        for dt in dts:
+            for shift in (0, win // 2):
+                dtype = getattr(torch, DTYPES[dt])
+                qkv = torch.randn(b, h, w, 3 * c, device="cuda", generator=gen)
+                qkv[..., 2 * c:] = torch.rand(b, h, w, c, device="cuda", generator=gen) * 2 - 1
+                qkv = qkv.to(dtype)
+                bias = 0.5 * torch.randn(heads, n, n, device="cuda", generator=gen)
+                mask = torch.from_numpy(W.shift_attn_mask(h, w, win, shift)).cuda() if shift else None
+
+                def split(x):  # today's route to the library call: roll, partition, head split
+                    x = W.cyclic_shift(x, shift) if shift else x
+                    return W.window_partition(x, win).reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+
+                add = bias[None] if mask is None else (bias[None] + mask[:, None]).repeat(b, 1, 1, 1)
+                add = add.to(dtype).expand(b * (h // win) * (w // win), heads, n, n)
+                q, k, v = (t.contiguous() for t in split(qkv))
+
+                def library():
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=scale)
+
+                def library_composition():
+                    o = F.scaled_dot_product_attention(*split(qkv), attn_mask=add, scale=scale)
+                    o = W.window_reverse(o.transpose(1, 2).reshape(-1, n, c), win, h, w)
+                    return W.cyclic_unshift(o, shift) if shift else o
+
+                with torch.no_grad():
+                    out = swin_window_attention(qkv, bias, mask, heads, win, scale, shift)
+                    torch.cuda.synchronize()
+                    ref = swin_window_attention_plain(qkv, bias, mask, heads, win, scale, shift)
+                    ref32 = swin_window_attention_plain(qkv.float(), bias, mask, heads, win, scale, shift)
+                    err, err32 = max_err(out, ref), max_err(out, ref32)
+                    lib_err = max_err(library_composition(), ref32)
+                    if not torch.isfinite(out).all():
+                        fail(f"swin_window_attention {name} {dt} shift={shift}: kernel output is not finite")
+                    ms = cuda_ms(lambda: swin_window_attention(qkv, bias, mask, heads, win, scale, shift), iters=50)
+                    plain_ms = cuda_ms(lambda: swin_window_attention_plain(qkv, bias, mask, heads, win, scale, shift),
+                                       iters=5, warmup=1)
+                    lib_ms = cuda_ms(library, iters=10)
+                    comp_ms = cuda_ms(library_composition, iters=10)
+                windows = b * (h // win) * (w // win)
+                nbytes = qkv.element_size() * (qkv.numel() + out.numel()) + 4 * (bias.numel() + (0 if mask is None else mask.numel()))
+                b_ms, b_by = bound(nbytes, 4.0 * windows * heads * n * n * hd, dt)
+                rec = dict(name=f"{name}_{'shifted' if shift else 'unshifted'}", dtype=dt, shape=[b, h, w, 3 * c],
+                           shift=shift, masked=mask is not None, max_abs_err=err, bound=SWIN_BOUNDS[dt],
+                           max_abs_err_vs_f32=err32, library_max_abs_err_vs_f32=lib_err, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_composition_ms=comp_ms, bound_ms=b_ms, bound_by=b_by,
+                           gbytes_per_s=nbytes / ms / 1e6)
+                print(f"[swin_attn] {rec['name']:30s} {dt:4s} B,H,W,3C={b},{h},{w},{3 * c} shift={shift} "
+                      f"max_abs_err={err:.3e} (bound {SWIN_BOUNDS[dt]:.0e}) vs_f32_reference={err32:.3e} "
+                      f"(library's {lib_err:.3e}) ms={ms:.4f} ({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
+                      f"torch_sdpa_ms={lib_ms:.4f} with_partition_and_rolls_ms={comp_ms:.4f} "
+                      f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                if not err <= SWIN_BOUNDS[dt]:
+                    fail(f"swin_window_attention {name} {dt} shift={shift}: kernel differs from the plain version "
+                         f"by {err} > {SWIN_BOUNDS[dt]}")
+                if dt == "bf16" and not err32 <= SWIN_F32_REF_BOUND:
+                    fail(f"swin_window_attention {name} shift={shift}: bf16 kernel is {err32} from the f32 "
+                         f"reference, over {SWIN_F32_REF_BOUND}")
+                records.append(rec)
+                del qkv, q, k, v, add, out, ref, ref32
+    return records
+
+
 def counters():
     """name -> wrapper; each wrapper's ``launches`` counts its kernel launches."""
     from instarevive_tpu_torch.ops.attention import flash_attention
     from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
     from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
+    from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
     return {"flash_attn_fwd": flash_attention, "gn_silu_conv3x3": gn_silu_conv3x3, "gn_stats_fold": gn_affine,
-            "gn_apply": group_norm_silu, "upsample2x": upsample2x_nearest}
+            "gn_apply": group_norm_silu, "upsample2x": upsample2x_nearest,
+            "swin_window_attention": swin_window_attention}
 
 
 def reset_counts() -> None:
@@ -400,8 +516,10 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int):
-    """Launches the configuration implies: per VAE encode 2 fused convs for
+def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans: int = 1):
+    """Launches the configuration implies: per SwinIR forward one window
+    attention for every block and one upsample for every step of its
+    upsampler; per VAE encode 2 fused convs for
     each of levels * blocks + 2 ResnetBlocks, per decode levels * (blocks + 1)
     + 2; one moments launch inside every fused conv and one for each of the
     two standalone norms of an encode or a decode, which also launch the
@@ -410,12 +528,15 @@ def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int):
     levels, blocks = len(pipe.vae.ch_mult), len(pipe.vae.encoder.down[0].block)
     convs = encodes * 2 * (levels * blocks + 2) + decodes * 2 * (levels * (blocks + 1) + 2)
     norms = 2 * (encodes + decodes)
+    swin_blocks = sum(len(layer.residual_group.blocks) for layer in pipe.swinir.layers)
     return {"flash_attn_fwd": dit_forwards * 2 * pipe.dit.depth + encodes + decodes, "gn_silu_conv3x3": convs,
-            "gn_stats_fold": convs + norms, "gn_apply": norms, "upsample2x": decodes * (levels - 1)}
+            "gn_stats_fold": convs + norms, "gn_apply": norms,
+            "upsample2x": decodes * (levels - 1) + cleans * len(pipe.swinir.ups),
+            "swin_window_attention": cleans * swin_blocks}
 
 
-def check_counts(what: str, pipe, dit_forwards: int, encodes: int, decodes: int):
-    got, want = read_counts(), expected_counts(pipe, dit_forwards, encodes, decodes)
+def check_counts(what: str, pipe, dit_forwards: int, encodes: int, decodes: int, cleans: int = 1):
+    got, want = read_counts(), expected_counts(pipe, dit_forwards, encodes, decodes, cleans)
     if got != want:
         fail(f"{what}: kernel launches {got}, expected {want}")
     return got
@@ -462,37 +583,47 @@ def check_image(out, shape, what):
         fail(f"{what}: output outside [0, 1]")
 
 
-def tally_conv_shapes(call, what, conv_records, key):
-    """Run ``call`` with every kernel count at 0 and the fused convolution
-    tallying its launches by shape. Every shape the call gave the kernel must
-    be one the kernel phase held against the plain version; its measured
-    count goes into that record under ``key``. Returns the call's output."""
+def tally_shapes(call, what, conv_records, swin_records, key=None):
+    """Run ``call`` with every kernel count at 0 and the window attention and
+    (unless ``conv_records`` is None) the fused convolution tallying their
+    launches by shape. Every shape the call gave a tallied kernel must be one
+    its phase held against the plain version; with ``key``, the measured count
+    goes into that record under it. Returns the call's output."""
     import torch
 
     from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+    from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
-    held = {tuple(r["shape"]): r for r in conv_records if r["dtype"] == "bf16"}
+    tallied = [(swin_window_attention, "(B, H, W, 3C, shift, masked)",
+                {(*r["shape"], r["shift"], r["masked"]): r for r in swin_records if r["dtype"] == "bf16"})]
+    if conv_records is not None:
+        tallied.append((gn_silu_conv3x3, "(N, H, W, C, Co)",
+                        {tuple(r["shape"]): r for r in conv_records if r["dtype"] == "bf16"}))
     reset_counts()
-    gn_silu_conv3x3.shapes = {}
+    for fn, _, _ in tallied:
+        fn.shapes = {}
     try:
         out = call()
         torch.cuda.synchronize()
-        seen = gn_silu_conv3x3.shapes
+        seen = [fn.shapes for fn, _, _ in tallied]
     finally:
-        gn_silu_conv3x3.shapes = None
-    missing = sorted(set(seen) - set(held))
-    if missing:
-        fail(f"{what}: gn_silu_conv3x3 ran at shapes the kernel phase did not hold: {missing}")
-    if sum(seen.values()) != gn_silu_conv3x3.launches:
-        fail(f"{what}: {sum(seen.values())} launches tallied by shape, {gn_silu_conv3x3.launches} counted")
-    for shape, rec in held.items():
-        rec[key] = seen.get(shape, 0)
-    print(f"[pipeline] {what}: gn_silu_conv3x3 launches by (N, H, W, C, Co): "
-          + ", ".join(f"{k}x{v}" for k, v in sorted(seen.items())), flush=True)
+        for fn, _, _ in tallied:
+            fn.shapes = None
+    for (fn, legend, held), shapes in zip(tallied, seen):
+        missing = sorted(set(shapes) - set(held))
+        if missing:
+            fail(f"{what}: {fn.__name__} ran at shapes its kernel phase did not hold: {missing}")
+        if sum(shapes.values()) != fn.launches:
+            fail(f"{what}: {fn.__name__}: {sum(shapes.values())} launches tallied by shape, {fn.launches} counted")
+        if key is not None:
+            for shape, rec in held.items():
+                rec[key] = shapes.get(shape, 0)
+        print(f"[pipeline] {what}: {fn.__name__} launches by {legend}: "
+              + ", ".join(f"{k}x{v}" for k, v in sorted(shapes.items())), flush=True)
     return out
 
 
-def pipeline_phase(conv_records):
+def pipeline_phase(conv_records, swin_records):
     import torch
 
     from instarevive_tpu_torch.pipelines.restore import tile_grid
@@ -504,7 +635,7 @@ def pipeline_phase(conv_records):
     print(f"[pipeline] built instarevive_v1 in bf16 with seeded random weights in {time.time() - t0:.1f}s", flush=True)
     b, size = v1.batch, v1.size
 
-    out = tally_conv_shapes(v1.process, "process", conv_records, "launches_process")
+    out = tally_shapes(v1.process, "process", conv_records, swin_records, "launches_process")
     launches = check_counts("process", v1.pipe, 1, 1, 1)
     check_image(out, (b, size, size, 3), "process")
     torch.cuda.reset_peak_memory_stats()
@@ -517,8 +648,8 @@ def pipeline_phase(conv_records):
 
     tile, stride, large = v1.tile, v1.stride, v1.large
     n_tiles = len(tile_grid(large // 8, large // 8, tile // 8, stride // 8))
-    out1 = tally_conv_shapes(v1.process_tiled, "process_tiled", conv_records, "launches_tiled")
-    # one encode of the whole image, a DiT forward per 4 tiles, a decode per tile
+    out1 = tally_shapes(v1.process_tiled, "process_tiled", conv_records, swin_records, "launches_tiled")
+    # SwinIR and one encode on the whole image, a DiT forward per 4 tiles, a decode per tile
     tiled_launches = check_counts("process_tiled", v1.pipe, -(-n_tiles // 4), 1, n_tiles)
     check_image(out1, (1, large, large, 3), "process_tiled")
     torch.cuda.reset_peak_memory_stats()
@@ -555,6 +686,124 @@ def cli_phase():
         print(f"[cli] wrote {made} in {time.time() - t:.1f}s, sizes (w, h) {got}", flush=True)
 
 
+def serve_phase(cfg_full, swin_records, process_launches):
+    """The port's server in this process, through the pieces its ``main`` puts
+    together. Full width in bf16: concurrent requests in two shape buckets,
+    every answer checked, ``/healthz`` held to the requests sent. Then a
+    depth-cut f32 server, one answer held against ``process`` called directly
+    on the same prepared image. Between them, the demo's restorer
+    (``interface.build_restorer``) on one image. ``process_launches`` is what
+    one ``process`` call of the full model launches."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from instarevive_tpu_torch import interface, serve
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+    from instarevive_tpu_torch.utils.image_io import prepare, png_bytes, to_uint8
+
+    def post(url, png):
+        body = json.dumps({"image": base64.b64encode(png).decode()}).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + "/restore", data=body), timeout=300) as r:
+            return np.asarray(Image.open(io.BytesIO(base64.b64decode(json.loads(r.read())["image"]))).convert("RGB"))
+
+    def health(url):
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    def serving(restore):
+        batcher = serve.Batcher(restore, max_batch=4, batch_window_ms=30)
+        server = serve.make_server(batcher, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return batcher, server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def stop(batcher, server, thread):
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close()
+        if thread.is_alive() or batcher.stats()["ok"]:
+            fail("serve: the server or its worker did not stop")
+
+    rng = np.random.default_rng(0)
+    sizes = [(512, 512)] * 8 + [(512, 640)]  # (h, w): eight of one bucket, one of another
+    images = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) for h, w in sizes]
+    pngs = [png_bytes(img) for img in images]
+
+    args = serve.parse_args(["--config", os.path.join(REPO, "configs", "instarevive_v1.yaml"), "--random_init"])
+    if (args.device, args.max_batch, args.batch_window_ms) != ("cuda", 4, 30):
+        fail(f"serve: defaults are {args}")
+    batcher, server, thread, url = serving(serve.build_restorer(args))
+    try:
+        post(url, pngs[0])  # warm: the first use of the bucket
+        base = health(url)
+
+        def burst():
+            with ThreadPoolExecutor(len(pngs)) as pool:
+                return list(pool.map(lambda png: post(url, png), pngs))  # an HTTP 500 or a timeout raises here
+
+        t0 = time.perf_counter()
+        answers = tally_shapes(burst, "serve", None, swin_records)  # batch sizes follow the arrivals
+        seconds = time.perf_counter() - t0
+        stats = health(url)
+    finally:
+        stop(batcher, server, thread)
+    served, batches = stats["served"] - base["served"], stats["batches"] - base["batches"]
+    for (h, w), out in zip(sizes, answers):
+        if out.shape != (h, w, 3) or out.dtype != np.uint8 or out.std() == 0:
+            fail(f"serve: a {h}x{w} request was answered with shape {out.shape}, std {out.std()}")
+    if stats["errors"] or not stats["ok"] or served != len(pngs) or not batches < served:
+        fail(f"serve: /healthz {stats} after {len(pngs)} requests (before them {base})")
+    counts = read_counts()
+    if any(v == 0 for v in counts.values()):
+        fail(f"serve: a kernel was not launched while serving: {counts}")
+    print(f"[serve] {card_line()}: instarevive_v1 bf16, {len(pngs)} concurrent POST /restore (8 of 512x512, 1 of "
+          f"512x640) in {seconds:.3f}s = {len(pngs) / seconds:.2f} requests/s, PNG coding included; {batches} batches, "
+          f"mean batch size {served / batches:.2f}; kernel launches {counts}", flush=True)
+    torch.cuda.empty_cache()
+
+    # the demo's restorer, as its entry point builds it: the same flags, one image at a time
+    demo = interface.build_restorer(interface.parse_args(["--config", args.config, "--random_init"]))
+    reset_counts()
+    restored = demo(images[-1], "adain")
+    if read_counts() != process_launches:  # one process call, whatever the batch
+        fail(f"interface: kernel launches {read_counts()}, expected {process_launches}")
+    if restored.size != images[-1].size or np.asarray(restored).std() == 0:
+        fail(f"interface: a {images[-1].size} image came back as {restored.size}")
+    print(f"[serve] interface.build_restorer on the card: {images[-1].size} -> {restored.size} (w, h), adain color fix",
+          flush=True)
+    del demo
+    torch.cuda.empty_cache()
+
+    cfg = merge(cfg_full, {"swinir": {"depths": [2, 2], "num_heads": [6, 6]}, "dit": {"depth": 2}})
+    pipe = init_params(build_pipeline(cfg, device="cuda"), seed=1)
+    y = pipe.dit.y_embedder.y_embedding[: pipe.dit.model_max_length][None].float()
+    batcher, server, thread, url = serving(serve.make_restorer(pipe, y))
+    try:
+        reset_counts()
+        got = post(url, pngs[-1])
+        small_counts = check_counts("serve, depth-cut f32", pipe, 1, 1, 1)
+        stats = health(url)
+    finally:
+        stop(batcher, server, thread)
+    x, th, tw = prepare(images[-1])
+    want = to_uint8(pipe.process(torch.from_numpy(x[None]).cuda(), y)[0, :th, :tw].cpu().numpy())
+    levels = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    print(f"[serve] depth-cut f32 server, one 512x640 request against process called directly: "
+          f"max difference {levels} of 255 levels (bound 1); kernel launches {small_counts}; /healthz {stats}", flush=True)
+    if got.shape != want.shape or levels > 1 or stats["served"] != 1 or stats["errors"]:
+        fail(f"serve: the served answer differs from process by {levels} levels (shapes {got.shape}, {want.shape})")
+    return len(pngs) / seconds, served / batches
+
+
 def kernel_entry(name, source, replaces, launches, tiled_launches, records, main_name):
     """One entry of the ``kernels`` line: the main-path shape's times at top
     level, the largest bf16 error over all shapes, every shape below."""
@@ -570,7 +819,8 @@ def kernel_entry(name, source, replaces, launches, tiled_launches, records, main
     }
     if "max_rel_err" in main_rec:  # the fold is held to a relative bound
         entry["max_rel_err"] = max(r["max_rel_err"] for r in bf16)
-    for key in ("includes", "conv_only_ms"):  # the fused convolution's ms covers its moments launches
+    # the fused convolution's ms covers its moments launches; the window attention has a second yardstick
+    for key in ("includes", "conv_only_ms", "library_composition_ms", "max_abs_err_vs_f32"):
         if key in main_rec:
             entry[key] = main_rec[key]
     return entry
@@ -602,10 +852,12 @@ def main() -> None:
     attn_records = kernel_phase()
     conv_records = conv_phase()
     stats_records, apply_records, up_records = norm_phase()
+    swin_records = swin_phase()
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
     small_pipeline_phase(cfg)
-    launches, tiled = pipeline_phase(conv_records)
+    launches, tiled = pipeline_phase(conv_records, swin_records)
     cli_phase()
+    serve_phase(cfg, swin_records, launches)
 
     print(json.dumps({"kernels": [
         kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
@@ -618,6 +870,8 @@ def main() -> None:
                      launches, tiled, apply_records, "b4_512_128"),
         kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
                      launches, tiled, up_records, "b4_256_256"),
+        kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
+                     launches, tiled, swin_records, "process_b4_64x64_shifted"),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

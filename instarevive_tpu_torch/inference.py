@@ -20,13 +20,22 @@ import time
 import numpy as np
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The flags ``load_pipeline`` reads, shared by every entry point."""
+    p.add_argument("--config", type=str, default="configs/instarevive_v1.yaml")
     p.add_argument("--ckpt", type=str, default=None, help="DiT state dict (reference native keys)")
     p.add_argument("--swinir_ckpt", type=str, default=None)
     p.add_argument("--vae_ckpt", type=str, default=None)
     p.add_argument("--null_embed", type=str, default=None, help="cached T5 null-prompt embedding")
-    p.add_argument("--config", type=str, default="configs/instarevive_v1.yaml")
+    p.add_argument("--random_init", action="store_true",
+                   help="seeded random weights (smoke runs without checkpoints)")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--bf16", action="store_true", help="bf16 compute on the CPU too")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_model_args(p)
     p.add_argument("--input", type=str, required=True)
     p.add_argument("--output", type=str, required=True)
     p.add_argument("--sr_scale", type=float, default=1.0)
@@ -42,11 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--show_lq", action="store_true")
     p.add_argument("--skip_if_exist", action="store_true")
     p.add_argument("--seed", type=int, default=231)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--use_center_crop", action="store_true")
-    p.add_argument("--random_init", action="store_true",
-                   help="seeded random weights (smoke runs without checkpoints)")
-    p.add_argument("--bf16", action="store_true", help="bf16 compute on the CPU too")
     return p.parse_args(argv)
 
 
@@ -70,19 +75,17 @@ def _load_null_embed(path: str) -> np.ndarray:
     return arr
 
 
-def main(argv=None):
-    args = parse_args(argv)
-
+def load_pipeline(args):
+    """What every entry point of the port builds from its flags (``config``,
+    ``device``, ``bf16``, ``random_init``, the checkpoint paths,
+    ``null_embed``): the pipeline on the device, in bf16 on the card, with its
+    weights, and the (1, L, C) null-prompt embedding ``y``. Exits when asked
+    for a card that is not there."""
     import torch
-    from PIL import Image
 
     from instarevive_tpu_torch.config import load_config
     from instarevive_tpu_torch.pipelines.build import (
         build_pipeline, init_params, load_checkpoint, load_state_dicts,
-    )
-    from instarevive_tpu_torch.pipelines.restore import auto_tile_geometry
-    from instarevive_tpu_torch.utils.image_io import (
-        auto_resize, center_crop_arr, list_image_files, load_image, pad_to_multiple, save_image,
     )
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -110,6 +113,22 @@ def main(argv=None):
     else:
         # the checkpoint's learned unconditional caption embedding
         y = pipe.dit.y_embedder.y_embedding[:L][None].float()
+    return pipe, y
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+    from PIL import Image
+
+    from instarevive_tpu_torch.pipelines.restore import auto_tile_geometry
+    from instarevive_tpu_torch.utils.image_io import (
+        auto_resize, center_crop_arr, list_image_files, load_image, pad_to_multiple, save_image,
+    )
+
+    pipe, y = load_pipeline(args)
+    device = y.device
 
     os.makedirs(args.output, exist_ok=True)
     files = list_image_files(args.input) if os.path.isdir(args.input) else [args.input]

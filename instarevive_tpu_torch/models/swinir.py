@@ -3,36 +3,48 @@
 The InstaRevive configuration: 8x pixel-unshuffle input, embed 180, 8 RSTB x
 6 blocks, window 8, mlp_ratio 2, ``nearest+conv`` upsampler x8, so net 1x.
 
-This is the plain Swin formulation: each block rolls the NHWC map for a
-shifted window, partitions it into windows, attends and reverses. The JAX
-package keeps tokens window-resident across each RSTB instead, a TPU layout
-workaround that computes the same function. Window attention carries an f32
-relative-position bias (and the shift mask), so it runs the plain ``sdpa``
-with f32 scores and softmax, as the JAX default path does in XLA.
+Tokens stay a spatial NHWC map from end to end. A block's attention is
+``qkv`` Linear -> the fused window-attention op (``ops/swin_attention.py``: on
+the card one CUDA kernel that partitions into windows, splits heads, adds the
+relative-position bias and the shift mask to f32 scores, takes the softmax and
+P.V, and folds the cyclic shift into its addressing) -> ``proj`` Linear: no
+roll, partition or reverse runs here. The JAX package keeps tokens
+window-resident across each RSTB instead, a TPU layout choice that computes
+the same function. The ``(heads, N, N)`` f32 bias is gathered from the table
+once per module (``nn.layers.derived``), the shift mask once per geometry.
+
+The convolutions run on NCHW views of the NHWC map, channels-last in memory
+(``build_pipeline`` lays their weights out alike), so no transposes run
+around them; the upsampler's nearest 2x is the NHWC upsample kernel
+(``ops/norm_kernels.upsample2x_nearest``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instarevive_tpu_torch.nn.layers import Conv2d, LayerNorm, Linear, Mlp, device_constant
+from instarevive_tpu_torch.nn.layers import (
+    Conv2d, DerivedCache, LayerNorm, Linear, Mlp, derived, device_constant, pixel_unshuffle,
+)
 from instarevive_tpu_torch.ops import window as W
-from instarevive_tpu_torch.ops.attention import sdpa
-from instarevive_tpu_torch.ops.resize import interpolate
+from instarevive_tpu_torch.ops.norm_kernels import upsample2x_nearest
+from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
 _RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 
 def _nhwc_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on an NHWC map: the permuted view is a channels-last NCHW
+    tensor, and so is the result, whose view back is contiguous NHWC."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-class WindowAttention(nn.Module):
-    """W-MSA with a relative-position bias over (B*nW, N, C) window tokens."""
+class WindowAttention(DerivedCache, nn.Module):
+    """W-MSA with a relative-position bias on an NHWC map."""
 
     def __init__(self, dim: int, window: int, num_heads: int):
         super().__init__()
@@ -44,19 +56,24 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window - 1) ** 2, num_heads)
         )
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        """x: (B*nW, N, C); mask: (nW, N, N) additive f32 or None."""
-        b_, n, c = x.shape
-        h = self.num_heads
-        q, k, v = self.qkv(x).reshape(b_, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        idx = device_constant(W.relative_position_index, (self.window,), x.device).reshape(-1)
-        bias = self.relative_position_bias_table.float()[idx].reshape(n, n, h).permute(2, 0, 1)
-        bias = bias[None]  # (1, heads, N, N)
-        if mask is not None:
-            nw = mask.shape[0]
-            bias = (bias + mask[:, None]).repeat(b_ // nw, 1, 1, 1)  # (B*nW, heads, N, N)
-        out = sdpa(q, k, v, bias=bias, scale=(c // h) ** -0.5)
-        return self.proj(out.transpose(1, 2).reshape(b_, n, c))
+    def bias(self) -> torch.Tensor:
+        """The table gathered to (heads, N, N) f32, as the attention op reads
+        it. Packed once, not per call."""
+        table = self.relative_position_bias_table
+
+        def make():
+            n = self.window**2
+            idx = device_constant(W.relative_position_index, (self.window,), table.device).reshape(-1)
+            return table.detach().float()[idx].reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
+
+        return derived(self, "bias", (table,), make)
+
+    def forward(self, x: torch.Tensor, shift: int = 0, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, H, W, C); mask: (nW, N, N) additive f32 for the windows of
+        the map rolled by ``-shift``, or None."""
+        hd = x.shape[-1] // self.num_heads
+        out = swin_window_attention(self.qkv(x), self.bias(), mask, self.num_heads, self.window, hd**-0.5, shift)
+        return self.proj(out)
 
 
 class SwinBlock(nn.Module):
@@ -73,16 +90,8 @@ class SwinBlock(nn.Module):
         b, h, w, c = x.shape
         win = self.window
         shift = self.shift if min(h, w) > win else 0
-        y = self.norm1(x)
-        mask = None
-        if shift > 0:
-            y = W.cyclic_shift(y, shift)
-            mask = device_constant(W.shift_attn_mask, (h, w, win, shift), x.device)
-        y = self.attn(W.window_partition(y, win), mask)
-        y = W.window_reverse(y, win, h, w)
-        if shift > 0:
-            y = W.cyclic_unshift(y, shift)
-        x = x + y
+        mask = device_constant(W.shift_attn_mask, (h, w, win, shift), x.device) if shift > 0 else None
+        x = x + self.attn(self.norm1(x), shift, mask)
         return x + self.mlp(self.norm2(x))
 
 
@@ -168,16 +177,19 @@ class SwinIR(nn.Module):
         mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
         x = (x - mean) * self.img_range
 
-        feat = self.conv_first(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # NHWC
+        if self.us > 1:  # the unshuffle in NHWC; conv_first[0] is its NCHW twin, kept for the key layout
+            feat = _nhwc_conv(self.conv_first[1], pixel_unshuffle(x, self.us))
+        else:
+            feat = _nhwc_conv(self.conv_first, x)
         deep = self.patch_embed.norm(feat)
         for layer in self.layers:
             deep = layer(deep)
         deep = _nhwc_conv(self.conv_after_body, self.norm(deep))
-        feat = (feat + deep).permute(0, 3, 1, 2)  # NCHW for the upsampler
+        feat = (feat + deep).permute(0, 3, 1, 2)  # NCHW in shape, channels-last in memory, for the upsampler
 
         feat = self.conv_before_upsample(feat)
         for name in self.ups:
-            up = interpolate(feat, scale_factor=2, spatial_axes=(-2, -1))
+            up = upsample2x_nearest(feat.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             feat = F.leaky_relu(getattr(self, name)(up), 0.2)
         feat = F.leaky_relu(self.conv_hr(feat), 0.2)
         out = self.conv_last(feat).permute(0, 2, 3, 1)

@@ -133,8 +133,11 @@ class Mlp(nn.Module):
 
 
 def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
-    """NHWC pixel-unshuffle with torch's channel order (c*r^2 + i*r + j)."""
-    return F.pixel_unshuffle(x.permute(0, 3, 1, 2), r).permute(0, 2, 3, 1)
+    """NHWC pixel-unshuffle with torch's channel order (c*r^2 + i*r + j):
+    (B, H, W, C) -> (B, H/r, W/r, C*r*r), contiguous."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, h // r, w // r, c * r * r)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -14,8 +14,9 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   answers that. On a CPU tensor the wrapper runs ``sdpa``; on a CUDA tensor
   it launches the kernel or raises.
 * ``attention``: the dispatch. Every unbiased attention on a CUDA tensor goes
-  to the kernel, at every size; biased attention (SwinIR windows) and all
-  CPU work go to ``sdpa``.
+  to the kernel, at every size; biased attention and all CPU work go to
+  ``sdpa``. (SwinIR's biased window attention does not come here: it has its
+  own kernel, ``ops/swin_attention.py``, whose plain version calls ``sdpa``.)
 
 A fully masked row averages V over the real keys (as ``sdpa``), not over
 the padded key length as the TPU kernel does.

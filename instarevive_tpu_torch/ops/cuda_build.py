@@ -31,6 +31,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
     "norm_kernels": ("norm_kernels.cu",),
     "gn_conv": ("gn_conv.cu",),
+    "swin_attention": ("swin_attention.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -60,10 +60,11 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
         for name, t in [*pipe.named_parameters(), *pipe.named_buffers()]:
             if t.is_floating_point() and not name.endswith(KEEP_F32):
                 t.data = t.data.to(dtype)
-    # The VAE's activations are channels-last in memory (its kernels read
-    # NHWC); with the weights laid out alike, the library convolutions take
-    # both as they are instead of transposing on every call.
+    # The VAE's and SwinIR's activations are channels-last in memory (their
+    # kernels read NHWC); with the weights laid out alike, the library
+    # convolutions take both as they are instead of transposing on every call.
     pipe.vae.to(memory_format=torch.channels_last)
+    pipe.swinir.to(memory_format=torch.channels_last)
     return pipe.eval().requires_grad_(False)
 
 

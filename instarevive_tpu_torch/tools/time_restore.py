@@ -9,8 +9,8 @@ image (auto tile geometry). Prints one JSON line with the warm wall times
 (host clock around work ending in a synchronise) and their medians. With
 ``--profile`` it also prints, for each of the two calls, the stage split
 (CUDA events around the pipeline's ``clean``, ``encode``, ``one_step`` and
-``decode`` as the call itself runs them) and device time by kernel from
-``torch.profiler``. ``build_v1`` and ``wall`` are what ``chip_smoke.py``
+``decode`` as the call itself runs them), SwinIR by itself (wall against
+kernel time and launches) and device time by kernel from ``torch.profiler``. ``build_v1`` and ``wall`` are what ``chip_smoke.py``
 drives too, so every timing of the port is of one set-up.
 ``--repo`` names the checkout to import the package and read the config
 from, so that one copy of this script can time two trees in turn (see
@@ -52,7 +52,7 @@ def build_v1(repo: str):
     y = pipe.dit.y_embedder.y_embedding[:300][None].float().repeat(batch, 1, 1)
     tile, stride = auto_tile_geometry(large, large)
     return types.SimpleNamespace(
-        pipe=pipe, batch=batch, size=size, large=large, tile=tile, stride=stride,
+        pipe=pipe, batch=batch, size=size, large=large, tile=tile, stride=stride, lq=lq, lq1=lq1,
         process=lambda: pipe.process(lq, y),
         process_tiled=lambda: pipe.process_tiled(lq1, y[:1], tile_size=tile, tile_stride=stride))
 
@@ -117,8 +117,9 @@ def stage_ms(pipe, call, runs: int):
     return {n: statistics.median(v) for n, v in samples.items()}
 
 
-def kernel_table(fn, label: str, top: int = 28) -> None:
-    """Device time by kernel over one call of ``fn``."""
+def device_rows(fn):
+    """(rows of (ms, launches, name) for every kernel of one profiled call of
+    ``fn``, the profiler's averages, the call's wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,23 +127,46 @@ def kernel_table(fn, label: str, top: int = 28) -> None:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
+        wall_ms = (time.perf_counter() - t) * 1e3
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.self_device_time_total > 0 and not e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Activity"))]
+    return rows, prof, wall_ms
+
+
+def stage_alone(fn, label: str, runs: int) -> None:
+    """One stage by itself: its wall (host clock to a synchronise, median of
+    ``runs``) against the kernel time and launches of one profiled call. A
+    wall well above the kernel time means the host, not the card, sets the
+    stage's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = [w * 1e3 for w in wall(fn, runs)]
+    rows, _, _ = device_rows(fn)
+    print(f"[alone] {label}: wall ms median {statistics.median(walls):.2f} (runs {', '.join(f'{w:.2f}' for w in walls)}); "
+          f"{sum(r[0] for r in rows):.2f} ms of kernel time in {sum(r[1] for r in rows)} launches", flush=True)
+
+
+def kernel_table(fn, label: str, top: int = 28) -> None:
+    """Device time by kernel over one call of ``fn``."""
+    rows, prof, wall_ms = device_rows(fn)
     copies = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
               if e.self_device_time_total > 0 and e.key.startswith(("Memcpy", "Memset"))]
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"[profile] {label}: {total:.1f} ms of kernel time in a {wall:.1f} ms profiled call; "
+    print(f"[profile] {label}: {total:.1f} ms of kernel time in a {wall_ms:.1f} ms profiled call; "
           f"copies {sum(c[0] for c in copies):.2f} ms", flush=True)
     for ms, count, key in rows[:top]:
         print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:150]}", flush=True)
     groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_tc::kernel", "gnconv_f32::kernel"),
               "GroupNorm, upsample (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel", "upsample_kernel"),
               "flash attention (flash_attn_fwd.cu)": ("fa2::kernel", "wide::kernel", "fp32::kernel"),
+              "window attention (swin_attention.cu)": ("swin_tc::kernel", "swin_f32::kernel"),
               "layout transposes": ("nchwToNhwc", "nhwcToNchw"),
               "library GroupNorm": ("GroupNorm", "group_norm", "RowwiseMoments"),
-              "dtype/layout copies": ("copy_kernel", "CatArrayBatchedCopy", "direct_copy")}
+              "dtype/layout copies": ("copy_kernel", "CatArrayBatchedCopy", "direct_copy"),
+              "rolls": ("roll_cuda_kernel",)}
     for name, keys in groups.items():
         sel = [r for r in rows if any(k in r[2] for k in keys)]
         print(f"[profile]   group {name}: {sum(r[0] for r in sel):.3f} ms in {sum(r[1] for r in sel)} launches", flush=True)
@@ -179,6 +203,9 @@ def main(argv=None) -> None:
             stages = stage_ms(v1.pipe, fn, args.runs)
             print(f"[stages] {label}, median ms of {args.runs}: "
                   + ", ".join(f"{n} {v:.2f}" for n, v in stages.items()), flush=True)
+        with torch.inference_mode():
+            stage_alone(lambda: v1.pipe.clean(v1.lq), "SwinIR (clean) on 4x512x512", args.runs)
+            stage_alone(lambda: v1.pipe.clean(v1.lq1), "SwinIR (clean) on 1x1024x1024", args.runs)
         for label, fn in calls:
             kernel_table(fn, label)
 

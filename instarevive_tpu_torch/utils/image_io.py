@@ -8,9 +8,10 @@ used with ``--use_center_crop``.
 
 from __future__ import annotations
 
+import io
 import math
 import os
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 from PIL import Image
@@ -27,10 +28,29 @@ def load_image(path: str) -> Image.Image:
     return Image.open(path).convert("RGB")
 
 
+def to_uint8(arr01: np.ndarray) -> np.ndarray:
+    """[0,1] float -> the 8-bit levels every entry point writes."""
+    return np.clip(arr01 * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
 def save_image(arr01: np.ndarray, path: str) -> None:
     """[0,1] HWC float -> PNG."""
-    img = np.clip(arr01 * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(img).save(path)
+    Image.fromarray(to_uint8(arr01)).save(path)
+
+
+def png_bytes(img: Image.Image) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "PNG")
+    return buf.getvalue()
+
+
+def prepare(img: Image.Image, size: int = 512, multiple: int = 64) -> Tuple[np.ndarray, int, int]:
+    """What the servers feed the pipeline for one image: RGB, short edge
+    raised to ``size``, zero-padded to a multiple, as (H, W, 3) float32 in
+    [0, 1], with the height and width before the pad (the crop of the answer)."""
+    resized = auto_resize(img.convert("RGB"), size)
+    x = pad_to_multiple(np.array(resized), multiple).astype(np.float32) / 255.0
+    return x, resized.height, resized.width
 
 
 def auto_resize(img: Image.Image, size: int) -> Image.Image:

@@ -16,6 +16,8 @@ from instarevive_tpu_torch.ops.norm_kernels import (
     gn_affine, gn_affine_plain, group_norm_silu, group_norm_silu_plain, upsample2x_nearest,
     upsample2x_nearest_plain,
 )
+from instarevive_tpu_torch.ops import window as W
+from instarevive_tpu_torch.ops.swin_attention import swin_window_attention, swin_window_attention_plain
 from instarevive_tpu_torch.pipelines.build import set_precision
 
 # bf16: both outputs rounded to bf16 and P rounded to bf16 before P.V in the
@@ -35,6 +37,13 @@ BOUNDS = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # values before the products; 4e-2.
 NORM_BOUNDS = {torch.bfloat16: 3.2e-2, torch.float32: 2e-4}
 CONV_BOUNDS = {torch.bfloat16: 4e-2, torch.float32: 2e-4}
+
+
+# Window attention against its plain version, v in [-1, 1] so |out| <= 1.
+# bf16: both round one f32 value to bf16, and the two f32 values differ by
+# summation order only (the kernel keeps 16 bits of P), so at most one bf16
+# step below 1, 2^-8; f32: summation order, 1e-5.
+SWIN_BOUNDS = {torch.bfloat16: 4e-3, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -201,3 +210,105 @@ def test_vae_kernels_refuse_what_they_cannot_run(cuda):
         upsample2x_nearest(x[..., :4].contiguous())
     with pytest.raises(TypeError):
         group_norm_silu(x.half(), gamma, beta)
+
+
+def _swin_inputs(cuda, dtype, b, h, w, heads, hd, shift, masked=True, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = heads * hd
+    qkv = torch.randn(b, h, w, 3 * c, device=cuda, generator=gen)
+    qkv[..., 2 * c:] = torch.rand(b, h, w, c, device=cuda, generator=gen) * 2 - 1
+    bias = torch.randn(heads, 64, 64, device=cuda, generator=gen) * 0.5
+    mask = torch.from_numpy(W.shift_attn_mask(h, w, 8, shift)).to(cuda) if shift and masked else None
+    return qkv.to(dtype), bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,h,w,heads,hd,shift,masked",
+    [
+        (4, 64, 64, 6, 30, 4, True),    # process at 4 x 512 x 512, a shifted block
+        (4, 64, 64, 6, 30, 0, False),
+        (1, 128, 128, 6, 30, 4, True),  # the tiled call: SwinIR on the whole 1024 x 1024 image
+        (2, 64, 48, 6, 30, 4, True),    # a server bucket, not square
+        (1, 16, 24, 6, 10, 4, True),    # the tiny configuration's head dim
+        (1, 24, 16, 4, 32, 3, True),    # the widest head, an odd shift: window rows start at any pixel
+        (3, 8, 8, 5, 8, 0, False),      # one window an image
+        (1, 16, 16, 2, 2, 5, False),    # wrapped windows without a mask
+    ],
+)
+def test_swin_window_attention_matches_plain(cuda, dtype, b, h, w, heads, hd, shift, masked):
+    qkv, bias, mask = _swin_inputs(cuda, dtype, b, h, w, heads, hd, shift, masked)
+    before = swin_window_attention.launches
+    out = swin_window_attention(qkv, bias, mask, heads, 8, hd**-0.5, shift)
+    torch.cuda.synchronize()
+    assert swin_window_attention.launches == before + 1
+    ref = swin_window_attention_plain(qkv, bias, mask, heads, 8, hd**-0.5, shift)
+    assert out.dtype == dtype and out.shape == (b, h, w, heads * hd) and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= SWIN_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+def test_swin_window_attention_f32_takes_an_odd_head_dim(cuda):
+    qkv, bias, mask = _swin_inputs(cuda, torch.float32, 2, 16, 16, 3, 7, 4)
+    out = swin_window_attention(qkv, bias, mask, 3, 8, 0.4, 4)
+    ref = swin_window_attention_plain(qkv, bias, mask, 3, 8, 0.4, 4)
+    assert (out - ref).abs().max().item() <= SWIN_BOUNDS[torch.float32]
+
+
+@pytest.mark.cuda
+def test_swin_window_attention_refuses_what_it_cannot_run(cuda):
+    qkv, bias, mask = _swin_inputs(cuda, torch.bfloat16, 1, 16, 16, 6, 30, 4)
+    with pytest.raises(ValueError, match="contiguous as NHWC"):
+        swin_window_attention(qkv.permute(0, 2, 1, 3), bias, mask, 6, 8, 1.0, 4)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        swin_window_attention(qkv.half(), bias, mask, 6, 8, 1.0, 4)
+    with pytest.raises(ValueError, match="window 8 only"):
+        swin_window_attention(qkv, bias[:, :16, :16].contiguous(), None, 6, 4, 1.0, 0)
+    with pytest.raises(ValueError, match="head dims up to 32"):
+        swin_window_attention(qkv, bias[:3].contiguous(), None, 3, 8, 1.0, 0)  # head dim 60
+    odd = torch.zeros(1, 8, 8, 3 * 6 * 5, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even ones in bf16"):
+        swin_window_attention(odd, bias, None, 6, 8, 1.0, 0)
+    with pytest.raises(ValueError, match="bias must be"):
+        swin_window_attention(qkv, bias.to(torch.bfloat16), mask, 6, 8, 1.0, 4)
+    with pytest.raises(ValueError, match="bias must be"):
+        swin_window_attention(qkv, bias.cpu(), mask, 6, 8, 1.0, 4)
+    with pytest.raises(ValueError, match="mask must be"):
+        swin_window_attention(qkv, bias, mask[:2].contiguous(), 6, 8, 1.0, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        swin_window_attention(qkv.float().requires_grad_(), bias, mask, 6, 8, 1.0, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        swin_window_attention(qkv, bias.clone().requires_grad_(), mask, 6, 8, 1.0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swinir_on_the_card_runs_the_kernels_and_agrees_with_the_cpu(cuda, dtype):
+    """SwinIR at the v1 width, two blocks: one window-attention launch a block,
+    one upsample launch a step, and the card's f32 output within 1e-4 of the
+    CPU's (bf16: finite, within 0.1)."""
+    from instarevive_tpu_torch.models.swinir import SwinIR
+    from instarevive_tpu_torch.ops.norm_kernels import upsample2x_nearest
+
+    torch.manual_seed(0)
+    model = SwinIR(depths=(2,), num_heads=(6,)).eval().requires_grad_(False)
+    for name, p in model.named_parameters():
+        if name.endswith("relative_position_bias_table"):
+            p.normal_(0.0, 0.5)
+    x = torch.rand(2, 128, 192, 3)
+    ref = model(x)
+    card = SwinIR(depths=(2,), num_heads=(6,)).eval().requires_grad_(False)
+    card.load_state_dict(model.state_dict())
+    card.to(cuda)
+    if dtype == torch.bfloat16:
+        for name, p in card.named_parameters():
+            if not name.endswith("relative_position_bias_table"):
+                p.data = p.data.to(dtype)
+    card.to(memory_format=torch.channels_last)
+    attn, ups = swin_window_attention.launches, upsample2x_nearest.launches
+    out = card(x.to(cuda))
+    torch.cuda.synchronize()
+    assert (swin_window_attention.launches - attn, upsample2x_nearest.launches - ups) == (2, 3)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out.float().cpu() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 0.1)

@@ -55,6 +55,108 @@ def test_swinir_matches_jax(pipes, hw):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+def test_swinir_runs_through_the_kernel_ops_on_nhwc_maps(pipes, monkeypatch):
+    """The path the card takes, minus the kernels: every block's attention is
+    one call of ``swin_window_attention`` (odd blocks with the shift and its
+    mask, no roll, partition or reverse in the model) and every step of the
+    upsampler one ``upsample2x_nearest``, here with their plain versions
+    called by name; each is handed a contiguous NHWC tensor, and the packed
+    bias is f32 and the same object from call to call. Held against the JAX
+    SwinIR."""
+    from instarevive_tpu_torch.models import swinir as swinir_mod
+    from instarevive_tpu_torch.ops import window as window_mod
+    from instarevive_tpu_torch.ops.norm_kernels import upsample2x_nearest_plain
+    from instarevive_tpu_torch.ops.swin_attention import swin_window_attention_plain
+
+    jpipe, params, tpipe = pipes
+    calls = {"attn": [], "up": []}
+    biases = {}
+
+    def attn(qkv, bias, mask, heads, window, scale, shift=0):
+        assert qkv.is_contiguous() and qkv.dim() == 4 and qkv.shape[-1] == 3 * TINY["swinir"]["embed_dim"]
+        assert bias.dtype == torch.float32 and bias.shape == (heads, window**2, window**2) and bias.is_contiguous()
+        assert (mask is None) == (shift == 0)
+        if mask is not None:
+            assert mask.shape == ((qkv.shape[1] // window) * (qkv.shape[2] // window), window**2, window**2)
+        calls["attn"].append(shift)
+        biases.setdefault((len(calls["attn"]) - 1) % n_blocks, []).append(bias)
+        return swin_window_attention_plain(qkv, bias, mask, heads, window, scale, shift)
+
+    def up(x):
+        assert x.is_contiguous() and x.dim() == 4 and x.shape[-1] == 64, (x.shape, x.stride())
+        calls["up"].append(tuple(x.shape[1:3]))
+        return upsample2x_nearest_plain(x)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("SwinIR's forward rolled or partitioned the map itself")
+
+    n_blocks = sum(TINY["swinir"]["depths"])
+    monkeypatch.setattr(swinir_mod, "swin_window_attention", attn)
+    monkeypatch.setattr(swinir_mod, "upsample2x_nearest", up)
+    x = _rand((2, 128, 192, 3), 7)
+    ref = jax.jit(jpipe.swinir.apply)({"params": params["swinir"]}, jnp.asarray(x))
+    with torch.no_grad():
+        out = tpipe.swinir(torch.from_numpy(x))
+        assert calls == {"attn": [0, 4] * (n_blocks // 2), "up": [(16, 24), (32, 48), (64, 96)]}
+        tpipe.swinir(torch.from_numpy(x))  # the bias is packed once per module, not per call
+        assert len(biases) == n_blocks and all(len(b) == 2 and b[0] is b[1] for b in biases.values())
+        # with the op stubbed out, nothing of the model touches windows itself
+        for name in ("window_partition", "window_reverse", "cyclic_shift", "cyclic_unshift"):
+            monkeypatch.setattr(window_mod, name, forbidden)
+        monkeypatch.setattr(swinir_mod, "swin_window_attention", lambda qkv, *a, **k: qkv[..., : qkv.shape[-1] // 3])
+        tpipe.swinir(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place", "dtype_round_trip", "inference_mode_reload"])
+def test_swinir_packed_bias_follows_the_table(change):
+    """The (heads, N, N) bias is gathered from the table once per module; a
+    model that already ran must answer as a fresh one does once its weights
+    are reloaded, written in place, or taken through another dtype and back.
+    The pack is no state-dict key."""
+    from instarevive_tpu_torch.models.swinir import SwinIR
+
+    kw = dict(TINY["swinir"], depths=[2], num_heads=[6])
+
+    def seeded(model, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return {k: torch.randn(v.shape, generator=gen) * (0.5 if "bias_table" in k else 0.05)
+                + (1.0 if "norm" in k and k.endswith("weight") else 0.0) for k, v in model.state_dict().items()}
+
+    x = torch.from_numpy(_rand((1, 128, 128, 3), 8))
+    with torch.inference_mode(change == "inference_mode_reload"):
+        model = SwinIR(**kw).eval().requires_grad_(False)
+        keys = list(model.state_dict())
+        model.load_state_dict(seeded(model, 1))
+        attn = model.layers[0].residual_group.blocks[1].attn
+        with torch.no_grad():
+            first = model(x)
+        packed = attn.bias()
+        assert attn.bias() is packed and packed.dtype == torch.float32 and packed.shape == (6, 64, 64)
+        assert list(model.state_dict()) == keys and not any("_derived" in k or k.endswith(".bias_packed") for k in keys)
+
+        new = seeded(model, 2)
+        if change in ("load_state_dict", "inference_mode_reload"):
+            model.load_state_dict(new)
+        elif change == "in_place":
+            with torch.no_grad():
+                for k, p in model.state_dict().items():
+                    p.copy_(new[k])
+        else:
+            model.load_state_dict(new)
+            model.to(torch.bfloat16).to(torch.float32)
+            assert not attn.__dict__.get("_derived")
+            new = model.state_dict()
+        fresh = SwinIR(**kw).eval().requires_grad_(False)
+        fresh.load_state_dict(new)
+        with torch.no_grad():
+            out = model(x)
+            want = fresh(x)
+    assert attn.bias() is not packed
+    assert not torch.allclose(out, first, atol=1e-3)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+
 def test_vae_encode_decode_match_jax(pipes):
     jpipe, params, tpipe = pipes
     x = _rand((2, 64, 64, 3), 1) * 2 - 1
