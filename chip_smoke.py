@@ -9,9 +9,9 @@ PyTorch built for CUDA. It imports no JAX. In order it:
 1. prints the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
 2. builds the kernel libraries (``csrc/flash_attn_fwd.cu``,
-   ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``, ``csrc/swin_attention.cu``),
-   one nvcc each, all started together, and prints each build time with the
-   registers and spills;
+   ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
+   ``csrc/swin_attention.cu``), one nvcc each, all started together, and
+   prints each build time with the registers and spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
@@ -32,7 +32,13 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    at full width in bf16, sends it concurrent ``POST /restore`` requests in
    two shape buckets, checks every answer and ``/healthz``, runs the demo's
    restorer (``instarevive_tpu_torch.interface``) on one image, and holds one
-   answer of a depth-cut f32 server against ``process`` called directly.
+   answer of a depth-cut f32 server against ``process`` called directly;
+8. runs the trainer (``instarevive_tpu_torch.train``) at full width in bf16
+   from f32 master weights on 8 PNGs it writes from a seed: 3 steps of DMD
+   distillation, then 1 more from the checkpoint, with the launches of K1 and
+   K2 per step held to what the configuration implies; times warm steps;
+   runs ``--lowmem`` at depth 2; and holds one depth-2 f32 train step on the
+   card against the CPU.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -57,6 +63,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # f32, so a few bf16 steps; 1e-2. f32: only the summation order differs
 # (online softmax over key tiles against one softmax); 1e-4.
 BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
+# The backward kernels against flash_backward_plain on the same q, k, v, o, lse
+# and dO (randn q, k, dO; v in [-1, 1]), per output (dq, dk, dv), relative to
+# that output's largest magnitude. bf16: both round P, dS and the output to
+# bf16 at the same places; an f32 sum taken in another order can land on the
+# other side of a rounding boundary, which moves an output by one bf16 step
+# (2^-8 = 3.9e-3 of the largest value) and a P or dS term by as much of
+# itself; 1e-2. f32: only the order of the sums and expf differ; 2e-5.
+# The log-sum-exp (about log Nk + 0.5, under 8 here) is f32 in both forms:
+# the bf16 form works in the log2 domain (exp2f, log2f); 1e-3 and 1e-4.
+BACKWARD_BOUNDS = {"bf16": 1e-2, "f32": 2e-5}
+LSE_BOUNDS = {"bf16": 1e-3, "f32": 1e-4}
 # The VAE kernels against their plain versions. Inputs are N(offset, scale^2)
 # per channel, so |normalised x| stays under about 8 and, with weights of
 # variance 1/(9C), |out| of the convolution under about 4.
@@ -87,6 +104,10 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # The small f32 pipeline, card against CPU: convolutions and matmuls sum in
 # other orders (TF32 is off), outputs are in [0, 1].
 PIPELINE_F32_BOUND = 1e-3
+# One f32 train step at depth 2, card against CPU: each loss relative to
+# itself, each model's gradient relative to its largest magnitude; matmuls,
+# LayerNorm and the attention kernels sum in other orders than the CPU.
+TRAIN_F32_BOUND = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -400,6 +421,117 @@ def kernel_phase():
     return records
 
 
+def backward_phase():
+    """K2 (the dq and dk/dv kernels) and K1's log-sum-exp output against their
+    plain versions at the shapes of a DMD train step (batch 2), a masked
+    cross-attention and a ragged shape, bf16 and f32; the same inputs twice
+    give the same bits. The yardstick is the backward (alone) of
+    ``F.scaled_dot_product_attention`` through autograd. Returns (dq records,
+    dk/dv records, K1-with-LSE records)."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops import attention as A
+
+    cases = [  # (name, (B, H, Nq, Nk, D), keys kept per sample or None)
+        ("dit_self", (2, 16, 1024, 1024, 72), None),
+        ("dit_cross", (2, 16, 1024, 300, 72), None),
+        ("dit_cross_masked", (2, 16, 1024, 300, 72), (77, 300)),
+        ("ragged", (1, 16, 1000, 77, 72), None),
+    ]
+    dq_records, dkv_records, lse_records = [], [], []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, (b, h, nq, nk, d), kept in cases:
+        for dt in ("bf16", "f32"):
+            dtype = getattr(torch, DTYPES[dt])
+            q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
+            k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtype)
+            v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
+            do = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
+            mask = None
+            if kept is not None:
+                mask = torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
+            scale = d**-0.5
+            with torch.no_grad():
+                o, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+                torch.cuda.synchronize()
+                lse_err = max_err(lse, A.flash_lse_plain(q, k, mask, scale))
+                o_err = max_err(o, A.sdpa(q, k, v, kv_mask=mask, scale=scale))
+                di = (do.float() * o.float()).sum(-1)
+                dq = A.flash_dq(q, k, v, mask, lse, di, do, scale)
+                dk, dv = A.flash_dkv(q, k, v, mask, lse, di, do, scale)
+                torch.cuda.synchronize()
+                ref = A.flash_backward_plain(q, k, v, mask, o, lse, do, scale)
+                errs, abs_errs = {}, {}
+                for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                    if not torch.isfinite(got).all():
+                        fail(f"flash backward {name} {dt}: {key} is not finite")
+                    abs_errs[key] = max_err(got, want)
+                    errs[key] = abs_errs[key] / want.float().abs().max().item()
+                again = A.flash_backward(q, k, v, mask, o, lse, do, scale)
+                same = all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv)))
+                ms_fwd = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=False))
+                ms_lse = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=True))
+                ms_dq = cuda_ms(lambda: A.flash_dq(q, k, v, mask, lse, di, do, scale))
+                ms_dkv = cuda_ms(lambda: A.flash_dkv(q, k, v, mask, lse, di, do, scale))
+                ms_both = cuda_ms(lambda: A.flash_backward(q, k, v, mask, o, lse, do, scale))
+                plain_ms = cuda_ms(lambda: A.flash_backward_plain(q, k, v, mask, o, lse, do, scale), iters=3, warmup=1)
+                plain_lse_ms = cuda_ms(lambda: A.flash_lse_plain(q, k, mask, scale), iters=3, warmup=1)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            attn_mask = None if mask is None else mask[:, None, None, :]
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+            lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=10)
+            del lib_out, leaves
+            # the work this run's data needs: masked keys take no product
+            pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))
+            es = q.element_size()
+            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt)
+            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt)
+            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt)
+            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt)
+            common = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=mask is not None,
+                          bound=BACKWARD_BOUNDS[dt], bitwise_repeat=same, plain_ms=plain_ms, library_ms=lib_ms,
+                          together_ms=ms_both, together_bound_ms=b_both[0])
+            # held to the relative error (of each output's largest magnitude); the absolute one beside it
+            dq_records.append(dict(common, max_abs_err=abs_errs["dq"], max_rel_err=errs["dq"], ms=ms_dq,
+                                   bound_ms=b_dq[0], bound_by=b_dq[1]))
+            dkv_records.append(dict(common, max_abs_err=max(abs_errs["dk"], abs_errs["dv"]),
+                                    max_rel_err=max(errs["dk"], errs["dv"]), rel_err={k: errs[k] for k in ("dk", "dv")},
+                                    ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1]))
+            lse_records.append(dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=mask is not None,
+                                    max_abs_err=lse_err, bound=LSE_BOUNDS[dt], out_max_abs_err=o_err, ms=ms_lse,
+                                    ms_without_lse=ms_fwd, plain_ms=plain_lse_ms, library_ms=lib_fwd_ms,
+                                    bound_ms=b_fwd[0], bound_by=b_fwd[1]))
+            print(f"[backward] {name:17s} {dt:4s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} mask={mask is not None!s:5s} "
+                  f"rel_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} (bound {BACKWARD_BOUNDS[dt]:.0e} of "
+                  f"each output's largest magnitude) lse max_abs_err={lse_err:.3e} (bound {LSE_BOUNDS[dt]:.0e}) "
+                  f"same bits twice={same} dq_ms={ms_dq:.4f} (bound {b_dq[0]:.4f}) dkv_ms={ms_dkv:.4f} (bound {b_dkv[0]:.4f}) "
+                  f"dq+dkv+di_ms={ms_both:.4f} (bound {b_both[0]:.4f}, {b_both[1]}) plain_ms={plain_ms:.4f} "
+                  f"torch_sdpa_backward_ms={lib_ms:.4f}; forward ms={ms_fwd:.4f}, with lse {ms_lse:.4f}", flush=True)
+            if not max(errs.values()) <= BACKWARD_BOUNDS[dt]:
+                fail(f"flash backward {name} {dt}: differs from the plain version by {errs} > {BACKWARD_BOUNDS[dt]}")
+            if not lse_err <= LSE_BOUNDS[dt] or not o_err <= BOUNDS[dt]:
+                fail(f"flash forward with lse {name} {dt}: lse differs by {lse_err}, the output by {o_err}")
+            if not same:
+                fail(f"flash backward {name} {dt}: two runs on the same inputs differ")
+            del q, k, v, do, o, lse, di, dq, dk, dv, ref, again
+
+    # a sample whose keys are all masked: the flag path, against autograd through the plain forward
+    b, h, nq, nk, d = 2, 16, 256, 300, 72
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for n in (nq, nk, nk, nq))
+    mask = torch.arange(nk, device="cuda")[None] < torch.tensor([0, 120], device="cuda")[:, None]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(A.sdpa(*leaves, kv_mask=mask), leaves, do)
+    got = torch.autograd.grad(A.flash_attention(*leaves, kv_mask=mask), leaves, do)
+    err = max(max_err(x, y) / y.abs().max().item() for x, y in zip(got, want))
+    print(f"[backward] a sample with every key masked, f32, kernels through autograd against autograd through sdpa: "
+          f"rel_err={err:.3e} (bound {BACKWARD_BOUNDS['f32']:.0e})", flush=True)
+    if not err <= BACKWARD_BOUNDS["f32"]:
+        fail(f"flash backward, fully masked sample: differs from autograd through sdpa by {err}")
+    return dq_records, dkv_records, lse_records
+
+
 def swin_phase():
     """K4 against its plain version (roll, partition, ``sdpa``, reverse, roll
     back) at every shape the main path, the CLI and the server give it, plus
@@ -497,14 +629,18 @@ def swin_phase():
 
 def counters():
     """name -> wrapper; each wrapper's ``launches`` counts its kernel launches."""
-    from instarevive_tpu_torch.ops.attention import flash_attention
+    from instarevive_tpu_torch.ops.attention import flash_attention, flash_dkv, flash_dq
     from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
     from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
     from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
-    return {"flash_attn_fwd": flash_attention, "gn_silu_conv3x3": gn_silu_conv3x3, "gn_stats_fold": gn_affine,
+    return {"flash_attn_fwd": flash_attention, "flash_attn_bwd_dq": flash_dq, "flash_attn_bwd_dkv": flash_dkv,
+            "gn_silu_conv3x3": gn_silu_conv3x3, "gn_stats_fold": gn_affine,
             "gn_apply": group_norm_silu, "upsample2x": upsample2x_nearest,
             "swin_window_attention": swin_window_attention}
+
+
+BACKWARD_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")  # launched by training only
 
 
 def reset_counts() -> None:
@@ -524,12 +660,13 @@ def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans:
     + 2; one moments launch inside every fused conv and one for each of the
     two standalone norms of an encode or a decode, which also launch the
     apply kernel; levels - 1 upsamples per decode; attention twice per DiT
-    block and once per VAE mid block."""
+    block and once per VAE mid block. Inference launches no backward kernel."""
     levels, blocks = len(pipe.vae.ch_mult), len(pipe.vae.encoder.down[0].block)
     convs = encodes * 2 * (levels * blocks + 2) + decodes * 2 * (levels * (blocks + 1) + 2)
     norms = 2 * (encodes + decodes)
     swin_blocks = sum(len(layer.residual_group.blocks) for layer in pipe.swinir.layers)
-    return {"flash_attn_fwd": dit_forwards * 2 * pipe.dit.depth + encodes + decodes, "gn_silu_conv3x3": convs,
+    return {"flash_attn_fwd": dit_forwards * 2 * pipe.dit.depth + encodes + decodes,
+            "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0, "gn_silu_conv3x3": convs,
             "gn_stats_fold": convs + norms, "gn_apply": norms,
             "upsample2x": decodes * (levels - 1) + cleans * len(pipe.swinir.ups),
             "swin_window_attention": cleans * swin_blocks}
@@ -763,7 +900,7 @@ def serve_phase(cfg_full, swin_records, process_launches):
     if stats["errors"] or not stats["ok"] or served != len(pngs) or not batches < served:
         fail(f"serve: /healthz {stats} after {len(pngs)} requests (before them {base})")
     counts = read_counts()
-    if any(v == 0 for v in counts.values()):
+    if any(v == 0 for name, v in counts.items() if name not in BACKWARD_KERNELS):
         fail(f"serve: a kernel was not launched while serving: {counts}")
     print(f"[serve] {card_line()}: instarevive_v1 bf16, {len(pngs)} concurrent POST /restore (8 of 512x512, 1 of "
           f"512x640) in {seconds:.3f}s = {len(pngs) / seconds:.2f} requests/s, PNG coding included; {batches} batches, "
@@ -804,9 +941,193 @@ def serve_phase(cfg_full, swin_records, process_launches):
     return len(pngs) / seconds, served / batches
 
 
-def kernel_entry(name, source, replaces, launches, tiled_launches, records, main_name):
+def train_phase(cfg_full):
+    """The trainer through its entry point (``train.launcher.main``, what
+    ``python -m instarevive_tpu_torch.train`` runs) at full XL-2 width in bf16
+    from f32 masters, batch 2 at 512x512, every block checkpointed: 3 steps,
+    then 1 more from the checkpoint it wrote. Then timed steps on the resumed
+    task, ``--lowmem`` once at depth 2, and one depth-2 f32 step on the card
+    against the CPU. Returns (launches of the 3-step run, launches per step,
+    the timing record)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, cast_weights, init_params
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    def finite(run, what):
+        for i, m in enumerate(run.history):
+            if set(m) != {"regression", "dm", "loss", "fake_score"} or not all(np.isfinite(v) for v in m.values()):
+                fail(f"{what}: metrics of step {run.start_step + i} are {m}")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the initialisation every run below starts from (the launcher's default seed), in f32 and as the
+    # frozen teacher holds it (bf16 weights under --bf16)
+    init = init_params(build_pipeline(cfg_full, dtype=torch.bfloat16, device="cuda", dit_master_weights=True), seed=0).dit
+    init_f32 = [p.detach().clone() for p in init.parameters()]
+    init_teacher = [p.detach().clone() for p in cast_weights(init, torch.bfloat16).parameters()]
+    del init
+    free()
+
+    def teacher_is_as_initialised(task):
+        return all(torch.equal(a, b) for a, b in zip(init_teacher, task.teacher.parameters()))
+
+    depth = cfg_full["dit"]["depth"]
+    per_step = dict.fromkeys(counters(), 0)
+    per_step.update(T.expected_launches(depth, grad_checkpoint=True))
+    # the encode, as expected_counts reckons it for the restoration path
+    levels, blocks = len(cfg_full["vae"]["ch_mult"]), cfg_full["vae"]["num_res_blocks"]
+    per_step.update(gn_silu_conv3x3=2 * (levels * blocks + 2), gn_stats_fold=2 * (levels * blocks + 2) + 2, gn_apply=2)
+    config = os.path.join(REPO, "configs", "instarevive_v1.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = T.write_images(os.path.join(tmp, "hq"))
+        null = os.path.join(tmp, "null.npy")  # a null caption that differs from the zero caption: guidance has a gap
+        np.save(null, np.random.default_rng(1).standard_normal((300, 4096)).astype(np.float32) * 4096**-0.5)
+        out = os.path.join(tmp, "run")
+        extra = ["--null_embed", null]
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = launcher.main(T.train_argv(config, data, out, 3, extra))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite(run, "train")
+        if (run.start_step, run.end_step, len(run.history)) != (0, 3, 3):
+            fail(f"train: ran steps {run.start_step}..{run.end_step} with {len(run.history)} metric records")
+        want = {k: 3 * v for k, v in per_step.items()}
+        if counts != want:
+            fail(f"train: kernel launches of 3 steps {counts}, the configuration implies {want}")
+        task = run.task
+        gen_state, fake_state = task.states
+        if not task.gen.grad_checkpoint or any(p.dtype != torch.float32 for p in gen_state.params):
+            fail("train: the generator is not checkpointed with f32 master weights")
+        moved = {name: sum(not torch.equal(p, t) for p, t in zip(m.parameters(), init_f32))
+                 for name, m in (("generator", task.gen), ("fake score", task.fake))}
+        n_params = len(gen_state.params)
+        if min(moved.values()) < n_params // 2:
+            fail(f"train: of {n_params} parameter tensors only {moved} moved")
+        if all(torch.equal(e, p) for e, p in zip(gen_state.ema_params, gen_state.params)):
+            fail("train: the EMA equals the parameters")
+        if any(p.requires_grad or p.grad is not None for p in task.teacher.parameters()) or not teacher_is_as_initialised(task):
+            fail("train: the teacher takes gradients or moved")
+        last = run.history[-1]
+        print(f"[train] {card_line()}: instarevive_v1 at full width (depth {depth}), bf16 compute from f32 masters, "
+              f"batch {T.BATCH} at {T.CROP}x{T.CROP}, checkpointed: 3 steps through train.launcher.main in {seconds:.1f}s "
+              f"(set-up, first-use builds and the {os.path.getsize(os.path.join(out, 'final', 'state.pt')) / 2**30:.1f} GiB "
+              f"checkpoint included); launches per step {({k: v for k, v in per_step.items() if v})} as the configuration "
+              f"implies; last step {({k: round(v, 6) for k, v in last.items()})}; {moved} of {n_params} parameter "
+              f"tensors moved, the teacher is as initialised; peak allocated {peak:.2f} GiB", flush=True)
+        del run, task, gen_state, fake_state
+        free()
+
+        reset_counts()
+        again = launcher.main(T.train_argv(config, data, out, 4, extra + ["--resume", os.path.join(out, "final")]))
+        finite(again, "train, resumed")
+        if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) or read_counts() != per_step:
+            fail(f"train, resumed: ran steps {again.start_step}..{again.end_step}, launches {read_counts()}")
+        if again.task.states[0].step != 4 or again.task.states[0].opt_state["inner"]["count"] != 4:
+            fail("train, resumed: the restored state did not continue at step 3")
+        if not teacher_is_as_initialised(again.task):
+            fail("train, resumed: the teacher moved")
+        print(f"[train] resumed from 'final' at step 3, took 1 step with the same launches: {again.history[-1]}", flush=True)
+
+        timing = T.time_steps(again.task, T.load_batches(data, 3))
+        if timing["launches_per_step"] != T.expected_launches(depth):
+            fail(f"train: timed steps launched {timing['launches_per_step']}")
+        print(f"[train] warm s/step {timing['step_median_s']:.4f} (steps {', '.join(f'{t:.4f}' for t in timing['step_s'])}); "
+              "split, median ms by CUDA events: " + ", ".join(f"{k} {v:.1f}" for k, v in timing["phase_median_ms"].items())
+              + f"; peak allocated {timing['peak_allocated_gib']:.2f} GiB", flush=True)
+        del again
+        free()
+
+        # --lowmem (bf16 moments, EMA and teacher) once, at depth 2
+        small = os.path.join(tmp, "depth2.yaml")
+        with open(small, "w") as f:
+            yaml.safe_dump(merge(cfg_full, {"dit": {"depth": 2}}), f)
+        reset_counts()
+        low = launcher.main(T.train_argv(small, data, os.path.join(tmp, "low"), 2, extra + ["--lowmem"]))
+        finite(low, "train --lowmem")
+        state = low.task.states[0]
+        dtypes = {state.opt_state["inner"]["mu"][0].dtype, state.ema_params[0].dtype,
+                  low.task.teacher.blocks[0].attn.qkv.weight.dtype}
+        want = {k: 2 * v for k, v in T.expected_launches(2).items()}
+        got = {k: v for k, v in read_counts().items() if k in want}
+        if dtypes != {torch.bfloat16} or got != want:
+            fail(f"train --lowmem at depth 2: state dtypes {dtypes}, launches {got} (expected {want})")
+        print(f"[train] --lowmem at depth 2: 2 steps, bf16 moments, EMA and teacher; last step {low.history[-1]}", flush=True)
+        del low, state
+        free()
+
+        err = train_step_card_against_cpu(cfg_full, data, null)
+    return counts, per_step, dict(timing, three_steps_s=seconds, peak_allocated_first_run_gib=peak, card_vs_cpu=err)
+
+
+def train_step_card_against_cpu(cfg_full, data, null):
+    """One ``make_dmd_train_step`` at DiT depth 2, full width, f32, on the card
+    and on the CPU: the same weights, batch and draws (made on the CPU and
+    handed in). Losses and the gradients of both models are held to
+    TRAIN_F32_BOUND, each gradient against its model's largest magnitude."""
+    import torch
+
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    cfg = merge(cfg_full, {"swinir": {"depths": [2, 2], "num_heads": [6, 6]}, "dit": {"depth": 2}})
+    argv = [a for a in T.train_argv("-", data, "-", 1, ["--null_embed", null]) if a != "--bf16"]
+    args = launcher.parse_args(argv)
+    cpu = launcher.DMDTask(args, cfg, torch.device("cpu"))
+    gpu = launcher.DMDTask(args, cfg, torch.device("cuda"))
+    for name in ("gen", "fake", "teacher"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    gen = torch.Generator().manual_seed(5)
+    shape = (T.BATCH, T.CROP // 8, T.CROP // 8, 4)
+    batch = {"noise": torch.randn(shape, generator=gen), "latent": 0.5 * torch.randn(shape, generator=gen)}
+    y = torch.randn(T.BATCH, 300, 4096, generator=gen) * 4096**-0.5
+    draws = {"t_dm": torch.randint(20, 979, (T.BATCH,), generator=gen), "noise_dm": torch.randn(shape, generator=gen),
+             "t_fake": torch.randint(0, 1000, (T.BATCH,), generator=gen), "noise_fake": torch.randn(shape, generator=gen)}
+    out = {}
+    for label, task in (("cpu", cpu), ("cuda", gpu)):
+        kept = {}
+        to = lambda d: {k: v.to(task.device) for k, v in d.items()}  # noqa: E731
+        reset_counts()
+        metrics = task._step(*task.states, to(batch), None, {"y": y.to(task.device)}, draws=to(draws), keep_grads=kept)
+        out[label] = ({k: float(v) for k, v in metrics.items()}, {k: [g.cpu() for g in v] for k, v in kept.items()})
+    got = {k: v for k, v in read_counts().items() if k in T.expected_launches(2)}
+    if got != T.expected_launches(2, encodes=0):
+        fail(f"train step, card against CPU: launches {got}")
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
+    errs = {f"metric {k}": abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu}
+    for which in ("generator", "fake"):
+        top = max(g.abs().max().item() for g in g_cpu[which])
+        errs[f"grad {which}"] = max((a - b).abs().max().item() for a, b in zip(g_gpu[which], g_cpu[which])) / top
+    print(f"[train] one f32 step at depth 2, full width, card against CPU (same weights, batch, draws): metrics on the "
+          f"CPU {m_cpu}; relative differences " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {TRAIN_F32_BOUND:.0e})", flush=True)
+    if m_cpu["dm"] < 1e-8:
+        fail("train step, card against CPU: the distribution-matching term is not exercised")
+    if not max(errs.values()) <= TRAIN_F32_BOUND:
+        fail(f"train step: the card differs from the CPU by {errs}")
+    return errs
+
+
+def kernel_entry(name, source, replaces, launches, tiled_launches, records, main_name, train=None):
     """One entry of the ``kernels`` line: the main-path shape's times at top
-    level, the largest bf16 error over all shapes, every shape below."""
+    level, the largest bf16 error over all shapes, every shape below.
+    ``launches`` is the count of the ``process`` run, or, for a kernel that
+    only training launches, of the 3-step training run; ``train`` is (that
+    run's counts, the counts of one step)."""
     main_rec = next(r for r in records if r["name"] == main_name and r["dtype"] == "bf16")
     bf16 = [r for r in records if r["dtype"] == "bf16"]
     entry = {
@@ -817,7 +1138,11 @@ def kernel_entry(name, source, replaces, launches, tiled_launches, records, main
         "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
         "main_shape": main_rec["shape"], "shapes": records,
     }
-    if "max_rel_err" in main_rec:  # the fold is held to a relative bound
+    if train is not None:
+        entry["launches_train_run"], entry["launches_train_step"] = train[0][name], train[1][name]
+        if name in BACKWARD_KERNELS:
+            entry["launches"] = train[0][name]
+    if "max_rel_err" in main_rec:  # the fold and the attention backward are held to a relative bound
         entry["max_rel_err"] = max(r["max_rel_err"] for r in bf16)
     # the fused convolution's ms covers its moments launches; the window attention has a second yardstick
     for key in ("includes", "conv_only_ms", "library_composition_ms", "max_abs_err_vs_f32"):
@@ -850,6 +1175,7 @@ def main() -> None:
               flush=True)
 
     attn_records = kernel_phase()
+    dq_records, dkv_records, lse_records = backward_phase()
     conv_records = conv_phase()
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
@@ -858,21 +1184,29 @@ def main() -> None:
     launches, tiled = pipeline_phase(conv_records, swin_records)
     cli_phase()
     serve_phase(cfg, swin_records, launches)
+    train = train_phase(cfg)
+    timing = train[2]
 
+    fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
+                       launches, tiled, attn_records, "dit_self", train)
+    fwd["with_lse"] = lse_records  # the training forward: the same kernel writing the row log-sum-exp
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
-                     launches, tiled, attn_records, "dit_self"),
+        fwd,
+        kernel_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127",
+                     launches, tiled, dq_records, "dit_self", train),
+        kernel_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166",
+                     launches, tiled, dkv_records, "dit_self", train),
         kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
-                     launches, tiled, conv_records, "b4_512_128_128"),
+                     launches, tiled, conv_records, "b4_512_128_128", train),
         kernel_entry("gn_stats_fold", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:77",
-                     launches, tiled, stats_records, "b4_512_128"),
+                     launches, tiled, stats_records, "b4_512_128", train),
         kernel_entry("gn_apply", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:86",
-                     launches, tiled, apply_records, "b4_512_128"),
+                     launches, tiled, apply_records, "b4_512_128", train),
         kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
-                     launches, tiled, up_records, "b4_256_256"),
+                     launches, tiled, up_records, "b4_256_256", train),
         kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
-                     launches, tiled, swin_records, "process_b4_64x64_shifted"),
-    ]}), flush=True)
+                     launches, tiled, swin_records, "process_b4_64x64_shifted", train),
+    ], "train": {k: v for k, v in timing.items()}}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

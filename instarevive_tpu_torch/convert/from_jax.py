@@ -1,6 +1,10 @@
 """Weight bridge from the JAX package: its param tree -> the port's three
 state dicts (SwinIR, VAE, PixArt native), in the reference key layout.
 
+``train_state_from_jax`` carries a training state across (parameters, EMA,
+AdamW moments, the step); any tree with the parameters' structure goes
+through the same map as the parameters themselves.
+
 The exporters below are the port's own numpy-only copy of the three maps in
 ``instarevive_tpu/convert/torch_export.py`` (conv HWIO -> OIHW, dense
 (in, out) -> (out, in), norm scale -> weight); ``tests/test_torch_convert.py``
@@ -10,7 +14,7 @@ or the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 
@@ -224,3 +228,33 @@ def state_dicts_from_jax(params: Mapping[str, Any], cfg: Mapping[str, Any]) -> D
     if "dit" in params:
         out["dit"] = pixart_params_to_torch(params["dit"], depth=cfg.get("dit", {}).get("depth", 28))
     return out
+
+
+def train_state_from_jax(
+    params: Mapping[str, Any],
+    ema: Any,
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: int,
+    names: Sequence[str],
+    depth: int = 28,
+    step: int = 0,
+) -> Dict[str, Any]:
+    """A PixArt training state of the JAX package (its ``TrainState.params``
+    and ``ema_params``, the ``mu``, ``nu`` and ``count`` of its AdamW state;
+    numpy in) as the tree ``train.checkpoint.load_state_tree`` loads into the
+    port's ``TrainState``. ``names`` is that state's ``names``: the order of
+    its parameter list, which the moment lists follow. Without clipping's or
+    accumulation's own state: build the port's optimizer with the same
+    options and load this into it."""
+    def as_dict(tree):
+        return pixart_params_to_torch(tree, depth=depth)
+
+    mu_sd, nu_sd = as_dict(mu), as_dict(nu)
+    return {
+        "step": int(step),
+        "params": as_dict(params),
+        "ema": None if ema is None else as_dict(ema),
+        "opt_state": {"inner": {"count": int(count),
+                                "mu": [mu_sd[n] for n in names], "nu": [nu_sd[n] for n in names]}},
+    }

@@ -5,7 +5,11 @@
 // instarevive_tpu/ops/attention.py (reached through `_flash_fwd_impl` and
 // `flash_attention`): online-softmax attention with f32 scores and
 // accumulators, an optional (B, Nk) boolean key mask whose masked scores are
-// -1e30, and ragged Nq / Nk.
+// -1e30, and ragged Nq / Nk. With a non-null `lse` the head-dim-72 forms also
+// write the row log-sum-exp m + log(max(l, 1e-30)) (the kernel's `emit_lse`
+// output), one f32 per query row, which the backward (flash_attn_bwd.cu) reads;
+// a row whose keys are all masked gets exactly -1e30. Inference passes null and
+// pays one branch per row.
 //
 // Work split: one block per (batch*head, q-tile), looping over key tiles with
 // an online softmax (running max, running sum, f32 accumulator), so no
@@ -136,8 +140,8 @@ constexpr size_t kSmem = sizeof(bf16) * (BQ + 4 * BK) * LDS + sizeof(float) * 2 
 
 __global__ void __launch_bounds__(kThreads)
 kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const uint8_t* __restrict__ mask, bf16* __restrict__ out, int heads, int nq, int nk,
-       float scale_log2) {
+       const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int heads,
+       int nq, int nk, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LDS;      // two stages
@@ -267,17 +271,22 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
     for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + dt * 8 + 2 * t) =
           __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    // the running max is in the log2 domain; a row with no real key keeps the mask's score
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * nq + row] = m_run[r] <= kMaskedScore
+                                       ? kMaskedScore
+                                       : (m_run[r] + log2f(fmaxf(l_run[r], 1e-30f))) * 0.6931471805599453f;
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, int bh,
-                   int heads, int nq, int nk, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
+                   int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, bh);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), heads, nq, nk,
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse), heads, nq, nk,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -598,8 +607,8 @@ __device__ __forceinline__ void tile_pv(const float* sS, const float* sV, float*
 template <int BQ, int BK, int DP, int LD>
 __global__ void __launch_bounds__(kThreads)
 kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const uint8_t* __restrict__ mask, float* __restrict__ out, int heads, int nq, int nk,
-       int d, float scale) {
+       const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int heads,
+       int nq, int nk, int d, float scale) {
   using L = Layout<BQ, BK, DP, LD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem + L::q);
@@ -645,10 +654,14 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
     const int i = e / DP, c = e % DP;
     if (q0 + i < nq && c < d) ob[(size_t)(q0 + i) * d + c] = sO[e] / fmaxf(sL[i], 1e-30f);
   }
+  if (lse != nullptr) {  // a row with no real key: -1e30 + log(Nk) is -1e30 in f32
+    for (int r = threadIdx.x; r < BQ; r += kThreads)
+      if (q0 + r < nq) lse[(size_t)bh * nq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  }
 }
 
 template <int BQ, int BK, int DP, int LD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                    int bh, int heads, int nq, int nk, int d, float scale, cudaStream_t stream) {
   using L = Layout<BQ, BK, DP, LD>;
   static_assert(L::bytes <= 232448, "shared memory over the per-block limit");
@@ -659,7 +672,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   const dim3 grid((nq + BQ - 1) / BQ, bh);
   fn<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), heads, nq, nk, d, scale);
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse), heads, nq, nk, d,
+      scale);
   return cudaGetLastError();
 }
 
@@ -669,18 +683,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 // q: (bh, nq, d), k and v: (bh, nk, d), out: (bh, nq, d), all contiguous and of
 // one type (bf16 when is_bf16, else f32); mask: (bh / heads, nk) bytes, or
-// null for no mask. Returns a cudaError_t; 0 means the launch was accepted.
+// null for no mask; lse: (bh, nq) f32 to receive the row log-sum-exp, or null
+// (head dim 72 only). Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
-                              void* out, int bh, int heads, int nq, int nk, int d, float scale,
-                              int is_bf16, void* stream) {
+                              void* out, void* lse, int bh, int heads, int nq, int nk, int d,
+                              float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 72) {
-    return is_bf16 ? fa2::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
-                   : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, bh, heads, nq, nk, d, scale, s);
+    return is_bf16 ? fa2::launch(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
+                   : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
   }
-  if (d == 512) {
+  if (d == 512 && lse == nullptr) {
     return is_bf16 ? wide::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
-                   : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, bh, heads, nq, nk, d, scale, s);
+                   : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, nullptr, bh, heads, nq, nk, d, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -55,26 +55,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _load_null_embed(path: str) -> np.ndarray:
-    """(L, C) float32 from .npy/.npz, or from a torch file holding a tensor
-    (or a dict whose first value is one)."""
-    if path.endswith((".npy", ".npz")):
-        arr = np.load(path)
-        if hasattr(arr, "files"):
-            arr = arr[arr.files[0]]
-    else:
-        import torch
-
-        t = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(t, dict):
-            t = next(iter(t.values()))
-        arr = t.float().numpy()
-    arr = np.asarray(arr, dtype=np.float32)
-    while arr.ndim > 2:
-        arr = arr[0]
-    return arr
-
-
 def load_pipeline(args):
     """What every entry point of the port builds from its flags (``config``,
     ``device``, ``bf16``, ``random_init``, the checkpoint paths,
@@ -106,7 +86,9 @@ def load_pipeline(args):
 
     L = pipe.dit.model_max_length
     if args.null_embed:
-        y = _load_null_embed(args.null_embed)[None]
+        from instarevive_tpu_torch.train.checkpoint import load_null_embed
+
+        y = load_null_embed(args.null_embed)[None]
         if y.shape[1] != L:
             y = y[:, :L] if y.shape[1] > L else np.pad(y, ((0, 0), (0, L - y.shape[1]), (0, 0)))
         y = torch.from_numpy(y).to(device)

@@ -9,9 +9,12 @@ per-block ``scale_shift_table``. Self- and cross-attention go through
 mask is a (B, L) bool key mask. Parameter names follow the reference native
 key layout (``blocks.0.attn.qkv.weight`` and so on).
 
-Not ported yet (they are off the restoration path and raise if configured):
-ControlNet-Half, KV compression, windowed blocks, qk-norm,
-micro-conditioning and gradient checkpointing.
+``grad_checkpoint`` wraps each block in ``torch.utils.checkpoint`` (the
+``remat_policy: full`` of the JAX package: a block's activations are
+recomputed in the backward, so its attention forward kernel runs twice).
+
+Not ported yet (they raise if configured): ControlNet-Half, KV compression,
+windowed blocks, qk-norm, micro-conditioning and ``remat_policy: dots``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from instarevive_tpu_torch.nn.layers import (
     Conv2d, LayerNorm, Linear, Mlp, device_constant, timestep_embedding,
@@ -160,7 +164,7 @@ class T2IFinalLayer(nn.Module):
 _UNPORTED = {
     "qk_norm": False, "kv_compress_sampling": None, "kv_compress_ratio": 1,
     "kv_compress_layers": (), "window_size": 0, "window_block_indexes": (),
-    "micro_condition": False, "grad_checkpoint": False, "remat_policy": "full",
+    "micro_condition": False, "remat_policy": "full",
 }
 
 
@@ -181,6 +185,7 @@ class PixArt(nn.Module):
         model_max_length: int = 120,
         class_dropout_prob: float = 0.1,
         pe_interpolation: float = 1.0,
+        grad_checkpoint: bool = False,
         **unported,
     ):
         super().__init__()
@@ -195,6 +200,8 @@ class PixArt(nn.Module):
         self.pe_interpolation = pe_interpolation
         self.out_channels = in_channels * 2 if pred_sigma else in_channels
         self.model_max_length = model_max_length
+        self.caption_channels = caption_channels
+        self.grad_checkpoint = grad_checkpoint
         self.x_embedder = _PatchEmbed(in_channels, hidden_size, patch_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.t_block = nn.Sequential(nn.SiLU(), Linear(hidden_size, 6 * hidden_size))
@@ -223,8 +230,13 @@ class PixArt(nn.Module):
         t_emb = self.t_embedder(timestep)
         t6 = self.t_block(t_emb).reshape(b, 6, self.hidden_size)
         y_tokens = self.y_embedder(y)
+        remat = self.grad_checkpoint and torch.is_grad_enabled()
         for blk in self.blocks:
-            tokens = blk(tokens, y_tokens, t6, y_mask)
+            if remat:  # the blocks draw no random numbers: no generator state to keep
+                tokens = checkpoint(blk, tokens, y_tokens, t6, y_mask, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                tokens = blk(tokens, y_tokens, t6, y_mask)
 
         out = self.final_layer(tokens, t_emb)
         out = out.reshape(b, gh, gw, p, p, self.out_channels).permute(0, 1, 3, 2, 4, 5)

@@ -1,8 +1,15 @@
 """Shared building blocks (``instarevive_tpu/nn/layers.py``).
 
-``Linear`` and ``Conv2d`` cast their input to the weight's dtype, as a flax
-layer with ``dtype=`` casts to its compute dtype, so one ``module.to(bf16)``
-turns a model into bf16 compute. ``LayerNorm`` and ``GroupNorm`` take their
+``Linear`` and ``Conv2d`` cast their input to their compute dtype, as a flax
+layer with ``dtype=`` does. That dtype is the weight's own unless the layer's
+``compute_dtype`` is set (``set_compute_dtype``): inference casts the weights
+once (one ``module.to(bf16)`` turns a model into bf16 compute), training keeps
+f32 master weights and casts them per call, so the product runs in bf16 and
+the gradient arrives at the f32 parameter in f32. A per-layer dtype rather
+than ``torch.autocast``, because autocast picks the dtype per operator (it
+would run the f32 adaLN arithmetic and the residual adds its own way), while
+this reproduces exactly the casts of the JAX package: input, kernel and bias
+to the compute dtype, output in it. ``LayerNorm`` and ``GroupNorm`` take their
 statistics in f32 whatever the activation dtype, as flax does. Parameter
 names are torch's own, so the reference checkpoints' keys load as they are.
 
@@ -69,21 +76,42 @@ class DerivedCache:
         return super()._load_from_state_dict(*args, **kwargs)
 
 
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make every ``Linear`` and ``Conv2d`` under ``module`` compute in
+    ``dtype`` from weights kept in their own dtype (None: back to the
+    weight's dtype)."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.compute_dtype = dtype
+    return module
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation."""
     return F.gelu(x, approximate="tanh")
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
 class Linear(nn.Linear):
+    compute_dtype: Optional[torch.dtype] = None  # None: the weight's dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dtype = self.compute_dtype or self.weight.dtype
+        return F.linear(x.to(dtype), _cast(self.weight, dtype), _cast(self.bias, dtype))
 
 
 class Conv2d(DerivedCache, nn.Conv2d):
-    """NCHW convolution computing in the weight's dtype."""
+    """NCHW convolution computing in ``compute_dtype`` (the weight's dtype
+    unless set)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x.to(self.weight.dtype), self.weight, self.bias)
+        dtype = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dtype), _cast(self.weight, dtype), _cast(self.bias, dtype))
 
     def hwio(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(weight as contiguous (kh, kw, Cin, Cout) in its own dtype, bias in

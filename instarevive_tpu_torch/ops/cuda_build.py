@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 # Every library of the port: name -> sources, relative to ``csrc``.
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "flash_attn_bwd": ("flash_attn_bwd.cu",),
     "norm_kernels": ("norm_kernels.cu",),
     "gn_conv": ("gn_conv.cu",),
     "swin_attention": ("swin_attention.cu",),

@@ -18,6 +18,7 @@ from instarevive_tpu_torch.diffusion.schedules import make_schedule
 from instarevive_tpu_torch.models.pixart import PixArt
 from instarevive_tpu_torch.models.swinir import SwinIR
 from instarevive_tpu_torch.models.vae import AutoencoderKL
+from instarevive_tpu_torch.nn.layers import set_compute_dtype
 from instarevive_tpu_torch.pipelines.restore import RestorationPipeline
 
 # Consumed in f32 even under bf16 compute, as in the JAX package: the SwinIR
@@ -37,12 +38,28 @@ def set_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Cast the floating-point weights and buffers of ``module`` to ``dtype``
+    in place, apart from the ``KEEP_F32`` tables."""
+    for name, t in [*module.named_parameters(), *module.named_buffers()]:
+        if t.is_floating_point() and not name.endswith(KEEP_F32):
+            t.data = t.data.to(dtype)
+    return module
+
+
 def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
-                   device="cpu") -> RestorationPipeline:
+                   device="cpu", dit_master_weights: bool = False) -> RestorationPipeline:
     """Build the models on ``device``; ``dtype`` (e.g. torch.bfloat16) is the
     compute dtype of every matmul and conv. Norm statistics, softmax and the
     SwinIR relative-position bias stay f32. Weights are left at torch's
-    default init: give them with ``init_params`` or ``load_state_dicts``."""
+    default init: give them with ``init_params`` or ``load_state_dicts``.
+
+    For inference the weights themselves are cast to ``dtype``. With
+    ``dit_master_weights`` (training) the DiT keeps f32 weights and computes
+    in ``dtype`` from them (``nn.layers.set_compute_dtype``), so a gradient
+    reaches an f32 parameter; the frozen VAE and SwinIR are cast as before.
+    Everything comes back frozen and in eval mode: the trainer turns on
+    ``requires_grad`` for the DiT copies it trains."""
     set_precision()
     sw = dict(cfg.get("swinir", {}))
     vae = dict(cfg.get("vae", {}))
@@ -57,9 +74,12 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
             maxt=int(cfg.get("maxt", 400)),
         )
     if dtype is not None:
-        for name, t in [*pipe.named_parameters(), *pipe.named_buffers()]:
-            if t.is_floating_point() and not name.endswith(KEEP_F32):
-                t.data = t.data.to(dtype)
+        for module in (pipe.swinir, pipe.vae):
+            cast_weights(module, dtype)
+        if dit_master_weights:
+            set_compute_dtype(pipe.dit, dtype)
+        else:
+            cast_weights(pipe.dit, dtype)
     # The VAE's and SwinIR's activations are channels-last in memory (their
     # kernels read NHWC); with the weights laid out alike, the library
     # convolutions take both as they are instead of transposing on every call.

@@ -101,9 +101,109 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
-    q = torch.randn(1, 2, 8, 72, device=cuda, requires_grad=True)
+    q = torch.randn(1, 1, 8, 512, device=cuda, requires_grad=True)  # only head dim 72 has backward kernels
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, q, q)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape
+
+
+# The backward kernels against flash_backward_plain on the same q, k, v, o,
+# lse, dO, per output relative to its largest magnitude. bf16: both round P,
+# dS and the output to bf16 at the same places, and a sum taken in another
+# order can cross a rounding boundary (one bf16 step, 2^-8, of the largest
+# value); f32: the order of the sums and expf.
+BACKWARD_BOUNDS = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+def _backward_inputs(cuda, dtype, b, h, nq, nk, d, lens, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, n, d, device=cuda, generator=gen).to(dtype) for n in (nq, nk, nk, nq))
+    mask = None if lens is None else torch.arange(nk, device=cuda)[None] < torch.tensor(lens, device=cuda)[:, None]
+    return q, k, v, do, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,h,nq,nk,lens",
+    [
+        (2, 16, 1024, 1024, None),
+        (2, 16, 1024, 300, [77, 300]),
+        (2, 4, 256, 300, [0, 120]),  # a sample with every key masked
+        (1, 16, 1000, 77, None),     # ragged
+        (1, 3, 70, 45, [13]),
+        (1, 2, 5, 3, None),
+    ],
+)
+def test_flash_backward_matches_plain_and_repeats_bitwise(cuda, dtype, b, h, nq, nk, lens):
+    from instarevive_tpu_torch.ops import attention as A
+
+    q, k, v, do, mask = _backward_inputs(cuda, dtype, b, h, nq, nk, 72, lens)
+    scale = 72**-0.5
+    out, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+    torch.cuda.synchronize()
+    want_lse = A.flash_lse_plain(q, k, mask, scale)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    ref = sdpa(q, k, v, kv_mask=mask, scale=scale).float()  # v is N(0, 1) here: the bound scales with |out|
+    assert (out.float() - ref).abs().max().item() <= BOUNDS[dtype] * max(1.0, ref.abs().max().item())
+    before = (A.flash_dq.launches, A.flash_dkv.launches)
+    got = A.flash_backward(q, k, v, mask, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (A.flash_dq.launches, A.flash_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = A.flash_backward_plain(q, k, v, mask, out, lse, do, scale)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b_.shape and torch.isfinite(a).all(), name
+        assert (a.float() - b_.float()).abs().max().item() <= BACKWARD_BOUNDS[dtype] * b_.float().abs().max().item(), name
+    again = A.flash_backward(q, k, v, mask, out, lse, do, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [None, [0, 120]], ids=["unmasked", "one_sample_fully_masked"])
+def test_flash_attention_autograd_matches_autograd_through_sdpa(cuda, lens):
+    """f32, through the autograd.Function and through non-contiguous head
+    views as the DiT makes them."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    b, h, nq, nk, d = 2, 4, 130, 300, 72
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, y = torch.randn(b, nq, h * d, device=cuda, generator=gen), torch.randn(b, nk, 2 * h * d, device=cuda, generator=gen)
+    do = torch.randn(b, h, nq, d, device=cuda, generator=gen)
+    mask = None if lens is None else torch.arange(nk, device=cuda)[None] < torch.tensor(lens, device=cuda)[:, None]
+
+    def grads(fn):
+        xl, yl = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        k, v = yl.chunk(2, dim=-1)
+        heads = lambda t: t.reshape(b, -1, h, d).transpose(1, 2)  # noqa: E731
+        return torch.autograd.grad(fn(heads(xl), heads(k), heads(v), kv_mask=mask), (xl, yl), do)
+
+    fwd, dq, dkv = A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches
+    got = grads(A.flash_attention)
+    assert (A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches) == (fwd + 1, dq + 1, dkv + 1)
+    for a, b_ in zip(got, grads(sdpa)):
+        assert (a - b_).abs().max().item() <= 2e-5 * b_.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_checkpointed_dit_launches_the_forward_kernel_twice_and_keeps_its_gradients(cuda):
+    from instarevive_tpu_torch.models.pixart import PixArt
+    from instarevive_tpu_torch.ops import attention as A
+
+    cfg = dict(input_size=16, hidden_size=144, depth=2, num_heads=2, caption_channels=32, model_max_length=8, mlp_ratio=2.0)
+    plain = PixArt(**cfg).to(cuda)
+    remat = PixArt(**cfg, grad_checkpoint=True).to(cuda)
+    remat.load_state_dict(plain.state_dict())
+    z, y = torch.randn(2, 16, 16, 4, device=cuda), torch.randn(2, 8, 32, device=cuda)
+    t = torch.tensor([400.0, 3.0], device=cuda)
+    counts, grads = [], []
+    for model in (plain, remat):
+        A.flash_attention.launches = A.flash_dq.launches = A.flash_dkv.launches = 0
+        grads.append(torch.autograd.grad(model(z, t, y).pow(2).mean(), list(model.parameters())))
+        counts.append((A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches))
+    assert counts == [(4, 4, 4), (8, 4, 4)]  # two attentions a block; the recomputed forward launches K1 again
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)  # the kernels give the same bits on the same inputs
 
 
 @pytest.mark.cuda
