@@ -10,16 +10,18 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    versions;
 2. builds the kernel libraries (``csrc/flash_attn_fwd.cu``,
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
-   ``csrc/swin_attention.cu``), one nvcc each, all started together, and
-   prints each build time with the registers and spills;
+   ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
+   started together, and prints each build time with the registers and spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
    the same function: flash attention (K1), the fused GN+SiLU+conv3x3 (K3,
    with a border case that tells a zero halo from a ``silu(b)`` halo), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
-   nearest 2x upsample (K5c) and the Swin window attention (K4, shifted and
-   unshifted, bf16 and f32);
+   nearest 2x upsample (K5c), the Swin window attention (K4, shifted and
+   unshifted, bf16 and f32) and the per-sample reflect-padded 2-D filter (K6,
+   f32, at the shapes of both degradation programs, ragged shapes, a shared
+   kernel, and a border case that tells reflect from edge repeat);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
    the CPU, and holds the two against each other;
 5. builds the full-width ``configs/instarevive_v1.yaml`` pipeline in bf16
@@ -38,7 +40,16 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    distillation, then 1 more from the checkpoint, with the launches of K1 and
    K2 per step held to what the configuration implies; times warm steps;
    runs ``--lowmem`` at depth 2; and holds one depth-2 f32 train step on the
-   card against the CPU.
+   card against the CPU;
+9. runs both degradation programs (``data/realesrgan.degrade_batch``,
+   ``data/codeformer.degrade_batch_codeformer``) on a seeded (2, 512, 512, 3)
+   batch on the card: outputs checked, K6's launches held to what the draws
+   imply and its shapes to those held in 3, the same seed twice, the card
+   against the CPU under one set of handed-in draws, wall and split per call;
+10. runs the trainer with ``--task swinir`` at the full v1 SwinIR width in
+   bf16 from f32 masters, batch 2 at 512x512: 3 steps, then 1 more from the
+   checkpoint, K4, K5c and K6 launches per step held; times warm steps; and
+   holds one depth-cut f32 step on the card against the CPU.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -630,6 +641,7 @@ def swin_phase():
 def counters():
     """name -> wrapper; each wrapper's ``launches`` counts its kernel launches."""
     from instarevive_tpu_torch.ops.attention import flash_attention, flash_dkv, flash_dq
+    from instarevive_tpu_torch.ops.filters import filter2d
     from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
     from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
     from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
@@ -637,10 +649,12 @@ def counters():
     return {"flash_attn_fwd": flash_attention, "flash_attn_bwd_dq": flash_dq, "flash_attn_bwd_dkv": flash_dkv,
             "gn_silu_conv3x3": gn_silu_conv3x3, "gn_stats_fold": gn_affine,
             "gn_apply": group_norm_silu, "upsample2x": upsample2x_nearest,
-            "swin_window_attention": swin_window_attention}
+            "swin_window_attention": swin_window_attention, "filter2d": filter2d}
 
 
-BACKWARD_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")  # launched by training only
+# launched by training only: the attention backward, and the degradation's filter
+BACKWARD_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+TRAIN_ONLY_KERNELS = BACKWARD_KERNELS + ("filter2d",)
 
 
 def reset_counts() -> None:
@@ -660,7 +674,8 @@ def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans:
     + 2; one moments launch inside every fused conv and one for each of the
     two standalone norms of an encode or a decode, which also launch the
     apply kernel; levels - 1 upsamples per decode; attention twice per DiT
-    block and once per VAE mid block. Inference launches no backward kernel."""
+    block and once per VAE mid block. Inference launches no backward kernel
+    and no degradation filter."""
     levels, blocks = len(pipe.vae.ch_mult), len(pipe.vae.encoder.down[0].block)
     convs = encodes * 2 * (levels * blocks + 2) + decodes * 2 * (levels * (blocks + 1) + 2)
     norms = 2 * (encodes + decodes)
@@ -669,7 +684,7 @@ def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans:
             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0, "gn_silu_conv3x3": convs,
             "gn_stats_fold": convs + norms, "gn_apply": norms,
             "upsample2x": decodes * (levels - 1) + cleans * len(pipe.swinir.ups),
-            "swin_window_attention": cleans * swin_blocks}
+            "swin_window_attention": cleans * swin_blocks, "filter2d": 0}
 
 
 def check_counts(what: str, pipe, dit_forwards: int, encodes: int, decodes: int, cleans: int = 1):
@@ -900,7 +915,7 @@ def serve_phase(cfg_full, swin_records, process_launches):
     if stats["errors"] or not stats["ok"] or served != len(pngs) or not batches < served:
         fail(f"serve: /healthz {stats} after {len(pngs)} requests (before them {base})")
     counts = read_counts()
-    if any(v == 0 for name, v in counts.items() if name not in BACKWARD_KERNELS):
+    if any(v == 0 for name, v in counts.items() if name not in TRAIN_ONLY_KERNELS):
         fail(f"serve: a kernel was not launched while serving: {counts}")
     print(f"[serve] {card_line()}: instarevive_v1 bf16, {len(pngs)} concurrent POST /restore (8 of 512x512, 1 of "
           f"512x640) in {seconds:.3f}s = {len(pngs) / seconds:.2f} requests/s, PNG coding included; {batches} batches, "
@@ -1005,10 +1020,11 @@ def train_phase(cfg_full):
         finite(run, "train")
         if (run.start_step, run.end_step, len(run.history)) != (0, 3, 3):
             fail(f"train: ran steps {run.start_step}..{run.end_step} with {len(run.history)} metric records")
-        want = {k: 3 * v for k, v in per_step.items()}
-        if counts != want:
-            fail(f"train: kernel launches of 3 steps {counts}, the configuration implies {want}")
         task = run.task
+        # the loop degrades every batch before the DMD step reads its clean image: K6 as the draws imply
+        want = dict({k: 3 * v for k, v in per_step.items()}, filter2d=task.degrade.filter_calls)
+        if counts != want or not 6 <= counts["filter2d"] <= 9:
+            fail(f"train: kernel launches of 3 steps {counts}, the configuration and the draws imply {want}")
         gen_state, fake_state = task.states
         if not task.gen.grad_checkpoint or any(p.dtype != torch.float32 for p in gen_state.params):
             fail("train: the generator is not checkpointed with f32 master weights")
@@ -1026,7 +1042,7 @@ def train_phase(cfg_full):
               f"batch {T.BATCH} at {T.CROP}x{T.CROP}, checkpointed: 3 steps through train.launcher.main in {seconds:.1f}s "
               f"(set-up, first-use builds and the {os.path.getsize(os.path.join(out, 'final', 'state.pt')) / 2**30:.1f} GiB "
               f"checkpoint included); launches per step {({k: v for k, v in per_step.items() if v})} as the configuration "
-              f"implies; last step {({k: round(v, 6) for k, v in last.items()})}; {moved} of {n_params} parameter "
+              f"implies, filter2d {counts['filter2d']} in the 3 degradations as their draws imply; last step {({k: round(v, 6) for k, v in last.items()})}; {moved} of {n_params} parameter "
               f"tensors moved, the teacher is as initialised; peak allocated {peak:.2f} GiB", flush=True)
         del run, task, gen_state, fake_state
         free()
@@ -1034,7 +1050,8 @@ def train_phase(cfg_full):
         reset_counts()
         again = launcher.main(T.train_argv(config, data, out, 4, extra + ["--resume", os.path.join(out, "final")]))
         finite(again, "train, resumed")
-        if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) or read_counts() != per_step:
+        if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) \
+                or read_counts() != dict(per_step, filter2d=again.task.degrade.filter_calls):
             fail(f"train, resumed: ran steps {again.start_step}..{again.end_step}, launches {read_counts()}")
         if again.task.states[0].step != 4 or again.task.states[0].opt_state["inner"]["count"] != 4:
             fail("train, resumed: the restored state did not continue at step 3")
@@ -1122,6 +1139,248 @@ def train_step_card_against_cpu(cfg_full, data, null):
     return errs
 
 
+# Both degradation programs, the card against the CPU under one set of
+# handed-in draws and CPU noise fields: JPEG rounding and the final 8-bit
+# rounding flip on f32 noise, so the bound is statistical, as in the CPU
+# parity tests: within one 8-bit level on at least 99% of pixels, mean
+# absolute difference under 2e-3.
+DEGRADE_LEVEL_SHARE, DEGRADE_MEAN_BOUND = 0.99, 2e-3
+# One f32 SwinIR train step at depth 2x2, card against CPU: the loss relative
+# to itself, every gradient against the largest gradient magnitude.
+SWINIR_TRAIN_F32_BOUND = 1e-3
+
+
+def held_filter_shapes(filter_records):
+    return {(*r["shape"], *r["taps"], r["per_sample"]) for r in filter_records}
+
+
+def degrade_phase(filter_records):
+    """Both degradation programs on a seeded (2, 512, 512, 3) batch on the
+    card. Returns (K6 launches of the counted calls by program, timing
+    records by program)."""
+    import statistics
+
+    import torch
+
+    from instarevive_tpu_torch.data import codeformer, realesrgan
+    from instarevive_tpu_torch.ops.filters import filter2d
+    from instarevive_tpu_torch.tools import time_degrade as D
+
+    hq = D.clean_batch()
+    held = held_filter_shapes(filter_records)
+    launches, timing = {}, {}
+    for kind in ("realesrgan", "codeformer"):
+        call, cfg, gens = D.degradation_setup(kind, seed=0)
+        call(hq)  # first use
+        torch.cuda.synchronize()
+        calls = 8 if kind == "realesrgan" else 3
+        reset_counts()
+        filter2d.shapes = {}
+        expected, seen_blur2 = 0, set()
+        try:
+            for _ in range(calls):
+                if kind == "realesrgan":
+                    draws = realesrgan.draw_degradation(gens.host, cfg, hq.shape[0])
+                    expected += 2 + int(draws.blur2)
+                    seen_blur2.add(draws.blur2)
+                else:
+                    draws = codeformer.draw_codeformer(gens.host, cfg, hq.shape[0])
+                    expected += 1
+                out = call(hq, draws)
+                torch.cuda.synchronize()
+                check_image(out["lq"], tuple(hq.shape), f"degrade {kind}")
+                if not torch.equal(out["hq"], hq * 2.0 - 1.0):
+                    fail(f"degrade {kind}: hq is not 2 x - 1 of the clean batch")
+                if (out["lq"] - hq).abs().mean().item() < 0.01:
+                    fail(f"degrade {kind}: lq is the clean batch")
+                if kind == "realesrgan" and (out["lq"] * 255 - torch.round(out["lq"] * 255)).abs().max().item() > 1e-4:
+                    fail("degrade realesrgan: lq is not on 8-bit levels")
+            shapes = filter2d.shapes
+        finally:
+            filter2d.shapes = None
+        counts = read_counts()
+        if counts["filter2d"] != expected or sum(shapes.values()) != expected or any(
+                v for k, v in counts.items() if k != "filter2d"):
+            fail(f"degrade {kind}: kernel launches {counts}, the draws imply filter2d {expected} and nothing else")
+        if set(shapes) - held:
+            fail(f"degrade {kind}: filter2d ran at shapes its kernel phase did not hold: {sorted(set(shapes) - held)}")
+        launches[kind] = expected
+
+        # the same seed twice: the same bits; another seed: another pair
+        pairs = [D.degradation_setup(kind, seed=seed)[0](hq)["lq"] for seed in (5, 5, 6)]
+        if not torch.equal(pairs[0], pairs[1]) or torch.equal(pairs[0], pairs[2]):
+            fail(f"degrade {kind}: seeded calls do not repeat, or two seeds gave one pair")
+
+        # the card against the CPU, one set of draws and noise fields
+        gen = torch.Generator().manual_seed(9)
+        if kind == "realesrgan":
+            draws = D.forced_gaussian(realesrgan.draw_degradation(gen, cfg, hq.shape[0]),
+                                      ((2, 768, 768, 3), (2, 160, 160, 3)), gen)
+            run = lambda x, d: realesrgan.degrade_batch(None, x, cfg, draws=d)  # noqa: E731
+        else:
+            draws = codeformer.draw_codeformer(gen, cfg, hq.shape[0])
+            draws.fields = (torch.randn(2, 128, 128, 3, generator=gen), torch.randn(2, 128, 128, 1, generator=gen))
+            run = lambda x, d: codeformer.degrade_batch_codeformer(None, x, cfg, draws=d)  # noqa: E731
+        diff = (run(hq, D.draws_on(draws, "cuda"))["lq"].cpu() - run(hq.cpu(), draws)["lq"]).abs()
+        share, mean = (diff <= 1 / 255 + 1e-6).float().mean().item(), diff.mean().item()
+        if not (share >= DEGRADE_LEVEL_SHARE and mean < DEGRADE_MEAN_BOUND):
+            fail(f"degrade {kind}: card against CPU: {share:.5f} of pixels within one level, mean difference {mean:.2e}")
+
+        walls = D.wall(lambda: call(hq), 10)
+        split = D.split_ms(kind, call, hq, 10)
+        timing[kind] = dict(wall_s=walls, wall_median_s=statistics.median(walls), split_median_ms=split)
+        print(f"[degrade] {card_line()}: {kind} on (2, 512, 512, 3): {calls} calls, filter2d launches {expected} as the draws "
+              f"imply" + (f" (second blur drawn {sorted(seen_blur2)})" if kind == "realesrgan" else "")
+              + f", by (B, H, W, C, kh, kw, per-sample): {sorted(shapes.items())}, all held in the kernel phase; same seed "
+              f"same bits; card against CPU with handed-in draws: {share:.5f} of pixels within one 8-bit level, mean "
+              f"difference {mean:.2e} (bounds {DEGRADE_LEVEL_SHARE}, {DEGRADE_MEAN_BOUND:.0e}); warm wall "
+              f"{statistics.median(walls) * 1e3:.2f} ms a call (median of 10); split, median ms by CUDA events: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in split.items()), flush=True)
+    return launches, timing
+
+
+def swinir_train_phase(cfg_full, swin_records, filter_records):
+    """The trainer with ``--task swinir`` through its entry point at the full
+    v1 SwinIR width (embed 180, 8 x 6 blocks) in bf16 from f32 masters, batch
+    2 at 512x512: 3 steps, then 1 more from the checkpoint; K4 once a block,
+    K5c once a step of the upsampler and K6 as the draws imply, per step, all
+    in the forward (their backward is the plain version's). Then timed steps,
+    and one depth-cut f32 step on the card against the CPU. Returns (launches
+    of the 3-step run, launches per step without K6, the timing record)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.data import realesrgan
+    from instarevive_tpu_torch.ops.filters import filter2d
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+    from instarevive_tpu_torch.tools import time_degrade as D
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    blocks = sum(cfg_full["swinir"]["depths"])
+    per_step = dict(dict.fromkeys(counters(), 0), swin_window_attention=blocks, upsample2x=3)
+    init = init_params(build_pipeline(cfg_full, device="cuda", components=("swinir",)), seed=0).swinir
+    init_params_f32 = [p.detach().clone() for p in init.parameters()]
+    del init
+    held = held_filter_shapes(filter_records)
+    config = os.path.join(REPO, "configs", "instarevive_v1.yaml")
+
+    def finite(run, what):
+        for i, m in enumerate(run.history):
+            if set(m) != {"loss", "grads_finite"} or not np.isfinite(m["loss"]) or m["grads_finite"] != 1.0:
+                fail(f"{what}: metrics of step {run.start_step + i} are {m}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = T.write_images(os.path.join(tmp, "hq"))
+        out = os.path.join(tmp, "run")
+        filter2d.shapes = {}
+        try:
+            t0 = time.perf_counter()
+            run = tally_shapes(lambda: launcher.main(T.train_argv(config, data, out, 3, task="swinir")),
+                               "train swinir", None, swin_records)
+            seconds = time.perf_counter() - t0
+            shapes = filter2d.shapes
+        finally:
+            filter2d.shapes = None
+        counts = read_counts()
+        finite(run, "train swinir")
+        task = run.task
+        want = dict({k: 3 * v for k, v in per_step.items()}, filter2d=task.degrade.filter_calls)
+        if (run.start_step, run.end_step, len(run.history)) != (0, 3, 3) or counts != want or not 6 <= counts["filter2d"] <= 9:
+            fail(f"train swinir: ran steps {run.start_step}..{run.end_step}; kernel launches {counts}, the configuration "
+                 f"and the draws imply {want}")
+        if set(shapes) - held or sum(shapes.values()) != counts["filter2d"]:
+            fail(f"train swinir: filter2d ran at shapes its kernel phase did not hold: {sorted(set(shapes) - held)}")
+        (state,) = task.states
+        moved = sum(not torch.equal(p, q) for p, q in zip(state.params, init_params_f32))
+        tables = [p for n, p in zip(state.names, state.params) if n.endswith("relative_position_bias_table")]
+        tables_moved = sum(not torch.equal(p, q) for (n, p), q in zip(zip(state.names, state.params), init_params_f32)
+                           if n.endswith("relative_position_bias_table"))
+        if any(p.dtype != torch.float32 for p in state.params) or moved < len(state.params) - 2 or tables_moved != len(tables):
+            fail(f"train swinir: of {len(state.params)} f32 parameter tensors {moved} moved, of {len(tables)} bias tables "
+                 f"{tables_moved}")
+        if all(torch.equal(e, p) for e, p in zip(state.ema_params, state.params)):
+            fail("train swinir: the EMA equals the parameters")
+        print(f"[train swinir] {card_line()}: SwinIR at full v1 width (embed {cfg_full['swinir']['embed_dim']}, {blocks} "
+              f"blocks), bf16 compute from f32 masters, batch {T.BATCH} at {T.CROP}x{T.CROP}: 3 steps through "
+              f"train.launcher.main in {seconds:.1f}s (set-up and checkpoint included); launches per step "
+              f"{({k: v for k, v in per_step.items() if v})} as the configuration implies, filter2d {counts['filter2d']} in "
+              f"the 3 degradations as their draws imply, by shape {sorted(shapes.items())}; losses "
+              f"{[round(m['loss'], 6) for m in run.history]}; {moved} of {len(state.params)} parameter tensors and all "
+              f"{len(tables)} bias tables moved", flush=True)
+        del run, task, state, tables
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        again = launcher.main(T.train_argv(config, data, out, 4, ["--resume", os.path.join(out, "final")], task="swinir"))
+        finite(again, "train swinir, resumed")
+        if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) \
+                or read_counts() != dict(per_step, filter2d=again.task.degrade.filter_calls) \
+                or again.task.states[0].step != 4 or again.task.states[0].opt_state["inner"]["count"] != 4:
+            fail(f"train swinir, resumed: ran steps {again.start_step}..{again.end_step}, launches {read_counts()}")
+        print(f"[train swinir] resumed from 'final' at step 3, took 1 step with the same launches: {again.history[-1]}",
+              flush=True)
+
+        timing = T.time_steps(again.task, T.load_batches(data, 5), T.SWINIR_PHASES)
+        print(f"[train swinir] warm s/step {timing['step_median_s']:.4f} (steps {', '.join(f'{t:.4f}' for t in timing['step_s'])}); "
+              "split, median ms by CUDA events: " + ", ".join(f"{k} {v:.1f}" for k, v in timing["phase_median_ms"].items())
+              + f"; peak allocated {timing['peak_allocated_gib']:.2f} GiB", flush=True)
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one f32 step at depth 2 x 2: the same weights, loader batch and draws on the card and on the CPU
+        cfg = merge(cfg_full, {"swinir": {"depths": [2, 2], "num_heads": [6, 6]}})
+        argv = [a for a in T.train_argv("-", data, "-", 1, task="swinir") if a != "--bf16"]
+        args = launcher.parse_args(argv)
+        cpu, gpu = launcher.SwinIRTask(args, cfg, torch.device("cpu")), launcher.SwinIRTask(args, cfg, torch.device("cuda"))
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        batch = T.load_batches(data, 1)[0]
+        gen = torch.Generator().manual_seed(4)
+        draws = D.forced_gaussian(realesrgan.draw_degradation(gen, cpu.degrade.cfg, T.BATCH),
+                                  ((T.BATCH, 768, 768, 3), (T.BATCH, 160, 160, 3)), gen)
+        res = {}
+        for label, task, d in (("cpu", cpu, draws), ("cuda", gpu, D.draws_on(draws, "cuda"))):
+            kept = []
+            data_pair = task.degrade(torch.from_numpy(batch["hq"]).to(task.device).float() / 255.0, d)
+            reset_counts()
+            metrics = task.train_step(data_pair, keep_grads=kept)
+            res[label] = (float(metrics["loss"]), [g.cpu() for g in kept])
+        small = dict(dict.fromkeys(counters(), 0), swin_window_attention=4, upsample2x=3)
+        if read_counts() != small:
+            fail(f"train swinir step, card against CPU: launches {read_counts()}, expected {small}")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
+        top = max(g.abs().max().item() for g in g_cpu)
+        errs = {"loss": abs(l_gpu - l_cpu) / l_cpu, "grad": max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) / top}
+        print(f"[train swinir] one f32 step at depth 2x2, full width, card against CPU (same weights, loader batch and "
+              f"handed-in draws, each device degrading for itself): loss on the CPU {l_cpu:.6f}; relative differences "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {SWINIR_TRAIN_F32_BOUND:.0e})", flush=True)
+        if not max(errs.values()) <= SWINIR_TRAIN_F32_BOUND:
+            fail(f"train swinir step: the card differs from the CPU by {errs}")
+    return counts, per_step, dict(timing, three_steps_s=seconds, card_vs_cpu=errs)
+
+
+def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
+    """K6's entry of the ``kernels`` line: f32, the stage-1 blur's times at
+    top level; ``launches`` is the count of the 3-step ``--task swinir`` run."""
+    main_rec = next(r for r in records if r["name"] == "realesrgan_hq_b2_512")
+    return {
+        "name": "filter2d", "route": "cuda", "source": "instarevive_tpu_torch/csrc/filter2d.cu",
+        "replaces": "instarevive_tpu/ops/filters.py:106", "launches": swinir_counts["filter2d"], "launches_tiled": 0,
+        "launches_swinir_train_run": swinir_counts["filter2d"], "launches_train_run": dmd_counts["filter2d"],
+        "launches_degrade": degrade_launches, "max_abs_err": max(r["max_abs_err"] for r in records),
+        "max_rel_err": max(r["max_rel_err"] for r in records),
+        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+        "library": "reflect F.pad + one grouped F.conv2d: the plain version itself", "main_shape": main_rec["shape"],
+        "shapes": records,
+    }
+
+
 def kernel_entry(name, source, replaces, launches, tiled_launches, records, main_name, train=None):
     """One entry of the ``kernels`` line: the main-path shape's times at top
     level, the largest bf16 error over all shapes, every shape below.
@@ -1179,6 +1438,9 @@ def main() -> None:
     conv_records = conv_phase()
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
+    from instarevive_tpu_torch.tools import time_degrade
+
+    filter_records = time_degrade.hold_filter2d(fail=fail)
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
     small_pipeline_phase(cfg)
     launches, tiled = pipeline_phase(conv_records, swin_records)
@@ -1186,10 +1448,19 @@ def main() -> None:
     serve_phase(cfg, swin_records, launches)
     train = train_phase(cfg)
     timing = train[2]
+    degrade_launches, degrade_timing = degrade_phase(filter_records)
+    swinir_train = swinir_train_phase(cfg, swin_records, filter_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
     fwd["with_lse"] = lse_records  # the training forward: the same kernel writing the row log-sum-exp
+    swin = kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
+                        launches, tiled, swin_records, "process_b4_64x64_shifted", train)
+    up = kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
+                      launches, tiled, up_records, "b4_256_256", train)
+    for entry in (swin, up):  # forward launches of the SwinIR trainer; their backward is the plain version's
+        entry["launches_swinir_train_run"] = swinir_train[0][entry["name"]]
+        entry["launches_swinir_train_step"] = swinir_train[1][entry["name"]]
     print(json.dumps({"kernels": [
         fwd,
         kernel_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127",
@@ -1202,11 +1473,10 @@ def main() -> None:
                      launches, tiled, stats_records, "b4_512_128", train),
         kernel_entry("gn_apply", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:86",
                      launches, tiled, apply_records, "b4_512_128", train),
-        kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
-                     launches, tiled, up_records, "b4_256_256", train),
-        kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
-                     launches, tiled, swin_records, "process_b4_64x64_shifted", train),
-    ], "train": {k: v for k, v in timing.items()}}), flush=True)
+        up,
+        swin,
+        filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
+    ], "train": timing, "train_swinir": swinir_train[2], "degrade": degrade_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

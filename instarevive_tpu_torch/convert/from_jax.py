@@ -230,6 +230,17 @@ def state_dicts_from_jax(params: Mapping[str, Any], cfg: Mapping[str, Any]) -> D
     return out
 
 
+def _train_state_tree(as_dict, params, ema, mu, nu, count: int, names: Sequence[str], step: int) -> Dict[str, Any]:
+    mu_sd, nu_sd = as_dict(mu), as_dict(nu)
+    return {
+        "step": int(step),
+        "params": as_dict(params),
+        "ema": None if ema is None else as_dict(ema),
+        "opt_state": {"inner": {"count": int(count),
+                                "mu": [mu_sd[n] for n in names], "nu": [nu_sd[n] for n in names]}},
+    }
+
+
 def train_state_from_jax(
     params: Mapping[str, Any],
     ema: Any,
@@ -247,14 +258,22 @@ def train_state_from_jax(
     its parameter list, which the moment lists follow. Without clipping's or
     accumulation's own state: build the port's optimizer with the same
     options and load this into it."""
-    def as_dict(tree):
-        return pixart_params_to_torch(tree, depth=depth)
+    return _train_state_tree(lambda tree: pixart_params_to_torch(tree, depth=depth),
+                             params, ema, mu, nu, count, names, step)
 
-    mu_sd, nu_sd = as_dict(mu), as_dict(nu)
-    return {
-        "step": int(step),
-        "params": as_dict(params),
-        "ema": None if ema is None else as_dict(ema),
-        "opt_state": {"inner": {"count": int(count),
-                                "mu": [mu_sd[n] for n in names], "nu": [nu_sd[n] for n in names]}},
-    }
+
+def swinir_train_state_from_jax(
+    params: Mapping[str, Any],
+    ema: Any,
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: int,
+    names: Sequence[str],
+    step: int = 0,
+    **swinir_kw,
+) -> Dict[str, Any]:
+    """The same for the single-model SwinIR training state (``--task
+    swinir``); ``swinir_kw`` are ``swinir_params_to_torch``'s options
+    (depths, upsampler, sf, unshuffle)."""
+    return _train_state_tree(lambda tree: swinir_params_to_torch(tree, **swinir_kw),
+                             params, ema, mu, nu, count, names, step)

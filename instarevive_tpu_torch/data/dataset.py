@@ -3,8 +3,9 @@ lists, 3-retry reads, center or random crops with a box-resize when the short
 side is under the crop size, horizontal flips, and a threaded batcher that
 yields stacked uint8 numpy batches in a seeded, resumable order.
 
-The port's own copy: images decode through PIL on the host (the native JPEG
-loader is not ported yet), and the trainer moves each batch to the device.
+The port's own copy: a JPEG decodes and crops through the native loader
+(``data/native_loader.py``) when its library is built, anything else through
+PIL, on the host; the trainer moves each batch to the device.
 """
 
 from __future__ import annotations
@@ -73,6 +74,16 @@ class ImageFolderDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         path = self.files[idx]
         flip = self.use_hflip and self.rng.random() < 0.5
+        if self.crop_type != "none" and path.lower().endswith((".jpg", ".jpeg")):
+            # decode and crop in C++ (native/fastloader.cpp); None when the library is not built
+            from instarevive_tpu_torch.data import native_loader
+
+            img = native_loader.decode_crop(
+                path, self.out_size, crop=self.crop_type,
+                seed=int(self.rng.integers(0, 2**63)), hflip=flip,
+            )
+            if img is not None:
+                return {"hq": img}
         img = _load_retry(path)
         if img is None:
             img = np.zeros((self.out_size, self.out_size, 3), np.uint8)

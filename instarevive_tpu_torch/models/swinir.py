@@ -58,14 +58,19 @@ class WindowAttention(DerivedCache, nn.Module):
 
     def bias(self) -> torch.Tensor:
         """The table gathered to (heads, N, N) f32, as the attention op reads
-        it. Packed once, not per call."""
+        it. For inference it is packed once, not per call; while the table
+        takes a gradient it is gathered inside autograd on every call, so
+        that the gradient reaches the table."""
         table = self.relative_position_bias_table
 
-        def make():
+        def make(t=None):
             n = self.window**2
             idx = device_constant(W.relative_position_index, (self.window,), table.device).reshape(-1)
-            return table.detach().float()[idx].reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
+            t = table.detach() if t is None else t
+            return t.float()[idx].reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
 
+        if table.requires_grad and torch.is_grad_enabled():
+            return make(table)
         return derived(self, "bias", (table,), make)
 
     def forward(self, x: torch.Tensor, shift: int = 0, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from instarevive_tpu_torch.ops.filters import depthwise_conv2d
@@ -49,3 +51,26 @@ def adain_color_fix(content: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
     style_mean, style_std = _mean_std(style)
     content_mean, content_std = _mean_std(content)
     return (content - content_mean) / content_std * style_std + style_mean
+
+
+_RGB2YCBCR_JPEG = ((0.299, -0.168736, 0.5), (0.587, -0.331264, -0.418688), (0.114, 0.5, -0.081312))
+_YCBCR2RGB_JPEG = ((1.0, 1.0, 1.0), (0.0, -0.344136, 1.772), (1.402, -0.714136, 0.0))
+_CHROMA_OFFSET = (0.0, 128.0, 128.0)
+
+
+@lru_cache(maxsize=64)
+def constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """``values`` (nested tuples of numbers) as an f32 tensor on ``device``,
+    copied there once rather than from pageable memory on every call."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def rgb_to_ycbcr(img: torch.Tensor) -> torch.Tensor:
+    """JPEG full-range RGB->YCbCr (for DiffJPEG), NHWC in [0, 255]."""
+    return img @ constant(_RGB2YCBCR_JPEG, img.device) + constant(_CHROMA_OFFSET, img.device)
+
+
+def ycbcr_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """JPEG full-range YCbCr->RGB, NHWC in [0, 255]."""
+    return (img - constant(_CHROMA_OFFSET, img.device)) @ constant(_YCBCR2RGB_JPEG, img.device)

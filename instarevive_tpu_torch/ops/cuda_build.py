@@ -33,6 +33,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "norm_kernels": ("norm_kernels.cu",),
     "gn_conv": ("gn_conv.cu",),
     "swin_attention": ("swin_attention.cu",),
+    "filter2d": ("filter2d.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -93,10 +93,11 @@ def _kernels():
     return lib
 
 
-def check_nhwc(x: torch.Tensor, what: str, arithmetic: bool = True) -> None:
+def check_nhwc(x: torch.Tensor, what: str, arithmetic: bool = True, grad_ok: bool = False) -> None:
     """Raise unless the CUDA tensor x is what the kernels read: a 4-D tensor
-    contiguous as NHWC, 16-byte aligned, outside autograd, in bf16 or f32
-    (any type of 2 or 4 bytes when the kernel only moves it)."""
+    contiguous as NHWC, 16-byte aligned, in bf16 or f32 (any type of 2 or 4
+    bytes when the kernel only moves it), and outside autograd unless the
+    caller wraps the kernel in an ``autograd.Function`` (``grad_ok``)."""
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"{what}: expected a non-empty (N, H, W, C) tensor, got shape {tuple(x.shape)}")
     if arithmetic and x.dtype not in (torch.bfloat16, torch.float32):
@@ -110,7 +111,7 @@ def check_nhwc(x: torch.Tensor, what: str, arithmetic: bool = True) -> None:
         )
     if x.data_ptr() % 16:
         raise ValueError(f"{what}: the tensor's storage must be 16-byte aligned")
-    if x.requires_grad:
+    if x.requires_grad and not grad_ok:
         raise RuntimeError(f"{what}: the kernel has no backward; call it under torch.no_grad()")
     if x.shape[1] * x.shape[2] >= 2**31:
         raise ValueError(f"{what}: shape {tuple(x.shape)} is beyond the kernels' 32-bit pixel index")
@@ -188,23 +189,49 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, gr
     return affine_silu(x, *gn_affine(x, gamma, beta, groups, eps), silu)
 
 
-def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x upsample: (N, H, W, C) -> (N, 2H, 2W, C). On the card a
-    channel row must be a multiple of 16 bytes."""
-    if not x.is_cuda:
-        return upsample2x_nearest_plain(x)
-    check_nhwc(x, "upsample2x_nearest", arithmetic=False)
+def _launch_upsample2x(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
-    row_bytes = c * x.element_size()
-    if row_bytes % 16:
-        raise ValueError(f"upsample2x_nearest: C * element size must be a multiple of 16 bytes, got {row_bytes}")
     out = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernels().upsample2x(x.data_ptr(), out.data_ptr(), n, h, w, row_bytes,
+        err = _kernels().upsample2x(x.data_ptr(), out.data_ptr(), n, h, w, c * x.element_size(),
                                     torch.cuda.current_stream().cuda_stream)
     raise_on_error(err, "upsample2x")
     upsample2x_nearest.launches += 1
     return out
+
+
+def upsample2x_backward(grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of the nearest 2x upsample: each input pixel collects its
+    2x2 copies, summed in f32."""
+    n, h2, w2, c = grad.shape
+    return grad.reshape(n, h2 // 2, 2, w2 // 2, 2, c).sum(dim=(2, 4), dtype=torch.float32).to(grad.dtype)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """The kernel forward; the TPU kernel has no backward of its own (XLA
+    differentiates the plain broadcast there), so the backward is the plain
+    2x2 sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _launch_upsample2x(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return upsample2x_backward(grad)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample: (N, H, W, C) -> (N, 2H, 2W, C). On the card a
+    channel row must be a multiple of 16 bytes; an input that requires grad
+    gets the kernel forward and the plain 2x2-sum backward."""
+    if not x.is_cuda:
+        return upsample2x_nearest_plain(x)
+    check_nhwc(x, "upsample2x_nearest", arithmetic=False, grad_ok=True)
+    row_bytes = x.shape[3] * x.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"upsample2x_nearest: C * element size must be a multiple of 16 bytes, got {row_bytes}")
+    return _Upsample2x.apply(x) if x.requires_grad else _launch_upsample2x(x)
 
 
 # kernel launches since the last reset

@@ -25,7 +25,12 @@ so nothing of P is lost that an f32 sum would keep); one rounding to qkv's
 dtype at the end.
 
 On a CPU tensor the wrapper runs ``swin_window_attention_plain``; on a CUDA
-tensor it launches the kernel or raises. Forward only.
+tensor it launches the kernel or raises. The TPU kernel has no backward (the
+JAX package's SwinIR computes its attention inline under XLA's autodiff), so
+none is written here: when qkv or the bias requires grad the kernel runs the
+forward and the backward recomputes through the plain version under
+``torch.enable_grad()`` (``_SwinWindowAttention``), the arrangement the JAX
+package uses for its fused GN+SiLU+conv.
 """
 
 from __future__ import annotations
@@ -93,13 +98,55 @@ def heads_per_block(heads: int, windows: int, sms: int) -> int:
     return max(fits, default=1)
 
 
-def _f32_table(t: torch.Tensor, shape: tuple, like: torch.Tensor, what: str) -> None:
+def _f32_table(t: torch.Tensor, shape: tuple, like: torch.Tensor, what: str, grad_ok: bool = False) -> None:
     if t.shape != shape or t.dtype != torch.float32 or t.device != like.device or not t.is_contiguous():
         raise ValueError(f"swin_window_attention: {what} must be a contiguous {shape} f32 tensor on {like.device}, "
                          f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if t.requires_grad:
-        raise RuntimeError(f"swin_window_attention: {what} requires grad and the kernel has no backward; "
-                           "call it under torch.no_grad()")
+    if t.requires_grad and not grad_ok:
+        raise RuntimeError(f"swin_window_attention: {what} requires grad and takes no gradient here")
+
+
+def _launch(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+            heads: int, window: int, scale: float, shift: int) -> torch.Tensor:
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    n_windows = (h // window) * (w // window)
+    out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _kernel()(
+            qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, h, w, heads, c // heads, window, shift, float(scale),
+            heads_per_block(heads, b * n_windows, _sm_count(qkv.device.index)), int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on_error(err, "swin_window_attention")
+    swin_window_attention.launches += 1
+    if swin_window_attention.shapes is not None:
+        key = (b, h, w, c3, shift, mask is not None)
+        swin_window_attention.shapes[key] = swin_window_attention.shapes.get(key, 0) + 1
+    return out
+
+
+class _SwinWindowAttention(torch.autograd.Function):
+    """Kernel forward, plain recompute backward: the backward runs
+    ``swin_window_attention_plain`` on the saved qkv and bias (in their own
+    dtypes) under ``torch.enable_grad()`` and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, heads, window, scale, shift):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.args = (heads, window, scale, shift)
+        return _launch(qkv, bias, mask, heads, window, scale, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, bias, mask = ctx.saved_tensors
+        wanted = [i for i in (0, 1) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [qkv.detach().requires_grad_(0 in wanted), bias.detach().requires_grad_(1 in wanted)]
+            out = swin_window_attention_plain(leaves[0], leaves[1], mask, *ctx.args)
+            grads = dict(zip(wanted, torch.autograd.grad(out, [leaves[i] for i in wanted], grad)))
+        return grads.get(0), grads.get(1), None, None, None, None, None
 
 
 def swin_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
@@ -108,7 +155,8 @@ def swin_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[
     included. qkv: (B, H, W, 3C) in bf16 or f32; bias: (heads, N, N) f32;
     mask: (nWindows, N, N) additive f32 or None; returns (B, H, W, C) in
     qkv's dtype. On the card: ``window`` 8, head dim up to 32 (even in bf16),
-    ``shift`` in [0, window)."""
+    ``shift`` in [0, window); a qkv or bias that requires grad gets the kernel
+    forward and the plain version's backward."""
     if qkv.dim() != 4 or qkv.shape[3] % (3 * heads):
         raise ValueError(f"swin_window_attention: qkv must be (B, H, W, 3 * heads * hd), got {tuple(qkv.shape)}")
     b, h, w, c3 = qkv.shape
@@ -118,7 +166,7 @@ def swin_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[
         raise ValueError(f"swin_window_attention: shift must be in [0, {window}), got {shift}")
     if not qkv.is_cuda:
         return swin_window_attention_plain(qkv, bias, mask, heads, window, scale, shift)
-    check_nhwc(qkv, "swin_window_attention")
+    check_nhwc(qkv, "swin_window_attention", grad_ok=True)
     c = c3 // 3
     hd, n = c // heads, window * window
     if window != WINDOW:
@@ -130,23 +178,12 @@ def swin_window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[
     if b * h * w >= 2**31 // c3:
         raise ValueError(f"swin_window_attention: shape {tuple(qkv.shape)} is beyond the kernel's 32-bit index")
     n_windows = (h // window) * (w // window)
-    _f32_table(bias, (heads, n, n), qkv, "bias")
+    _f32_table(bias, (heads, n, n), qkv, "bias", grad_ok=True)
     if mask is not None:
         _f32_table(mask, (n_windows, n, n), qkv, "mask")
-    out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = _kernel()(
-            qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, h, w, heads, hd, window, shift, float(scale),
-            heads_per_block(heads, b * n_windows, _sm_count(qkv.device.index)), int(bf16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on_error(err, "swin_window_attention")
-    swin_window_attention.launches += 1
-    if swin_window_attention.shapes is not None:
-        key = (b, h, w, c3, shift, mask is not None)
-        swin_window_attention.shapes[key] = swin_window_attention.shapes.get(key, 0) + 1
-    return out
+    if qkv.requires_grad or bias.requires_grad:
+        return _SwinWindowAttention.apply(qkv, bias, mask, heads, window, scale, shift)
+    return _launch(qkv, bias, mask, heads, window, scale, shift)
 
 
 swin_window_attention.launches = 0  # kernel launches since the last reset

@@ -9,7 +9,7 @@ the reference key layout (``load_state_dicts``), such as the ones
 from __future__ import annotations
 
 import math
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +48,8 @@ def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module
 
 
 def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
-                   device="cpu", dit_master_weights: bool = False) -> RestorationPipeline:
+                   device="cpu", dit_master_weights: bool = False, swinir_master_weights: bool = False,
+                   components: Optional[Sequence[str]] = None) -> RestorationPipeline:
     """Build the models on ``device``; ``dtype`` (e.g. torch.bfloat16) is the
     compute dtype of every matmul and conv. Norm statistics, softmax and the
     SwinIR relative-position bias stay f32. Weights are left at torch's
@@ -57,34 +58,35 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
     For inference the weights themselves are cast to ``dtype``. With
     ``dit_master_weights`` (training) the DiT keeps f32 weights and computes
     in ``dtype`` from them (``nn.layers.set_compute_dtype``), so a gradient
-    reaches an f32 parameter; the frozen VAE and SwinIR are cast as before.
-    Everything comes back frozen and in eval mode: the trainer turns on
-    ``requires_grad`` for the DiT copies it trains."""
+    reaches an f32 parameter; ``swinir_master_weights`` does the same for
+    SwinIR; a frozen model is cast as before. ``components`` (of 'swinir',
+    'vae', 'dit') builds only those models and leaves the others None, for a
+    trainer that needs one of them. Everything comes back frozen and in eval
+    mode: the trainer turns on ``requires_grad`` for what it trains."""
     set_precision()
     sw = dict(cfg.get("swinir", {}))
     vae = dict(cfg.get("vae", {}))
     dit = dict(cfg.get("dit", {}))
     sched_cfg = dict(cfg.get("schedule", {"name": "linear", "num_timesteps": 1000}))
+    want = ("swinir", "vae", "dit") if components is None else tuple(components)
     with torch.device(device):
         pipe = RestorationPipeline(
-            swinir=SwinIR(**sw),
-            vae=AutoencoderKL(**vae),
-            dit=PixArt(**dit),
+            swinir=SwinIR(**sw) if "swinir" in want else None,
+            vae=AutoencoderKL(**vae) if "vae" in want else None,
+            dit=PixArt(**dit) if "dit" in want else None,
             sched=make_schedule(sched_cfg.pop("name", "linear"), **sched_cfg),
             maxt=int(cfg.get("maxt", 400)),
         )
     if dtype is not None:
-        for module in (pipe.swinir, pipe.vae):
-            cast_weights(module, dtype)
-        if dit_master_weights:
-            set_compute_dtype(pipe.dit, dtype)
-        else:
-            cast_weights(pipe.dit, dtype)
+        for module, masters in ((pipe.swinir, swinir_master_weights), (pipe.vae, False), (pipe.dit, dit_master_weights)):
+            if module is not None:
+                (set_compute_dtype if masters else cast_weights)(module, dtype)
     # The VAE's and SwinIR's activations are channels-last in memory (their
     # kernels read NHWC); with the weights laid out alike, the library
     # convolutions take both as they are instead of transposing on every call.
-    pipe.vae.to(memory_format=torch.channels_last)
-    pipe.swinir.to(memory_format=torch.channels_last)
+    for module in (pipe.vae, pipe.swinir):
+        if module is not None:
+            module.to(memory_format=torch.channels_last)
     return pipe.eval().requires_grad_(False)
 
 

@@ -97,6 +97,10 @@ class Batcher:
         with self._lock:
             return {"ok": self._thread.is_alive(), **self._stats}
 
+    def pending(self) -> int:
+        """Requests queued and not yet taken into a batch."""
+        return self._queue.qsize()
+
     def submit(self, x: np.ndarray, th: int, tw: int, timeout: float = REQUEST_TIMEOUT_S) -> np.ndarray:
         """Queue one padded (H, W, 3) image and wait for its answer, cropped
         to (th, tw). Raises what the worker raised for its batch, or

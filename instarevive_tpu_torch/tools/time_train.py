@@ -1,18 +1,20 @@
-"""Time the full-width DMD training step on one CUDA card, and say where the
-time goes.
+"""Time a full-width training step on one CUDA card, and say where the time
+goes.
 
-    python -m instarevive_tpu_torch.tools.time_train [--steps 5] [--depth N] [--lowmem] [--profile]
+    python -m instarevive_tpu_torch.tools.time_train [--task dmd|swinir] [--steps 5] [--depth N] [--lowmem] [--profile]
 
 Writes seeded PNGs to a temporary folder, builds the trainer's task
-(``train.launcher.DMDTask``) with the launcher's own flags at
-``configs/instarevive_v1.yaml`` (PixArt-XL-2, bf16 compute from f32 masters,
-batch 2 at 512x512, every block checkpointed), takes two warm-up steps and
-prints one JSON line with the walls of the next ``--steps`` steps (host clock
-around work ending in a synchronise), the split of a step by CUDA events
-(encode, generator update, generator optimizer, fake update, fake optimizer),
-peak memory and the kernel launches of one step beside what the configuration
-implies. With ``--profile`` it also prints device time by kernel group from
-``torch.profiler`` over one step, and that step's wall against its kernel time.
+(``train.launcher.DMDTask`` or ``SwinIRTask``) with the launcher's own flags at
+``configs/instarevive_v1.yaml`` (bf16 compute from f32 masters, batch 2 at
+512x512; PixArt-XL-2 with every block checkpointed, or the SwinIR cleaner),
+takes two warm-up steps and prints one JSON line with the walls of the next
+``--steps`` steps (host clock around work ending in a synchronise), the split
+of a step by CUDA events (the degradation, then for DMD encode, generator
+update, generator optimizer, fake update, fake optimizer; for SwinIR forward,
+backward, optimizer), peak memory and the attention-kernel launches of one
+step beside what the configuration implies. With ``--profile`` it also prints
+device time by kernel group from ``torch.profiler`` over one step, and that
+step's wall against its kernel time.
 
 ``train_argv``, ``write_images``, ``expected_launches`` and ``time_steps`` are
 what ``chip_smoke.py``'s train phase drives too, so every timing of the
@@ -31,7 +33,8 @@ import tempfile
 import time
 from typing import Dict, List, Optional
 
-PHASES = ("encode", "generator_update", "generator_optimizer", "fake_update", "fake_optimizer")
+PHASES = ("degrade", "encode", "generator_update", "generator_optimizer", "fake_update", "fake_optimizer")
+SWINIR_PHASES = ("degrade", "forward", "backward", "optimizer")
 BATCH, CROP = 2, 512
 
 
@@ -50,9 +53,10 @@ def write_images(folder: str, n: int = 8, size: int = 640, seed: int = 0) -> str
     return folder
 
 
-def train_argv(config: str, data: str, out: str, steps: int, extra: Optional[List[str]] = None) -> List[str]:
+def train_argv(config: str, data: str, out: str, steps: int, extra: Optional[List[str]] = None,
+               task: str = "dmd") -> List[str]:
     """The launcher's argument list of the full-width run every timing uses."""
-    return ["--config", config, "--task", "dmd", "--data", data, "--out", out, "--bf16",
+    return ["--config", config, "--task", task, "--data", data, "--out", out, "--bf16",
             "--batch_size", str(BATCH), "--crop_size", str(CROP), "--steps", str(steps), "--warmup", "1",
             "--log_every", "1", *(extra or [])]
 
@@ -98,10 +102,11 @@ def load_batches(data: str, n: int, seed: int = 0):
     return out
 
 
-def time_steps(task, batches) -> Dict[str, object]:
+def time_steps(task, batches, phases=PHASES) -> Dict[str, object]:
     """Run one step per batch on a warm task. Returns the walls (s, each step
-    ending in a synchronise), the median CUDA-event ms of each phase of a step,
-    peak allocated GiB over the steps and the attention launches of one step."""
+    ending in a synchronise), the median CUDA-event ms of each of the task's
+    ``phases``, peak allocated GiB over the steps and the attention launches
+    of one step."""
     import torch
 
     marks = []
@@ -111,7 +116,7 @@ def time_steps(task, batches) -> Dict[str, object]:
         event.record()
         marks.append((name, event))
 
-    walls, split = [], {name: [] for name in PHASES}
+    walls, split = [], {name: [] for name in phases}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     task.on_phase = on_phase
@@ -137,6 +142,9 @@ GROUPS = {  # first match wins, in this order
     "K1 flash forward (flash_attn_fwd.cu)": ("fa2::kernel", "wide::kernel", "fp32::kernel"),
     "K2a flash dq (flash_attn_bwd.cu)": ("bwd16::kernel<false", "bwd16::kernel<(bool)0", "bwd32::kernel<false", "bwd32::kernel<(bool)0"),
     "K2b flash dk/dv (flash_attn_bwd.cu)": ("bwd16::kernel<true", "bwd16::kernel<(bool)1", "bwd32::kernel<true", "bwd32::kernel<(bool)1"),
+    "K4 window attention (swin_attention.cu)": ("swin_tc::", "swin_f32::"),
+    "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
+    "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
     "optimizer, EMA, clipping (foreach)": ("multi_tensor_apply",),
     "VAE kernels (gn_conv.cu, norm_kernels.cu)": ("gnconv_tc::kernel", "stats_kernel", "fold_kernel", "apply_kernel"),
     "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
@@ -178,7 +186,9 @@ def profile_step(task, batch) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--task", default="dmd", choices=["dmd", "swinir"])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--degradation", default="realesrgan", choices=["realesrgan", "codeformer"])
     ap.add_argument("--depth", type=int, default=None, help="cut the DiT's depth (default: the config's 28)")
     ap.add_argument("--lowmem", action="store_true")
     ap.add_argument("--profile", action="store_true")
@@ -190,26 +200,28 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("time_train needs a CUDA device")
     from instarevive_tpu_torch.config import load_config, merge
-    from instarevive_tpu_torch.train.launcher import DMDTask, parse_args
+    from instarevive_tpu_torch.train.launcher import DMDTask, SwinIRTask, parse_args
 
     config = os.path.join(args.repo, "configs", "instarevive_v1.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         data = write_images(os.path.join(tmp, "hq"))
-        targs = parse_args(train_argv(config, data, os.path.join(tmp, "run"), 0, ["--lowmem"] if args.lowmem else []))
+        extra = ["--degradation", args.degradation] + (["--lowmem"] if args.lowmem else [])
+        targs = parse_args(train_argv(config, data, os.path.join(tmp, "run"), 0, extra, task=args.task))
         cfg = load_config(config)
         if args.depth is not None:
             cfg = merge(cfg, {"dit": {"depth": args.depth}})
-        task = DMDTask(targs, cfg, torch.device("cuda"))
+        task = (SwinIRTask if args.task == "swinir" else DMDTask)(targs, cfg, torch.device("cuda"))
         batches = load_batches(data, 2 + args.steps)
     for batch in batches[:2]:  # builds the kernels, warms the allocator
         task.run_step(batch)
-    result = time_steps(task, batches[2:])
+    result = time_steps(task, batches[2:], SWINIR_PHASES if args.task == "swinir" else PHASES)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    depth = task.gen.depth
-    print(json.dumps({"card": card, "config": "instarevive_v1", "depth": depth, "batch": BATCH, "crop": CROP,
-                      "bf16": True, "lowmem": args.lowmem, **result,
-                      "launches_expected": expected_launches(depth, task.gen.grad_checkpoint)}), flush=True)
+    record = {"card": card, "config": "instarevive_v1", "task": args.task, "degradation": args.degradation,
+              "batch": BATCH, "crop": CROP, "bf16": True, "lowmem": args.lowmem, **result}
+    if args.task == "dmd":
+        record.update(depth=task.gen.depth, launches_expected=expected_launches(task.gen.depth, task.gen.grad_checkpoint))
+    print(json.dumps(record), flush=True)
     if args.profile:
         profile_step(task, batches[-1])
 

@@ -5,15 +5,15 @@ the JAX package's). Orbax checkpoints are not read.
 
 A full checkpoint holds every ``TrainState`` (the module's state dict, the
 optimizer state, the EMA, the step), any plain carry as it is, the random
-generator's state (in place of the JAX key) and the global step, so that a
-resumed run continues bit for bit. The legacy layout ``{"params", "ema"}``
-restores the first state's weights only.
+generators' states (in place of the JAX key: one generator, or several by
+name) and the global step, so that a resumed run continues bit for bit. The
+legacy layout ``{"params", "ema"}`` restores the first state's weights only.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,19 +89,43 @@ def load_state_tree(template, tree):
     return template
 
 
-def save_train_state(path: str, states: Sequence, generator: Optional[torch.Generator], step_i: int) -> None:
+Generators = Union[None, torch.Generator, Mapping[str, torch.Generator]]
+
+
+def _rng_state(generator: Generators):
+    if generator is None or isinstance(generator, torch.Generator):
+        return None if generator is None else generator.get_state()
+    return {name: g.get_state() for name, g in generator.items()}
+
+
+def _set_rng_state(generator: Generators, saved) -> None:
+    """A saved single state goes to the single generator, or to the one named
+    'step' (a checkpoint written before the degradation had generators)."""
+    if generator is None or saved is None:
+        return
+    if isinstance(generator, torch.Generator):
+        generator.set_state(saved["step"] if isinstance(saved, Mapping) else saved)
+    elif isinstance(saved, Mapping):
+        for name, g in generator.items():
+            if name in saved:
+                g.set_state(saved[name])
+    elif "step" in generator:
+        generator["step"].set_state(saved)
+
+
+def save_train_state(path: str, states: Sequence, generator: Generators, step_i: int) -> None:
     """Full-fidelity training checkpoint: every state of ``states``, the
-    generator's state and the global step."""
+    state of the generator (or of each named generator) and the global step."""
     save_checkpoint(path, {
         "states": [state_to_tree(s) for s in states],
-        "rng": None if generator is None else generator.get_state(),
+        "rng": _rng_state(generator),
         "step_i": int(step_i),
     })
 
 
-def restore_train_state(path: str, states: Sequence, generator: Optional[torch.Generator]) -> Tuple[tuple, int]:
+def restore_train_state(path: str, states: Sequence, generator: Generators) -> Tuple[tuple, int]:
     """Restore a ``save_train_state`` checkpoint into freshly made states and
-    the generator, in place; a legacy ``{"params", "ema"}`` checkpoint loads
+    the generator(s), in place; a legacy ``{"params", "ema"}`` checkpoint loads
     into the first state at step 0. Returns (states, step_i)."""
     saved = load_checkpoint(path)
     if "states" not in saved:
@@ -114,8 +138,7 @@ def restore_train_state(path: str, states: Sequence, generator: Optional[torch.G
     if len(saved["states"]) != len(states):
         raise ValueError(f"{path} holds {len(saved['states'])} states, the run has {len(states)}")
     new_states = tuple(load_state_tree(s, t) for s, t in zip(states, saved["states"]))
-    if generator is not None and saved["rng"] is not None:
-        generator.set_state(saved["rng"])
+    _set_rng_state(generator, saved["rng"])
     return new_states, int(saved["step_i"])
 
 

@@ -1,24 +1,34 @@
 """Training launcher of the port (``python -m instarevive_tpu_torch.train``): DMD
-distillation of the one-step generator.
+distillation of the one-step generator, and the stage-1 SwinIR cleaner.
 
     python -m instarevive_tpu_torch.train --task dmd --data /path/hq --out runs/dmd \\
         --config configs/instarevive_v1.yaml --bf16 --batch_size 2 [--device cuda|cpu]
+    python -m instarevive_tpu_torch.train --task swinir --data /path/hq --out runs/swinir \\
+        --config configs/instarevive_v1.yaml --bf16 --batch_size 2 [--degradation realesrgan|codeformer]
 
 The flags are those of the JAX package's ``train.py`` (without ``--fsdp`` and
-the trace flags). ``--task dmd`` trains three PixArt copies that start from
+the trace flags). Every batch of every task goes through the degradation
+synthesis on the device (``--degradation``: the Real-ESRGAN two-stage program
+or the CodeFormer one), which turns the clean crops into the pair
+``{"hq" in [-1, 1], "lq" in [0, 1]}`` the step trains on.
+
+``--task swinir`` trains the SwinIR cleaner to map ``lq`` to the clean image
+(mean squared error), with an EMA of its parameters; a step whose gradient is
+not finite is skipped (one flag is read from the device per step).
+
+``--task dmd`` trains three PixArt copies that start from
 one initialisation: the generator (with an EMA), the fake score, and the
-frozen teacher behind classifier-free guidance. Each step encodes the batch
-with the VAE under ``no_grad`` (or reads paired noise/latent files with
-``--dmd_noise_dir/--dmd_latent_dir``), takes the generator's step (paired
-regression + distribution matching), then the fake score's denoising step on
-the generator's sample. ``--bf16`` computes in bf16 from f32 master weights;
-``--lowmem`` stores optimizer moments, the EMA and the teacher in bf16 (the
-frozen teacher's weights are bf16 under ``--bf16`` too: cast once, not per call).
+frozen teacher behind classifier-free guidance. Each step encodes the clean
+image of the pair with the VAE under ``no_grad`` (or reads paired noise/latent
+files with ``--dmd_noise_dir/--dmd_latent_dir``), takes the generator's step
+(paired regression + distribution matching), then the fake score's denoising
+step on the generator's sample; ``lq`` is not read, as in the JAX package.
+``--bf16`` computes in bf16 from f32 master weights; ``--lowmem`` stores
+optimizer moments, the EMA and the teacher in bf16 (the frozen teacher's
+weights are bf16 under ``--bf16`` too: cast once, not per call).
 Every DiT block is gradient-checkpointed unless the config says otherwise.
 
-The degradation synthesis is not ported yet and is not run: the DMD step
-reads only the clean image of a batch (``--degradation`` is accepted and has
-no effect). ``--task swinir|cldm|reflow`` raise ``NotImplementedError``.
+``--task cldm|reflow`` raise ``NotImplementedError``.
 
 Runs on the card by default and exits when there is none; ``--device cpu`` is
 for tests. Metrics are fetched one step late, so the host never waits for
@@ -31,24 +41,26 @@ import argparse
 import copy
 import os
 import sys
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from instarevive_tpu_torch.config import load_config
 from instarevive_tpu_torch.data.dataset import ImageFolderDataset, PrefetchLoader
+from instarevive_tpu_torch.data.codeformer import CodeformerDegradationConfig, degrade_batch_codeformer
 from instarevive_tpu_torch.data.internal import DMDPairDataset
+from instarevive_tpu_torch.data.realesrgan import RealESRGANDegradationConfig, degrade_batch, draw_degradation
+from instarevive_tpu_torch.ops.degradation import make_generators
 from instarevive_tpu_torch.pipelines.build import build_pipeline, cast_weights, init_params
 from instarevive_tpu_torch.train import checkpoint as ckpt
-from instarevive_tpu_torch.train.distill import draw_noise, make_cfg_real_fn, make_dmd_train_step
+from instarevive_tpu_torch.train.distill import draw_noise, make_cfg_real_fn, make_dmd_train_step, swinir_loss
 from instarevive_tpu_torch.train.optim import build_optimizer, constant_with_warmup
 from instarevive_tpu_torch.train.state import TrainState
-from instarevive_tpu_torch.utils.debug import SimpleTimer
+from instarevive_tpu_torch.utils.debug import SimpleTimer, nan_guard
 from instarevive_tpu_torch.utils.logging import LogBuffer, MetricWriter, close_logger, get_root_logger
 
 NOT_PORTED = {
-    "swinir": "needs the degradation synthesis (ROADMAP A12)",
     "cldm": "needs the LDM/ControlNet trainer (ROADMAP A14)",
     "reflow": "needs the LDM/ControlNet trainer (ROADMAP A14)",
 }
@@ -84,7 +96,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--degradation", default="realesrgan", choices=["realesrgan", "codeformer"],
-                   help="accepted; the DMD step reads only the clean image")
+                   help="the synthesis every batch goes through: the Real-ESRGAN two-stage program or the "
+                        "CodeFormer single-stage one")
     p.add_argument("--t_sampler", default="uniform", choices=["uniform", "loss_second_moment"])
     p.add_argument("--queue_size", type=int, default=256)
     p.add_argument("--dmd_noise_dir", default=None,
@@ -104,11 +117,99 @@ def _cycle(loader) -> Iterator[Dict[str, np.ndarray]]:
         yield from loader
 
 
-class DMDTask:
+class Degrader:
+    """The degradation synthesis of one run: the chosen program, its
+    configuration and its two generators (a CPU one for decisions and
+    parameters, one on the device for noise fields), kept apart from any
+    generator the training step draws from. ``filter_calls`` counts the
+    ``filter2d`` calls that the draws so far imply."""
+
+    def __init__(self, kind: str, seed: int, device: torch.device):
+        self.kind = kind
+        self.cfg = RealESRGANDegradationConfig() if kind == "realesrgan" else CodeformerDegradationConfig()
+        self.gens = make_generators(seed, device)
+        self.filter_calls = 0
+
+    def __call__(self, hq01: torch.Tensor, draws=None) -> Dict[str, torch.Tensor]:
+        """hq01: (B, H, W, 3) in [0, 1] on the device -> {"hq", "lq"}."""
+        if self.kind == "codeformer":
+            self.filter_calls += 1
+            return degrade_batch_codeformer(self.gens, hq01, self.cfg, draws=draws)
+        if draws is None:
+            draws = draw_degradation(self.gens.host, self.cfg, hq01.shape[0])
+        self.filter_calls += 2 + int(draws.blur2)
+        return degrade_batch(self.gens, hq01, self.cfg, draws=draws)
+
+
+class Task:
+    """What the loop drives: ``run_step`` on a loader batch, the train
+    ``states`` and the ``generators`` a checkpoint must carry."""
+
+    states: tuple
+
+    def __init__(self, args, device: torch.device):
+        self.device = device
+        self.degrade = Degrader(args.degradation, args.seed, device)
+        self.on_phase = None  # set by a timing tool: called with a name as each phase of a step begins
+
+    def mark(self, name: str) -> None:
+        if self.on_phase:
+            self.on_phase(name)
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        return {"degrade_host": self.degrade.gens.host, "degrade_device": self.degrade.gens.device}
+
+    def run_step(self, batch: Dict[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
+        """One step on a loader batch ({'hq': uint8 (B,H,W,3)}): degrade it on
+        the device, then train on the pair. Returns the step's metrics as
+        0-dim tensors on the device."""
+        self.mark("degrade")
+        hq01 = torch.from_numpy(batch["hq"]).to(self.device).float() / 255.0
+        return self.train_step(self.degrade(hq01, draws))
+
+    def train_step(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+
+class SwinIRTask(Task):
+    """``--task swinir``: the SwinIR cleaner alone, its train state with an
+    EMA, and one step on a degraded pair. ``--bf16`` computes in bf16 from
+    f32 master weights."""
+
+    PHASES = ("degrade", "forward", "backward", "optimizer")
+
+    def __init__(self, args, cfg, device: torch.device, logger=None):
+        super().__init__(args, device)
+        pipe = build_pipeline(cfg, dtype=torch.bfloat16 if args.bf16 else None, device=device,
+                              components=("swinir",), swinir_master_weights=True)
+        self.pipe = init_params(pipe, seed=args.seed)
+        self.model = pipe.swinir.requires_grad_(True).train()
+        tx = build_optimizer(args.optimizer, constant_with_warmup(args.lr, args.warmup),
+                             grad_clip_norm=args.max_grad_norm, grad_accum=args.grad_accum,
+                             moment_dtype=torch.bfloat16 if args.lowmem else None)
+        self.states = (TrainState.create(self.model, tx, ema=True, ema_rate=args.ema_rate),)
+
+    def train_step(self, data: Dict[str, torch.Tensor], keep_grads: Optional[List] = None) -> Dict[str, torch.Tensor]:
+        (state,) = self.states
+        self.mark("forward")
+        loss = swinir_loss(self.model, {"hq": (data["hq"] + 1.0) / 2.0, "lq": data["lq"]})
+        self.mark("backward")
+        grads = torch.autograd.grad(loss, state.params)
+        self.mark("optimizer")
+        metrics = {"loss": loss.detach()}
+        nan_guard(state, grads, metrics)
+        self.mark("end")
+        if keep_grads is not None:  # for tests and the card-against-CPU check
+            keep_grads.extend(grads)
+        return metrics
+
+
+class DMDTask(Task):
     """The three models, the two train states and one step of ``--task dmd``,
     as the launcher and the timing tool set them up."""
 
     def __init__(self, args, cfg, device: torch.device, logger=None):
+        super().__init__(args, device)
         dit_cfg = dict(cfg.get("dit", {}) or {})
         dit_cfg.setdefault("grad_checkpoint", True)  # what makes the full-width step fit comfortably
         if args.remat_policy is not None:
@@ -154,11 +255,10 @@ class DMDTask:
                                       ema_dtype=torch.bfloat16 if args.lowmem else None)
         fake_state = TrainState.create(self.fake, tx(args.lr * args.lr_fake_multiplier), ema=False)
         self.states = (gen_state, fake_state)
-        self.on_phase = None  # set by a timing tool: called as each phase of a step begins
         self._step = make_dmd_train_step(
             pipe.sched, model_fn(self.gen), make_cfg_real_fn(model_fn(self.teacher), y_null, args.cfg_scale),
             model_fn(self.fake), maxt=args.maxt, regression_weight=args.regression_weight,
-            on_phase=lambda name: self.on_phase and self.on_phase(name),
+            on_phase=self.mark,
         )
 
         self.pair_prefetch, self._pairs = None, None
@@ -177,12 +277,13 @@ class DMDTask:
             fea = torch.nn.functional.pad(fea, (0, 0, 0, L - fea.shape[1]))
         return fea[:, :L]
 
-    def run_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One DMD step on a loader batch ({'hq': uint8 (B,H,W,3)}); returns
-        the step's metrics as 0-dim tensors on the device."""
+    def generators(self) -> Dict[str, torch.Generator]:
+        return {"step": self.generator, **super().generators()}
+
+    def train_step(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One DMD step on a degraded pair, of which only the clean image is read."""
         y_step = self.y
-        if self.on_phase:
-            self.on_phase("encode")
+        self.mark("encode")
         if self._pairs is not None:
             pair = next(self._pairs)
             dmd_batch = {k: torch.from_numpy(np.asarray(pair[k], np.float32)).to(self.device)
@@ -190,9 +291,8 @@ class DMDTask:
             if "txt_fea" in pair:  # real prompt embeddings from --dmd_t5_dir
                 y_step = self._fit_tokens(pair["txt_fea"])
         else:
-            hq01 = torch.from_numpy(batch["hq"]).to(self.device).float() / 255.0
             with torch.no_grad():
-                latent = self.pipe.encode(hq01)
+                latent = self.pipe.encode((data["hq"] + 1.0) / 2.0)
             dmd_batch = {"noise": draw_noise(self.generator, latent.shape, self.device), "latent": latent}
         return self._step(*self.states, dmd_batch, self.generator, {"y": y_step})
 
@@ -201,7 +301,7 @@ class TrainRun:
     """What ``main`` hands back: the task (models and states), the step the
     run started and ended at, and every step's metrics as floats."""
 
-    def __init__(self, task: DMDTask, start_step: int):
+    def __init__(self, task: Task, start_step: int):
         self.task, self.start_step, self.end_step = task, start_step, start_step
         self.history = []
 
@@ -210,7 +310,7 @@ def main(argv=None) -> TrainRun:
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device: run on a machine with a card, or pass --device cpu")
-    if args.task != "dmd":
+    if args.task in NOT_PORTED:
         raise NotImplementedError(f"--task {args.task} is not ported yet: {NOT_PORTED[args.task]}")
 
     os.makedirs(args.out, exist_ok=True)
@@ -220,7 +320,7 @@ def main(argv=None) -> TrainRun:
     device = torch.device(args.device)
     logger.info(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}  task: {args.task}")
 
-    task = DMDTask(args, load_config(args.config), device, logger)
+    task = (SwinIRTask if args.task == "swinir" else DMDTask)(args, load_config(args.config), device, logger)
     logger.info("params initialized")
     ds = ImageFolderDataset(args.data, out_size=args.crop_size, crop_type="random", seed=args.seed)
     loader = PrefetchLoader(ds, args.batch_size, seed=args.seed)
@@ -229,12 +329,13 @@ def main(argv=None) -> TrainRun:
 
     step_i = 0
     if args.resume:
-        # params, EMA, optimizer moments, the fake score's state, the generator's
-        # state and the step all round-trip; a params/EMA-only checkpoint loads too
-        task.states, step_i = ckpt.restore_train_state(args.resume, task.states, task.generator)
+        # params, EMA, optimizer moments, every train state, the generators' states
+        # (the step's and the degradation's) and the step all round-trip; a
+        # params/EMA-only checkpoint loads too
+        task.states, step_i = ckpt.restore_train_state(args.resume, task.states, task.generators())
         if step_i:
             loader.fast_forward(step_i)
-            if task.pair_prefetch is not None:
+            if getattr(task, "pair_prefetch", None) is not None:
                 task.pair_prefetch.fast_forward(step_i)
             timer = SimpleTimer(args.steps, log_interval=args.log_every, initial=step_i)
         logger.info(f"resumed full train state from {args.resume} at step {step_i}")
@@ -258,7 +359,7 @@ def main(argv=None) -> TrainRun:
             except Exception:
                 try:  # an emergency full-state checkpoint before the error goes up
                     ckpt.save_train_state(os.path.join(args.out, f"crash_step_{step_i}"),
-                                          task.states, task.generator, step_i)
+                                          task.states, task.generators(), step_i)
                     logger.exception(f"step {step_i} failed; emergency checkpoint saved")
                 except Exception:
                     logger.exception(f"step {step_i} failed; emergency checkpoint unavailable")
@@ -273,7 +374,7 @@ def main(argv=None) -> TrainRun:
                 logger.info(f"{msg}  {avg}")
                 writer.scalars(step_i, avg)
             if step_i % args.checkpointing_steps == 0:
-                ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generator, step_i)
+                ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generators(), step_i)
                 logger.info(f"checkpoint at step {step_i}")
 
     if pending is not None:  # drain the late fetch
@@ -283,7 +384,7 @@ def main(argv=None) -> TrainRun:
     if step_i % args.checkpointing_steps == 0 and step_i:
         logger.info(f"final state already checkpointed at step_{step_i}")
     else:
-        ckpt.save_train_state(os.path.join(args.out, "final"), task.states, task.generator, step_i)
+        ckpt.save_train_state(os.path.join(args.out, "final"), task.states, task.generators(), step_i)
     writer.flush()
     writer.close()
     logger.info("done")

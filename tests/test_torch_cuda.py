@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from instarevive_tpu_torch.ops.attention import flash_attention, sdpa
+from instarevive_tpu_torch.ops.filters import filter2d, filter2d_plain
 from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from instarevive_tpu_torch.ops.norm_kernels import (
     gn_affine, gn_affine_plain, group_norm_silu, group_norm_silu_plain, upsample2x_nearest,
@@ -376,10 +377,8 @@ def test_swin_window_attention_refuses_what_it_cannot_run(cuda):
         swin_window_attention(qkv, bias.cpu(), mask, 6, 8, 1.0, 4)
     with pytest.raises(ValueError, match="mask must be"):
         swin_window_attention(qkv, bias, mask[:2].contiguous(), 6, 8, 1.0, 4)
-    with pytest.raises(RuntimeError, match="no backward"):
-        swin_window_attention(qkv.float().requires_grad_(), bias, mask, 6, 8, 1.0, 4)
-    with pytest.raises(RuntimeError, match="no backward"):
-        swin_window_attention(qkv, bias.clone().requires_grad_(), mask, 6, 8, 1.0, 4)
+    with pytest.raises(RuntimeError, match="takes no gradient"):  # qkv and the bias may take one, the mask may not
+        swin_window_attention(qkv, bias, mask.clone().requires_grad_(), 6, 8, 1.0, 4)
 
 
 @pytest.mark.cuda
@@ -412,3 +411,198 @@ def test_swinir_on_the_card_runs_the_kernels_and_agrees_with_the_cpu(cuda, dtype
     assert (swin_window_attention.launches - attn, upsample2x_nearest.launches - ups) == (2, 3)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out.float().cpu() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 0.1)
+
+
+# ---------------------------------------------------------------------------
+# filter2d (K6)
+
+# The kernel against filter2d_plain, relative to the output's largest
+# magnitude: both sum kh * kw products in f32, in another order.
+FILTER_REL_BOUND = 1e-5
+
+
+def _filter_inputs(cuda, shape, taps, per_sample, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    img = torch.rand(shape, device=cuda, generator=gen)
+    kernel = torch.rand(((shape[0],) if per_sample else ()) + tuple(taps), device=cuda, generator=gen) - 0.2
+    return img, kernel / kernel.abs().sum(dim=(-2, -1), keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,taps,per_sample",
+    [
+        ((2, 512, 512, 3), (21, 21), True),   # the stage-1 blur of degrade_batch at batch 2, crop 512
+        ((2, 768, 768, 3), (21, 21), True),   # the stage-2 blur on the stage-1 canvas
+        ((2, 160, 160, 3), (21, 21), True),   # the final sinc on the stage-2 canvas
+        ((2, 512, 512, 3), (41, 41), True),   # the CodeFormer blur
+        ((2, 512, 512, 3), (21, 21), False),  # a shared kernel
+        ((1, 72, 200, 3), (7, 7), True),      # ragged: no multiple of the 32 x 64 tile
+        ((3, 100, 36, 1), (21, 21), True),    # one channel, narrower than a tile
+        ((2, 33, 65, 3), (41, 41), True),     # the padding nearly as large as the image
+        ((2, 90, 130, 3), (5, 13), True),     # rectangular taps
+        ((1, 21, 21, 2), (41, 41), False),    # reflect at its limit: pad 20 of 21
+        ((1, 64, 96, 64), (41, 41), True),    # too many channels for one block's shared memory: four launches
+        ((1, 40, 40, 5), (1, 1), True),       # a single tap
+    ],
+)
+def test_filter2d_matches_plain(cuda, shape, taps, per_sample):
+    img, kernel = _filter_inputs(cuda, shape, taps, per_sample)
+    before = filter2d.launches
+    out = filter2d(img, kernel)
+    torch.cuda.synchronize()
+    assert filter2d.launches - before == (4 if shape[3] == 64 else 1)
+    ref = filter2d_plain(img, kernel)
+    assert out.shape == img.shape and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= FILTER_REL_BOUND * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_filter2d_reflects_and_repeats_its_bits(cuda):
+    """One-neighbour taps on a ramp: reflect reads pixel 1 at the left border
+    (an edge repeat would read pixel 0). The same inputs twice: the same bits."""
+    ramp = torch.arange(40, dtype=torch.float32, device=cuda)
+    img = (ramp[None, :, None, None] * 100 + ramp[None, None, :, None]).expand(2, 40, 40, 3).contiguous()
+    kernel = torch.zeros(3, 3, device=cuda)
+    kernel[1, 0] = 1.0
+    out = filter2d(img, kernel)
+    assert out[0, 5, 0, 0].item() == img[0, 5, 1, 0].item() and out[0, 5, 39, 0].item() == img[0, 5, 38, 0].item()
+    img, kernel = _filter_inputs(cuda, (2, 200, 168, 3), (21, 21), True, seed=3)
+    assert torch.equal(filter2d(img, kernel), filter2d(img, kernel))
+
+
+@pytest.mark.cuda
+def test_filter2d_refuses_what_it_cannot_run(cuda):
+    img, kernel = _filter_inputs(cuda, (2, 64, 64, 3), (21, 21), True)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        filter2d(img.bfloat16(), kernel)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        filter2d(img.permute(0, 2, 1, 3), kernel)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        filter2d(img, kernel.double())
+    with pytest.raises(ValueError, match="contiguous f32"):
+        filter2d(img, kernel.cpu())
+    with pytest.raises(RuntimeError, match="no backward"):
+        filter2d(img.clone().requires_grad_(), kernel)
+    with pytest.raises(ValueError, match="odd sizes"):
+        filter2d(img, kernel[:, :20, :20].contiguous())
+    with pytest.raises(ValueError, match="odd sizes"):
+        filter2d(img, torch.ones(43, 43, device=cuda))
+    with pytest.raises(ValueError, match="reflect padding"):
+        filter2d(img[:, :10].contiguous(), kernel)
+    with pytest.raises(ValueError, match="kernel must be"):
+        filter2d(img, kernel[:1].contiguous())
+    dilated = filter2d(img, kernel[:, :5, :5].contiguous(), dilation=2)  # not the kernel's: the grouped convolution
+    assert torch.equal(dilated, filter2d_plain(img, kernel[:, :5, :5].contiguous(), dilation=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["realesrgan", "codeformer"])
+def test_degradation_on_the_card_agrees_with_the_cpu(cuda, which):
+    """One set of host-side draws and CPU noise fields through the program on
+    the card and on the CPU: within one 8-bit level on 99% of pixels, mean
+    absolute difference under 2e-3 (the bound of the CPU parity test)."""
+    from instarevive_tpu_torch.data import codeformer, realesrgan
+    from instarevive_tpu_torch.tools.time_degrade import draws_on, forced_gaussian
+
+    hq = torch.round(torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(0)) * 255) / 255
+    gen = torch.Generator().manual_seed(1)
+    if which == "realesrgan":
+        cfg = realesrgan.RealESRGANDegradationConfig()
+        draws = forced_gaussian(realesrgan.draw_degradation(torch.Generator().manual_seed(2), cfg, 2),
+                                ((2, 384, 384, 3), (2, 80, 80, 3)), gen)  # the two canvases of a 256 crop
+        run = lambda x, d: realesrgan.degrade_batch(None, x, cfg, draws=d)  # noqa: E731
+    else:
+        cfg = codeformer.CodeformerDegradationConfig()
+        draws = codeformer.draw_codeformer(torch.Generator().manual_seed(2), cfg, 2)
+        draws.fields = (torch.randn(2, 64, 64, 3, generator=gen), torch.randn(2, 64, 64, 1, generator=gen))
+        run = lambda x, d: codeformer.degrade_batch_codeformer(None, x, cfg, draws=d)  # noqa: E731
+    want = run(hq, draws)
+    on_card = draws_on(draws, cuda)
+    before = filter2d.launches
+    got = run(hq.to(cuda), on_card)
+    torch.cuda.synchronize()
+    assert filter2d.launches - before == (2 + int(draws.blur2) if which == "realesrgan" else 1)
+    diff = (got["lq"].cpu() - want["lq"]).abs()
+    assert torch.equal(got["hq"].cpu(), want["hq"])
+    assert (diff <= 1 / 255 + 1e-6).float().mean().item() >= 0.99 and diff.mean().item() < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the autograd.Functions of K4 and K5c: kernel forward, plain backward
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,shift", [(2, 64, 64, 4), (2, 64, 64, 0), (1, 16, 24, 4)])
+def test_swin_window_attention_with_grad_is_kernel_forward_plain_backward(cuda, dtype, b, h, w, shift):
+    heads, hd = 6, 30
+    qkv, bias, mask = _swin_inputs(cuda, dtype, b, h, w, heads, hd, shift)
+    qkv.requires_grad_(True)
+    bias.requires_grad_(True)
+    grad = torch.randn(b, h, w, heads * hd, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1)).to(dtype)
+    before = swin_window_attention.launches
+    out = swin_window_attention(qkv, bias, mask, heads, 8, hd**-0.5, shift)
+    got = torch.autograd.grad(out, (qkv, bias), grad)
+    torch.cuda.synchronize()
+    assert swin_window_attention.launches == before + 1  # the forward launches the kernel, the backward nothing
+    ref = swin_window_attention_plain(qkv, bias, mask, heads, 8, hd**-0.5, shift)
+    want = torch.autograd.grad(ref, (qkv, bias), grad)
+    assert (out.float() - ref.float()).abs().max().item() <= SWIN_BOUNDS[dtype]
+    # the backward is autograd through the plain version on the same saved inputs: the same arithmetic
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and (g.float() - w_.float()).abs().max().item() <= 1e-6 * max(1.0, w_.abs().max().item())
+    with torch.no_grad():  # outside autograd a tensor that requires grad launches the kernel as before
+        assert torch.equal(swin_window_attention(qkv, bias, mask, heads, 8, hd**-0.5, shift), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_upsample2x_with_grad_is_kernel_forward_and_the_two_by_two_sum(cuda, dtype):
+    x = torch.randn(2, 24, 40, 64, device=cuda).to(dtype).requires_grad_(True)
+    grad = torch.randn(2, 48, 80, 64, device=cuda).to(dtype)
+    before = upsample2x_nearest.launches
+    out = upsample2x_nearest(x)
+    (got,) = torch.autograd.grad(out, x, grad)
+    assert upsample2x_nearest.launches == before + 1 and torch.equal(out, upsample2x_nearest_plain(x))
+    (want,) = torch.autograd.grad(upsample2x_nearest_plain(x.float()), x, grad.float())
+    assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= (4e-2 if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_swinir_train_step_on_the_card_agrees_with_the_cpu(cuda, bf16):
+    """One SwinIR training step (``SwinIRTask.train_step``) at the v1 width,
+    two blocks, on the card and on the CPU from the same weights and pair:
+    f32 within 1e-3 (loss relative; each gradient against the largest gradient
+    magnitude); bf16 compute from f32 masters: finite f32 gradients, the bias
+    tables' included, K4 once a block and K5c three times in the forward only."""
+    from instarevive_tpu_torch.config import load_config, merge
+    from instarevive_tpu_torch.train import launcher
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = merge(load_config(os.path.join(repo, "configs", "instarevive_v1.yaml")),
+                {"swinir": {"depths": [2], "num_heads": [6]}})
+    argv = ["--task", "swinir", "--data", "-", "--out", "-", "--batch_size", "2", "--crop_size", "128"]
+    args = launcher.parse_args(argv + (["--bf16"] if bf16 else []))
+    cpu = launcher.SwinIRTask(launcher.parse_args(argv + ["--device", "cpu"]), cfg, torch.device("cpu"))
+    card = launcher.SwinIRTask(args, cfg, cuda)
+    card.model.load_state_dict(cpu.model.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    hq = torch.rand(2, 128, 128, 3, generator=gen)
+    data = {"hq": hq * 2 - 1, "lq": (hq + 0.1 * torch.randn(hq.shape, generator=gen)).clamp(0, 1)}
+    want, got = [], []
+    m_cpu = cpu.train_step(data, keep_grads=want)
+    attn, ups = swin_window_attention.launches, upsample2x_nearest.launches
+    m_card = card.train_step({k: v.to(cuda) for k, v in data.items()}, keep_grads=got)
+    torch.cuda.synchronize()
+    assert (swin_window_attention.launches - attn, upsample2x_nearest.launches - ups) == (2, 3)
+    assert float(m_card["grads_finite"]) == 1.0 and all(g.dtype == torch.float32 for g in got)
+    names = card.states[0].names
+    tables = [g for n, g in zip(names, got) if n.endswith("relative_position_bias_table")]
+    assert len(tables) == 2 and all(float(g.abs().max()) > 0 for g in tables)
+    top = max(g.abs().max().item() for g in want)
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want)) / top
+    rel_loss = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / float(m_cpu["loss"])
+    assert (rel_loss <= 1e-3 and err <= 1e-3) if not bf16 else (rel_loss <= 0.05 and err <= 0.2)

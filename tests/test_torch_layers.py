@@ -96,8 +96,8 @@ def test_window_helpers():
 
 def test_nearest_interpolate():
     x = _rand((2, 5, 7, 3))
-    _close(interpolate(torch.from_numpy(x), scale_factor=2), jax_interpolate(jnp.asarray(x), scale_factor=2, mode="nearest"), atol=0)
-    nchw = interpolate(torch.from_numpy(x).permute(0, 3, 1, 2), scale_factor=2, spatial_axes=(-2, -1))
+    _close(interpolate(torch.from_numpy(x), scale_factor=2, mode="nearest"), jax_interpolate(jnp.asarray(x), scale_factor=2, mode="nearest"), atol=0)
+    nchw = interpolate(torch.from_numpy(x).permute(0, 3, 1, 2), scale_factor=2, mode="nearest", spatial_axes=(-2, -1))
     _close(nchw.permute(0, 2, 3, 1), jax_interpolate(jnp.asarray(x), scale_factor=2, mode="nearest"), atol=0)
 
 

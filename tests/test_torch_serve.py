@@ -9,6 +9,7 @@ import json
 import os
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -105,16 +106,40 @@ def _images():
 def test_server_answers_equal_the_jax_pipeline(setup, running):
     jpipe, params, argv = setup
     args = serve.parse_args(argv)
-    batcher = serve.Batcher(serve.build_restorer(args), args.max_batch, batch_window_ms=500)
+    # How requests fall into batches depends on when each reaches the queue, which under load is anyone's
+    # guess. So the test sets the arrivals itself: a first request holds the worker inside ``restore`` until
+    # the five real ones are queued, one after the other, bucket by bucket; then the worker is let go.
+    real_restore, gate, primed = serve.build_restorer(args), threading.Event(), threading.Event()
+
+    def restore(x):
+        if not primed.is_set():
+            primed.set()
+            assert gate.wait(TIMEOUT)
+            return np.zeros_like(x)
+        return real_restore(x)
+
+    batcher = serve.Batcher(restore, args.max_batch, batch_window_ms=500)
     url = running(serve.make_server(batcher, args.port), batcher)
     assert _get(url) == {"ok": True, "served": 0, "batches": 0, "errors": 0, "last_error": None}
 
     images = _images()
-    with ThreadPoolExecutor(len(images)) as pool:
-        answers = list(pool.map(lambda im: _post(url, {"image": _png(im)}), images))
+    order = sorted(range(len(images)), key=lambda i: images[i].shape[1])  # the 512-wide bucket, then the 560-wide
+    with ThreadPoolExecutor(len(images) + 1) as pool:
+        primer = pool.submit(_post, url, {"image": _png(images[0])})
+        assert primed.wait(TIMEOUT)
+        futures = {}
+        for n, i in enumerate(order):
+            futures[i] = pool.submit(_post, url, {"image": _png(images[i])})
+            deadline = time.monotonic() + TIMEOUT
+            while batcher.pending() < n + 1:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+        gate.set()
+        assert primer.result()[0] == 200
+        answers = [futures[i].result() for i in range(len(images))]
     health = _get(url)
-    assert health["served"] == len(images) and health["errors"] == 0 and health["ok"]
-    assert 2 <= health["batches"] < len(images)  # two buckets, and requests of a bucket shared batches
+    assert health["served"] == len(images) + 1 and health["errors"] == 0 and health["ok"]
+    assert health["batches"] - 1 == 2  # two buckets, and the requests of each bucket shared one batch
 
     L = TINY["dit"]["model_max_length"]
     y = jnp.asarray(np.asarray(params["dit"]["y_embedder"]["y_embedding"])[None][:, :L], jnp.float32)

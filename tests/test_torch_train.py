@@ -23,7 +23,9 @@ from instarevive_tpu.models.pixart import PixArt as JaxPixArt
 from instarevive_tpu.train import distill as jax_distill
 from instarevive_tpu.train import optim as jax_optim
 from instarevive_tpu.train.state import TrainState as JaxTrainState
-from instarevive_tpu_torch.convert.from_jax import pixart_params_to_torch, train_state_from_jax
+from instarevive_tpu_torch.convert.from_jax import (
+    pixart_params_to_torch, swinir_params_to_torch, swinir_train_state_from_jax, train_state_from_jax,
+)
 from instarevive_tpu_torch.diffusion import gaussian
 from instarevive_tpu_torch.diffusion.one_step import eps_to_x0
 from instarevive_tpu_torch.diffusion.schedules import make_schedule
@@ -726,8 +728,12 @@ def test_launcher_trains_writes_final_and_resumes(tmp_path):
     assert os.path.isfile(os.path.join(out, "step_3", ckpt.FILE))  # and no second save as 'final'
     assert again.task.states[0].step == 3
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        launcher.main(["--device", "cpu", "--task", "swinir", "--data", data, "--out", out])
+    for task in ("cldm", "reflow"):
+        with pytest.raises(NotImplementedError, match="A14"):
+            launcher.main(["--device", "cpu", "--task", task, "--data", data, "--out", out])
+    # the degradation ran on every batch: its generators moved, and its draws imply the filter2d calls
+    assert again.task.degrade.kind == "realesrgan" and 2 <= again.task.degrade.filter_calls <= 3
+    assert not torch.equal(again.task.degrade.gens.host.get_state(), torch.Generator().manual_seed(0).get_state())
 
 
 def test_launcher_saves_an_emergency_checkpoint_when_a_step_fails(tmp_path, monkeypatch):
@@ -748,7 +754,8 @@ def test_launcher_saves_an_emergency_checkpoint_when_a_step_fails(tmp_path, monk
         launcher.main(["--device", "cpu", "--config", os.path.join(REPO, "configs", "tiny.yaml"), "--task", "dmd",
                        "--data", data, "--out", out, "--batch_size", "2", "--crop_size", "64", "--steps", "3"])
     saved = ckpt.load_checkpoint(os.path.join(out, "crash_step_1"))
-    assert saved["step_i"] == 1 and saved["states"][0]["step"] == 1 and saved["rng"] is not None
+    assert saved["step_i"] == 1 and saved["states"][0]["step"] == 1
+    assert set(saved["rng"]) == {"step", "degrade_host", "degrade_device"}
     assert not os.path.exists(os.path.join(out, "final"))
 
 
@@ -780,3 +787,261 @@ def test_launcher_module_entry_point_and_paired_loader(tmp_path):
     assert gen["opt_state"]["inner"]["mu"][0].dtype == torch.bfloat16 and gen["opt_state"]["gradient_step"] == 1
     assert next(iter(gen["ema"].values())).dtype == torch.bfloat16
     assert gen["params"]["blocks.0.attn.qkv.weight"].dtype == torch.float32  # f32 masters under --bf16
+
+
+# ---------------------------------------------------------------------------
+# --task swinir
+
+
+def _tiny():
+    from instarevive_tpu_torch.config import load_config
+
+    return load_config(os.path.join(REPO, "configs", "tiny.yaml"))
+
+
+def _swinir_args(extra=()):
+    from instarevive_tpu_torch.train import launcher
+
+    return launcher.parse_args(["--device", "cpu", "--task", "swinir", "--data", "-", "--out", "-", "--batch_size", "2",
+                                "--crop_size", "128", "--lr", "1e-4", "--warmup", "10", *extra])
+
+
+def _pair(seed=0, size=128):
+    """A clean batch in [-1, 1] as the degradation hands it on, and a degraded partner."""
+    rng = np.random.default_rng(seed)
+    hq01 = np.round(rng.random((2, size, size, 3), dtype=np.float32) * 255) / 255
+    lq = np.clip(hq01 + 0.1 * rng.standard_normal(hq01.shape).astype(np.float32), 0, 1)
+    return {"hq": (hq01 * 2.0 - 1.0).astype(np.float32), "lq": lq.astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def swinir_pair():
+    """Two steps of the JAX SwinIR trainer's step (``train.py``: the loss on
+    ``{(hq + 1) / 2, lq}``, AdamW with clipping, EMA) and the same two steps of
+    the port's ``SwinIRTask`` from the same state, carried across with
+    ``swinir_train_state_from_jax``; 128 x 128 crops, so shifted windows and
+    their masks take part. The gradients of step one are kept."""
+    from instarevive_tpu.pipelines.build import build_pipeline as jax_build_pipeline
+    from instarevive_tpu_torch.train import launcher
+
+    cfg = _tiny()
+    jsw = jax_build_pipeline(cfg).swinir
+    params = jax.jit(jsw.init)(jax.random.key(2), jnp.zeros((1, 64, 64, 3)))["params"]
+    # the table starts at trunc_normal(0.02): scale it up so that the bias matters to the loss
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x * 20.0 if "relative_position_bias_table" in jax.tree_util.keystr(path) else x, params)
+    datas = [_pair(0), _pair(1)]
+    jstate = JaxTrainState.create(params, jax_optim.build_optimizer(
+        "adamw", jax_optim.constant_with_warmup(1e-4, 10), grad_clip_norm=10.0), ema=True)
+
+    def jstep(state, data):
+        # op by op, not under jit: XLA's fused CPU code moves these gradients by 1e-3 of their size against an
+        # f64 reference, where op-by-op JAX and the port both stay within 4e-6 of it
+        batch = {"hq": (data["hq"] + 1.0) / 2.0, "lq": data["lq"]}
+        loss, grads = jax.value_and_grad(lambda p: jax_distill.swinir_loss(jsw, p, batch))(state.params)
+        return state.apply_gradients(grads), loss, grads
+
+    kw = dict(depths=tuple(cfg["swinir"]["depths"]))
+    task = launcher.SwinIRTask(_swinir_args(), cfg, torch.device("cpu"))
+    (tstate,) = task.states
+    zeros = jax.tree_util.tree_map(np.zeros_like, _np(params))
+    ckpt.load_state_tree(tstate, swinir_train_state_from_jax(_np(params), _np(params), zeros, zeros, 0, tstate.names, **kw))
+
+    out = dict(jloss=[], tloss=[], jstates=[], kw=kw, task=task, params=params)
+    for i, data in enumerate(datas):
+        jstate, loss, grads = jstep(jstate, {k: jnp.asarray(v) for k, v in data.items()})
+        out["jloss"].append(float(loss))
+        out["jstates"].append(jstate)
+        kept = []
+        metrics = task.train_step({k: _t(v) for k, v in data.items()}, keep_grads=kept)
+        out["tloss"].append(float(metrics["loss"]))
+        assert float(metrics["grads_finite"]) == 1.0
+        if i == 0:
+            out["jgrads"], out["tgrads"] = grads, _named(tstate, kept)
+    return out
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_swinir_step_loss_matches_jax(swinir_pair, step):
+    want, got = swinir_pair["jloss"][step], swinir_pair["tloss"][step]
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+def test_swinir_step_gradients_match_jax_bias_table_included(swinir_pair):
+    """Every parameter's gradient against ``jax.grad`` of ``swinir_loss``, to
+    1e-4 of that gradient's own largest magnitude."""
+    want = swinir_params_to_torch(_np(swinir_pair["jgrads"]), **swinir_pair["kw"])
+    got = swinir_pair["tgrads"]
+    assert set(got) == set(want)
+    tables = [n for n in got if n.endswith("relative_position_bias_table")]
+    assert len(tables) == 4
+    for name, g in got.items():
+        top = np.abs(want[name]).max()
+        assert top > 0 and np.abs(g.numpy() - want[name]).max() <= 1e-4 * top, name
+    assert all(float(got[n].abs().max()) > 0 for n in tables)
+
+
+def test_swinir_params_moments_and_ema_after_two_steps_match_jax(swinir_pair):
+    jstate, (tstate,) = swinir_pair["jstates"][1], swinir_pair["task"].states
+    kw = swinir_pair["kw"]
+    adam = _adam_state(jstate.opt_state)
+    assert int(adam.count) == tstate.opt_state["inner"]["count"] == 2 and int(jstate.step) == tstate.step == 2
+    for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
+        want = swinir_params_to_torch(_np(tree), **kw)
+        for name, got in _named(tstate, tstate.opt_state["inner"][key]).items():
+            # step two's gradient is taken at parameters that already differ between the packages wherever
+            # Adam stepped either way on a rounding-noise gradient in step one; measured 2.7e-4 (mu), 1e-3 and 2e-3
+            assert _rel(got.numpy(), want[name]) <= (1e-3 if key == "mu" else 2e-3), (key, name)
+    _assert_params_close(tstate, swinir_params_to_torch(_np(jstate.params), **kw))
+    _assert_params_close(tstate, swinir_params_to_torch(_np(jstate.ema_params), **kw), tstate.ema_params)
+    first = swinir_params_to_torch(_np(swinir_pair["params"]), **kw)
+    assert all(not np.array_equal(p.detach().numpy(), first[n]) for n, p in zip(tstate.names, tstate.params))
+
+
+def test_swinir_task_checkpoint_resume_takes_the_same_next_step(tmp_path):
+    """Save after two steps, restore into a fresh task (states and the
+    degradation's generators), take step three from the same loader batch:
+    bitwise the step an unbroken task takes."""
+    from instarevive_tpu_torch.train import launcher
+
+    cfg, device = _tiny(), torch.device("cpu")
+    rng = np.random.default_rng(0)
+    batches = [{"hq": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)} for _ in range(3)]
+    args = _swinir_args(["--seed", "3"])
+    task = launcher.SwinIRTask(args, cfg, device)
+    for batch in batches[:2]:
+        task.run_step(batch)
+    path = str(tmp_path / "ck2")
+    ckpt.save_train_state(path, task.states, task.generators(), 2)
+    want = task.run_step(batches[2])
+
+    fresh = launcher.SwinIRTask(args, cfg, device)
+    fresh.states, step_i = ckpt.restore_train_state(path, fresh.states, fresh.generators())
+    assert step_i == 2 and fresh.states[0].step == 2
+    got = fresh.run_step(batches[2])
+    assert float(got["loss"]) == float(want["loss"])
+    for a, b in zip(_state_tensors(task.states), _state_tensors(fresh.states)):
+        assert torch.equal(a, b)
+    # without the generators' states the degradation draws anew and the step differs
+    other = launcher.SwinIRTask(args, cfg, device)
+    other.states, _ = ckpt.restore_train_state(path, other.states, None)
+    assert float(other.run_step(batches[2])["loss"]) != float(want["loss"])
+
+
+def test_run_step_degrades_the_batch_and_trains_on_the_pair(monkeypatch):
+    """``run_step`` hands ``train_step`` exactly what the degradation program
+    makes of the loader batch under the same draws."""
+    from instarevive_tpu_torch.data.realesrgan import degrade_batch, draw_degradation
+    from instarevive_tpu_torch.ops.degradation import make_generators
+    from instarevive_tpu_torch.train import launcher
+
+    task = launcher.SwinIRTask(_swinir_args(), _tiny(), torch.device("cpu"))
+    batch = {"hq": np.random.default_rng(1).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)}
+    draws = draw_degradation(torch.Generator().manual_seed(8), task.degrade.cfg, 2)
+    seen = {}
+    monkeypatch.setattr(task, "train_step", lambda data: seen.update(data) or {})
+    task.run_step(batch, draws=draws)
+    want = degrade_batch(make_generators(0, "cpu"), _t(batch["hq"]).float() / 255.0, task.degrade.cfg, draws=draws)
+    assert torch.equal(seen["lq"], want["lq"]) and torch.equal(seen["hq"], want["hq"])
+    assert task.degrade.filter_calls == 2 + int(draws.blur2)
+
+
+def test_launcher_swinir_trains_resumes_and_takes_the_degradation_flag(tmp_path):
+    from instarevive_tpu_torch.train import launcher
+
+    data = _write_pngs(str(tmp_path / "hq"), 4, size=72)
+    common = ["--device", "cpu", "--config", os.path.join(REPO, "configs", "tiny.yaml"), "--task", "swinir",
+              "--data", data, "--batch_size", "2", "--crop_size", "64", "--warmup", "1", "--lr", "1e-4"]
+    out = str(tmp_path / "run")
+    run = launcher.main(common + ["--out", out, "--steps", "2"])
+    assert (run.start_step, run.end_step, len(run.history)) == (0, 2, 2)
+    assert all(set(m) == {"loss", "grads_finite"} and math.isfinite(m["loss"]) and m["grads_finite"] == 1.0 for m in run.history)
+    (state,) = run.task.states
+    assert isinstance(run.task, launcher.SwinIRTask) and state.step == 2 and state.ema_params is not None
+    assert not torch.equal(state.ema_params[0], state.params[0].detach())
+    assert run.task.pipe.vae is None and run.task.pipe.dit is None  # only the model it trains is built
+    saved = ckpt.load_checkpoint(os.path.join(out, "final"))
+    assert saved["step_i"] == 2 and len(saved["states"]) == 1 and set(saved["rng"]) == {"degrade_host", "degrade_device"}
+    host_state = run.task.degrade.gens.host.get_state()
+
+    again = launcher.main(common + ["--out", out, "--steps", "3", "--resume", os.path.join(out, "final")])
+    assert (again.start_step, again.end_step, len(again.history)) == (2, 3, 1) and again.task.states[0].step == 3
+    assert torch.equal(saved["rng"]["degrade_host"], host_state)  # the resumed run started from these draws
+
+    # the other program: one 41-tap blur a batch, another pair, another loss
+    cf = launcher.main(common + ["--out", str(tmp_path / "cf"), "--steps", "2", "--degradation", "codeformer", "--bf16"])
+    assert cf.task.degrade.kind == "codeformer" and cf.task.degrade.filter_calls == 2
+    assert cf.history[0]["loss"] != run.history[0]["loss"] and math.isfinite(cf.history[1]["loss"])
+    assert all(p.dtype == torch.float32 for p in cf.task.states[0].params)  # f32 masters under --bf16
+
+
+def test_window_attention_function_backward_is_the_plain_version_gradient(monkeypatch):
+    """The ``autograd.Function`` that wraps the kernel on the card, with its
+    launch replaced by the plain forward: its recompute backward gives
+    exactly autograd's gradients through the plain version, for qkv and for
+    the bias, shifted with its mask and unshifted without, in f32 and with a
+    bf16 qkv; and ``gradcheck`` of the qkv gradient (the plain version
+    computes in f32 whatever it is given, so with a coarse step)."""
+    from instarevive_tpu_torch.ops import swin_attention as sw
+    from instarevive_tpu_torch.ops import window as W
+
+    calls = []
+
+    def launch(qkv, bias, mask, heads, window, scale, shift):
+        calls.append(shift)
+        with torch.no_grad():
+            return sw.swin_window_attention_plain(qkv, bias, mask, heads, window, scale, shift)
+
+    monkeypatch.setattr(sw, "_launch", launch)
+    gen = torch.Generator().manual_seed(0)
+    heads, win, hd = 2, 8, 4
+    mask = torch.from_numpy(W.shift_attn_mask(16, 24, win, 4))
+    for dtype, shift, m in ((torch.float32, 4, mask), (torch.float32, 0, None), (torch.bfloat16, 4, mask)):
+        qkv = torch.randn(2, 16, 24, 3 * heads * hd, generator=gen).to(dtype).requires_grad_(True)
+        bias = torch.randn(heads, 64, 64, generator=gen).requires_grad_(True)
+        grad = torch.randn(2, 16, 24, heads * hd, generator=gen).to(dtype)
+        out = sw._SwinWindowAttention.apply(qkv, bias, m, heads, win, hd**-0.5, shift)
+        got = torch.autograd.grad(out, (qkv, bias), grad)
+        ref = sw.swin_window_attention_plain(qkv, bias, m, heads, win, hd**-0.5, shift)
+        want = torch.autograd.grad(ref, (qkv, bias), grad)
+        assert torch.equal(out, ref) and got[0].dtype == dtype and got[1].dtype == torch.float32
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and float(got[1].abs().max()) > 0
+        (only_q,) = torch.autograd.grad(sw._SwinWindowAttention.apply(qkv, bias.detach(), m, heads, win, hd**-0.5, shift),
+                                        qkv, grad)
+        assert torch.equal(only_q, want[0])
+    assert calls == [4, 4, 0, 0, 4, 4]  # one launch a forward, none in a backward
+    small = torch.randn(1, 8, 8, 3 * 2, dtype=torch.float64, generator=gen, requires_grad=True)
+    bias = torch.randn(1, 64, 64, generator=gen)
+    assert torch.autograd.gradcheck(lambda q: sw._SwinWindowAttention.apply(q, bias, None, 1, win, 2**-0.5, 0), (small,),
+                                    eps=1e-3, atol=1e-3, rtol=1e-2)
+
+
+def test_upsample_function_backward_is_the_two_by_two_sum(monkeypatch):
+    from instarevive_tpu_torch.ops import norm_kernels as nk
+
+    monkeypatch.setattr(nk, "_launch_upsample2x", lambda x: nk.upsample2x_nearest_plain(x.detach()))
+    x = torch.randn(2, 3, 4, 5, dtype=torch.float64, generator=torch.Generator().manual_seed(1), requires_grad=True)
+    assert torch.autograd.gradcheck(nk._Upsample2x.apply, (x,), eps=1e-6, atol=1e-8)
+    grad = torch.randn(2, 6, 8, 5, generator=torch.Generator().manual_seed(2)).bfloat16()
+    leaf = torch.randn(2, 3, 4, 5, generator=torch.Generator().manual_seed(3), requires_grad=True)
+    (want,) = torch.autograd.grad(nk.upsample2x_nearest_plain(leaf), leaf, grad.float())  # autograd through the plain version
+    got = nk.upsample2x_backward(grad)  # summed in f32, rounded once to the gradient's dtype
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want.bfloat16())
+
+
+def test_bias_is_gathered_inside_autograd_only_while_the_table_takes_a_gradient():
+    from instarevive_tpu_torch.models.swinir import WindowAttention
+
+    attn = WindowAttention(12, 8, 2)
+    torch.nn.init.normal_(attn.relative_position_bias_table, std=0.5)
+    live = attn.bias()
+    assert live.requires_grad and "_derived" not in attn.__dict__
+    live.sum().backward()
+    assert float(attn.relative_position_bias_table.grad.abs().sum()) > 0
+    with torch.no_grad():
+        packed = attn.bias()
+        assert not packed.requires_grad and attn.bias() is packed and torch.equal(packed, live.detach())
+        attn.relative_position_bias_table.mul_(2.0)  # an optimizer step: the pack follows the table's version
+        assert torch.equal(attn.bias(), live.detach() * 2.0)
+    attn.requires_grad_(False)
+    assert attn.bias() is attn.bias() and not attn.bias().requires_grad
