@@ -49,7 +49,20 @@ PyTorch built for CUDA. It imports no JAX. In order it:
 10. runs the trainer with ``--task swinir`` at the full v1 SwinIR width in
    bf16 from f32 masters, batch 2 at 512x512: 3 steps, then 1 more from the
    checkpoint, K4, K5c and K6 launches per step held; times warm steps; and
-   holds one depth-cut f32 step on the card against the CPU.
+   holds one depth-cut f32 step on the card against the CPU;
+11. holds the flash-attention kernels at head dim 64 (K1 with and without the
+   log-sum-exp, K2's dq and dk/dv) against their plain versions at every
+   UNet and ControlNet shape of ``configs/cldm.yaml``, bf16 and f32, timed
+   against ``F.scaled_dot_product_attention`` forward and backward (this
+   runs with the other kernel phases, after 3);
+12. runs the trainer with ``--task cldm`` at the full ``configs/cldm.yaml``
+   width (SD-2.1 UNet, ControlNet, the frozen SwinIR and VAE) in bf16 from f32
+   masters, batch 2 at 512x512: 3 steps, then 1 more from the checkpoint,
+   every kernel's launches per step held (K1 by head dim), every head-dim-64
+   shape held in 11, frozen weights unchanged, one ``train_step`` under
+   ``torch.cuda.set_sync_debug_mode("error")``; times warm steps; takes one
+   ``--task reflow`` step; and holds one depth-cut f32 step at head dim 64 on
+   the card against the CPU.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -1364,6 +1377,377 @@ def swinir_train_phase(cfg_full, swin_records, filter_records):
     return counts, per_step, dict(timing, three_steps_s=seconds, card_vs_cpu=errs)
 
 
+# The UNet's and the ControlNet's attention at head dim 64 (configs/cldm.yaml at
+# batch 2 on 512x512 crops: 64x64 latents, heads = channels / 64): self-attention
+# at ds 1, 2, 4 and in the middle block, and cross-attention over the trainer's
+# 4-key zero context and over a 77-key CLIP context, one with a ragged mask.
+D64_CASES = [  # (name, (B, H, Nq, Nk), keys kept per sample or None)
+    ("ds1_self", (2, 5, 4096, 4096), None),
+    ("ds1_cross4", (2, 5, 4096, 4), None),
+    ("ds1_cross77", (2, 5, 4096, 77), None),
+    ("ds1_cross77_masked", (2, 5, 4096, 77), (77, 20)),
+    ("ds2_self", (2, 10, 1024, 1024), None),
+    ("ds2_cross4", (2, 10, 1024, 4), None),
+    ("ds2_cross77", (2, 10, 1024, 77), None),
+    ("ds4_self", (2, 20, 256, 256), None),
+    ("ds4_cross4", (2, 20, 256, 4), None),
+    ("ds4_cross77", (2, 20, 256, 77), None),
+    ("mid_self", (2, 20, 64, 64), None),
+    ("mid_cross4", (2, 20, 64, 4), None),
+    ("mid_cross77", (2, 20, 64, 77), None),
+]
+
+
+def d64_phase():
+    """K1 (without and with the log-sum-exp) and K2 (dq, dk/dv) at head dim
+    64 against ``sdpa``, ``flash_lse_plain`` and ``flash_backward_plain`` at
+    every UNet / ControlNet shape, bf16 and f32: every output relative to its
+    largest magnitude (BACKWARD_BOUNDS, as at head dim 72; q, k, dO randn and
+    v in [-1, 1]), the log-sum-exp to LSE_BOUNDS, the same bits twice. The
+    yardsticks are ``F.scaled_dot_product_attention``: the forward alone, and
+    the forward plus the backward through autograd. Returns (forward records,
+    dq records, dk/dv records, the bf16 shapes held as (B, H, Nq, Nk, 64,
+    masked))."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops import attention as A
+
+    fwd_records, dq_records, dkv_records, held = [], [], [], set()
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    d = 64
+    for name, (b, h, nq, nk), kept in D64_CASES:
+        for dt in ("bf16", "f32"):
+            dtype = getattr(torch, DTYPES[dt])
+            q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
+            k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtype)
+            v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
+            do = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
+            mask = None
+            if kept is not None:
+                mask = torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
+            scale = d**-0.5
+            iters = 20 if dt == "bf16" else 5
+            with torch.no_grad():
+                o, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+                o_plain_path = A._forward(q, k, v, mask, scale, want_lse=False)[0]
+                torch.cuda.synchronize()
+                ref = A.sdpa(q, k, v, kv_mask=mask, scale=scale)
+                o_err = max_err(o_plain_path, ref)
+                o_rel = o_err / ref.float().abs().max().item()
+                lse_err = max_err(lse, A.flash_lse_plain(q, k, mask, scale))
+                same_out = torch.equal(o, o_plain_path)
+                got = A.flash_backward(q, k, v, mask, o, lse, do, scale)
+                torch.cuda.synchronize()
+                want = A.flash_backward_plain(q, k, v, mask, o, lse, do, scale)
+                rel, abs_err = {}, {}
+                for key, x, y in zip(("dq", "dk", "dv"), got, want):
+                    if not torch.isfinite(x).all():
+                        fail(f"head dim 64 {name} {dt}: {key} is not finite")
+                    abs_err[key] = max_err(x, y)
+                    rel[key] = abs_err[key] / y.float().abs().max().item()
+                same = all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(q, k, v, mask, o, lse, do, scale)))
+                di = (do.float() * o.float()).sum(-1)
+                ms_fwd = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=False), iters=iters)
+                ms_lse = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=True), iters=iters)
+                ms_dq = cuda_ms(lambda: A.flash_dq(q, k, v, mask, lse, di, do, scale), iters=iters)
+                ms_dkv = cuda_ms(lambda: A.flash_dkv(q, k, v, mask, lse, di, do, scale), iters=iters)
+                ms_both = cuda_ms(lambda: A.flash_backward(q, k, v, mask, o, lse, do, scale), iters=iters)
+                plain_fwd_ms = cuda_ms(lambda: A.sdpa(q, k, v, kv_mask=mask, scale=scale), iters=3, warmup=1)
+                plain_bwd_ms = cuda_ms(lambda: A.flash_backward_plain(q, k, v, mask, o, lse, do, scale), iters=3, warmup=1)
+                attn_mask = None if mask is None else mask[:, None, None, :]
+                lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), iters=iters)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+            def library_fwd_bwd():
+                return torch.autograd.grad(F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask), leaves, do)
+
+            lib_fwd_bwd_ms = cuda_ms(library_fwd_bwd, iters=iters)
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=iters)
+            del lib_out, leaves
+            pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))  # masked keys take no product
+            es = q.element_size()
+            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()), 4.0 * pairs * d, dt)
+            b_lse = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt)
+            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt)
+            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt)
+            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt)
+            bnd = BACKWARD_BOUNDS[dt]
+            common = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=mask is not None, bound=bnd)
+            fwd_records.append(dict(common, max_abs_err=o_err, max_rel_err=o_rel, lse_max_abs_err=lse_err,
+                                    lse_bound=LSE_BOUNDS[dt], ms=ms_fwd, ms_with_lse=ms_lse, plain_ms=plain_fwd_ms,
+                                    library_ms=lib_fwd_ms, bound_ms=b_fwd[0], bound_by=b_fwd[1],
+                                    bound_with_lse_ms=b_lse[0]))
+            back = dict(common, bitwise_repeat=same, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                        library_forward_backward_ms=lib_fwd_bwd_ms, together_ms=ms_both, together_bound_ms=b_both[0])
+            dq_records.append(dict(back, max_abs_err=abs_err["dq"], max_rel_err=rel["dq"], ms=ms_dq, bound_ms=b_dq[0],
+                                   bound_by=b_dq[1]))
+            dkv_records.append(dict(back, max_abs_err=max(abs_err["dk"], abs_err["dv"]),
+                                    max_rel_err=max(rel["dk"], rel["dv"]), ms=ms_dkv, bound_ms=b_dkv[0],
+                                    bound_by=b_dkv[1]))
+            print(f"[d64] {name:18s} {dt:4s} B,H,Nq,Nk={b},{h},{nq},{nk} mask={mask is not None!s:5s} "
+                  f"out rel_err={o_rel:.2e} lse={lse_err:.2e} dq={rel['dq']:.2e} dk={rel['dk']:.2e} dv={rel['dv']:.2e} "
+                  f"(bounds {bnd:.0e} of each output's largest magnitude, lse {LSE_BOUNDS[dt]:.0e}) same bits "
+                  f"twice={same and same_out} | ms fwd={ms_fwd:.4f} with_lse={ms_lse:.4f} (bound {b_fwd[0]:.4f}, "
+                  f"{b_fwd[1]}) dq={ms_dq:.4f} dkv={ms_dkv:.4f} dq+dkv+di={ms_both:.4f} (bound {b_both[0]:.4f}) | "
+                  f"plain fwd={plain_fwd_ms:.4f} bwd={plain_bwd_ms:.4f} | torch sdpa fwd={lib_fwd_ms:.4f} "
+                  f"bwd={lib_bwd_ms:.4f} fwd+bwd={lib_fwd_bwd_ms:.4f}", flush=True)
+            if not (o_rel <= bnd and max(rel.values()) <= bnd and lse_err <= LSE_BOUNDS[dt]):
+                fail(f"head dim 64 {name} {dt}: output {o_rel}, lse {lse_err}, gradients {rel} over the bounds")
+            if not (same and same_out):
+                fail(f"head dim 64 {name} {dt}: two runs on the same inputs differ")
+            if dt == "bf16":
+                held.add((b, h, nq, nk, d, mask is not None))
+            del q, k, v, do, o, lse, ref, got, want, di
+    return fwd_records, dq_records, dkv_records, held
+
+
+# One f32 cldm step with the UNet and the ControlNet cut in depth and width
+# but at head dim 64 (the kernels' instantiation), the VAE and SwinIR at full
+# width, card against CPU: the loss relative to itself, every gradient against
+# the largest gradient magnitude; convolutions, matmuls, GroupNorm and the
+# attention kernels sum in other orders than the CPU.
+CLDM_F32_BOUND = 1e-3
+CLDM_SMALL_NET = dict(model_channels=64, num_res_blocks=1, attention_ds=[1, 2], channel_mult=[1, 2],
+                      num_head_channels=64, context_dim=64)
+
+
+def cldm_phase(held64):
+    """The trainer with ``--task cldm`` through its entry point at the full
+    ``configs/cldm.yaml`` width (SD-2.1 UNet and ControlNet, the frozen SwinIR
+    and VAE) in bf16 from f32 masters, batch 2 at 512x512: 3 steps, then 1
+    more from the checkpoint. Every kernel's launches per step are held to
+    what the configuration implies (K1 by head dim and log-sum-exp from its
+    shape tally, K6 as the draws imply), and every head-dim-64 shape met to
+    one ``d64_phase`` held. The frozen UNet's parameters keep their bits, the
+    trained ones move. One ``train_step`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the step waits for the card
+    nowhere (the loop's one-step-late metric fetch is outside it). Then timed
+    steps, one ``--task reflow`` step, and one depth-cut f32 step on the card
+    against the CPU. Returns (launches of the 3-step run, launches per step,
+    the timing record, K1/K2 launches by head dim)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from instarevive_tpu_torch.config import load_config, merge
+    from instarevive_tpu_torch.models.unet import UNetBackbone, zero_init_
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.pipelines.build import init_params
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+    from instarevive_tpu_torch.train.cldm import ControlLDM
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def finite(run, what, keys=("loss", "grads_finite")):
+        for i, m in enumerate(run.history):
+            if set(m) != set(keys) or not np.isfinite(m["loss"]) or m["grads_finite"] != 1.0:
+                fail(f"{what}: metrics of step {run.start_step + i} are {m}")
+
+    config = os.path.join(REPO, "configs", "cldm.yaml")
+    cfg = load_config(config)
+    attn = T.cldm_attention_counts(cfg)
+    per_step = dict(dict.fromkeys(counters(), 0), **T.cldm_expected_launches(cfg))
+    trained = ("controlnet.", "unet.output_blocks.", "unet.out.")
+
+    # the frozen UNet as the launcher initialises it (its default seed): what every frozen weight must stay
+    with torch.device("cuda"):
+        fresh = ControlLDM(UNetBackbone(**cfg["unet"]), UNetBackbone(**cfg["controlnet"]))
+    init_params(fresh, seed=0)
+    zero_init_(fresh.unet), zero_init_(fresh.controlnet)
+    # kept on the host, so that the run's peak device memory is the trainer's own
+    frozen_init = {n: p.detach().cpu() for n, p in fresh.named_parameters() if not n.startswith(trained)}
+    trained_init = {n: p.detach().cpu() for n, p in fresh.named_parameters() if n.startswith(trained)}
+    del fresh
+    free()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = T.write_images(os.path.join(tmp, "hq"))
+        out = os.path.join(tmp, "run")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        A.flash_attention.shapes, A.flash_dq.shapes, A.flash_dkv.shapes = {}, {}, {}
+        try:
+            t0 = time.perf_counter()
+            run = launcher.main(T.train_argv(config, data, out, 3, task="cldm"))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            tallies = (A.flash_attention.shapes, A.flash_dq.shapes, A.flash_dkv.shapes)
+        finally:
+            A.flash_attention.shapes = A.flash_dq.shapes = A.flash_dkv.shapes = None
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite(run, "train cldm")
+        task = run.task
+        want = dict({k: 3 * v for k, v in per_step.items()}, filter2d=task.degrade.filter_calls)
+        if (run.start_step, run.end_step, len(run.history)) != (0, 3, 3) or counts != want \
+                or not 6 <= counts["filter2d"] <= 9:
+            fail(f"train cldm: ran steps {run.start_step}..{run.end_step}; kernel launches {counts}, the configuration "
+                 f"and the draws imply {want}")
+        fwd_shapes, dq_shapes, dkv_shapes = tallies
+        by_dim = {"d64": sum(n for key, n in fwd_shapes.items() if key[4] == 64),
+                  "d64_with_lse": sum(n for key, n in fwd_shapes.items() if key[4] == 64 and key[6]),
+                  "d512": sum(n for key, n in fwd_shapes.items() if key[4] == 512),
+                  "flash_attn_bwd_dq": sum(dq_shapes.values()), "flash_attn_bwd_dkv": sum(dkv_shapes.values())}
+        want_dim = {k: 3 * attn[k] for k in by_dim}
+        if by_dim != want_dim:
+            fail(f"train cldm: attention launches by head dim {by_dim}, the configuration implies {want_dim}")
+        met = {key[:6] for key in fwd_shapes if key[4] == 64} | set(dq_shapes) | set(dkv_shapes)
+        if met - held64:
+            fail(f"train cldm: head-dim-64 shapes the kernel phase did not hold: {sorted(met - held64)}")
+        (state, lsm) = task.states
+        params = {n: p.detach().cpu() for n, p in task.model.named_parameters()}
+        if sorted(state.names) != sorted(n for n in params if n.startswith(trained)) or lsm is not None:
+            fail("train cldm: the optimizer does not hold exactly the ControlNet and the UNet's decoder")
+        if not all(torch.equal(params[n], p) for n, p in frozen_init.items()):
+            fail("train cldm: a frozen parameter moved")
+        moved = sum(not torch.equal(params[n], p) for n, p in trained_init.items())
+        if torch.equal(params["unet.out.2.weight"], trained_init["unet.out.2.weight"]) or moved < 5:
+            fail(f"train cldm: of {len(trained_init)} trained tensors {moved} moved")
+        print(f"[train cldm] {card_line()}: configs/cldm.yaml at full width (UNet {sum(p.numel() for n, p in params.items() if n.startswith('unet.')) / 1e6:.1f} M, "
+              f"ControlNet {sum(p.numel() for n, p in params.items() if n.startswith('controlnet.')) / 1e6:.1f} M parameters, "
+              f"{sum(p.numel() for p in state.params) / 1e6:.1f} M trained), bf16 compute from f32 masters, batch "
+              f"{T.BATCH} at {T.CROP}x{T.CROP}: 3 steps through train.launcher.main in {seconds:.1f}s (set-up, first-use "
+              f"builds and the checkpoint included); launches per step {({k: v for k, v in per_step.items() if v})} as "
+              f"the configuration implies, filter2d {counts['filter2d']} in the 3 degradations as their draws imply; "
+              f"K1 by head dim over 3 steps {by_dim}; head-dim-64 shapes met (B, H, Nq, Nk, D, masked, lse) "
+              f"{sorted(fwd_shapes.items())}; losses {[round(m['loss'], 6) for m in run.history]}; {len(frozen_init)} "
+              f"frozen tensors as initialised, {moved} of {len(trained_init)} trained ones moved; peak allocated "
+              f"{peak:.2f} GiB", flush=True)
+        del run, task, state, params
+        free()
+
+        reset_counts()
+        again = launcher.main(T.train_argv(config, data, out, 4, ["--resume", os.path.join(out, "final")], task="cldm"))
+        finite(again, "train cldm, resumed")
+        if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) \
+                or read_counts() != dict(per_step, filter2d=again.task.degrade.filter_calls) \
+                or again.task.states[0].step != 4 or again.task.states[0].opt_state["inner"]["count"] != 4:
+            fail(f"train cldm, resumed: ran steps {again.start_step}..{again.end_step}, launches {read_counts()}")
+        print(f"[train cldm] resumed from 'final' at step 3, took 1 step with the same launches: {again.history[-1]}",
+              flush=True)
+
+        task = again.task
+        batch = T.load_batches(data, 1)[0]
+        pair = task.degrade(torch.from_numpy(batch["hq"]).to("cuda").float() / 255.0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            task.train_step(pair)
+        except RuntimeError:
+            import traceback
+
+            fail(f"train cldm: train_step synchronised with the card:\n{traceback.format_exc()}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("[train cldm] one train_step under torch.cuda.set_sync_debug_mode('error'): no synchronising call "
+              "(nan_guard keeps its flag on the card)", flush=True)
+
+        timing = T.time_steps(task, T.load_batches(data, 5), T.CLDM_PHASES)
+        want_attn = {k: attn[k] for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+        if timing["launches_per_step"] != want_attn:
+            fail(f"train cldm: timed steps launched {timing['launches_per_step']}, expected {want_attn}")
+        print(f"[train cldm] warm s/step {timing['step_median_s']:.4f} (steps {', '.join(f'{t:.4f}' for t in timing['step_s'])}); "
+              "split, median ms by CUDA events: " + ", ".join(f"{k} {v:.1f}" for k, v in timing["phase_median_ms"].items())
+              + f"; peak allocated {timing['peak_allocated_gib']:.2f} GiB", flush=True)
+        del again, task, pair
+        free()
+
+        # one reflow step at full width, through the same task class the launcher builds for --task reflow
+        args = launcher.parse_args(T.train_argv(config, data, os.path.join(tmp, "reflow"), 1, task="reflow"))
+        refl = launcher.CLDMTask(args, cfg, torch.device("cuda"))
+        reset_counts()
+        m = {k: float(v) for k, v in refl.run_step(batch).items()}
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_counts().items() if k != "filter2d"}
+        if set(m) != {"loss", "reflow_mse", "grads_finite"} or not np.isfinite(m["loss"]) \
+                or got != {k: v for k, v in per_step.items() if k != "filter2d"}:
+            fail(f"train reflow: metrics {m}, launches {got}")
+        print(f"[train reflow] one step at full width: {m}, launches as for cldm", flush=True)
+        del refl
+        free()
+
+        err = cldm_step_card_against_cpu(cfg, merge)
+    return counts, per_step, dict(timing, three_steps_s=seconds, peak_allocated_first_run_gib=peak, card_vs_cpu=err,
+                                  attention_by_head_dim_3_steps=by_dim), by_dim
+
+
+def cldm_step_card_against_cpu(cfg_full, merge):
+    """One f32 ``CLDMTask.train_step`` with the UNet and the ControlNet cut
+    to CLDM_SMALL_NET (head dim 64) and every layer random (no zero init, so
+    every gradient is exercised), the VAE and SwinIR at full width, on the
+    card and on the CPU: the same weights, pair and draws."""
+    import torch
+
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.pipelines.build import init_params
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    cfg = merge(cfg_full, {"unet": CLDM_SMALL_NET, "controlnet": CLDM_SMALL_NET})
+    args = launcher.parse_args([a for a in T.train_argv("-", "-", "-", 1, task="cldm") if a != "--bf16"])
+    cpu, gpu = launcher.CLDMTask(args, cfg, torch.device("cpu")), launcher.CLDMTask(args, cfg, torch.device("cuda"))
+    init_params(cpu.model, seed=3)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.pipe.load_state_dict(cpu.pipe.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    pair = {"hq": torch.rand(T.BATCH, 128, 128, 3, generator=gen) * 2 - 1, "lq": torch.rand(T.BATCH, 128, 128, 3, generator=gen)}
+    draws = {"t": torch.tensor([17, 803]), "noise": torch.randn(T.BATCH, 16, 16, 4, generator=gen)}
+    res = {}
+    for label, task in (("cpu", cpu), ("cuda", gpu)):
+        kept = []
+        reset_counts()
+        metrics = task.train_step({k: v.to(task.device) for k, v in pair.items()}, keep_grads=kept,
+                                  draws={k: v.to(task.device) for k, v in draws.items()})
+        res[label] = (float(metrics["loss"]), [g.cpu() for g in kept])
+    counts = read_counts()
+    want = T.cldm_attention_counts(cfg)
+    if (counts["flash_attn_fwd"], counts["flash_attn_bwd_dq"], counts["flash_attn_bwd_dkv"]) != \
+            (want["flash_attn_fwd"], want["flash_attn_bwd_dq"], want["flash_attn_bwd_dkv"]):
+        fail(f"cldm step, card against CPU: attention launches {counts}, expected {want}")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
+    top = max(g.abs().max().item() for g in g_cpu)
+    errs = {"loss": abs(l_gpu - l_cpu) / l_cpu, "grad": max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) / top}
+    print(f"[train cldm] one f32 step, UNet and ControlNet at {CLDM_SMALL_NET} (head dim 64), VAE and SwinIR at full "
+          f"width, every layer random, card against CPU (same weights, pair and draws): loss on the CPU {l_cpu:.6f}; "
+          f"relative differences " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {CLDM_F32_BOUND:.0e}); attention launches on the card {want}", flush=True)
+    if not max(errs.values()) <= CLDM_F32_BOUND:
+        fail(f"cldm step: the card differs from the CPU by {errs}")
+    return errs
+
+
+def d64_entries(fwd_records, dq_records, dkv_records, by_dim):
+    """The head-dim-64 instantiations' entries of the ``kernels`` line: the
+    UNet's largest self-attention (ds 1) at top level, every shape below;
+    ``launches`` is the 3-step ``--task cldm`` run's count from the shape
+    tally."""
+    out = []
+    for name, replaces, records, launches in (
+            ("flash_attn_fwd_d64", "instarevive_tpu/ops/attention.py:63", fwd_records, by_dim["d64"]),
+            ("flash_attn_bwd_dq_d64", "instarevive_tpu/ops/attention.py:127", dq_records, by_dim["flash_attn_bwd_dq"]),
+            ("flash_attn_bwd_dkv_d64", "instarevive_tpu/ops/attention.py:166", dkv_records, by_dim["flash_attn_bwd_dkv"])):
+        main_rec = next(r for r in records if r["name"] == "ds1_self" and r["dtype"] == "bf16")
+        bf16 = [r for r in records if r["dtype"] == "bf16"]
+        entry = {"name": name, "route": "cuda",
+                 "source": "instarevive_tpu_torch/csrc/" + ("flash_attn_fwd.cu" if "fwd" in name else "flash_attn_bwd.cu"),
+                 "replaces": replaces, "launches": launches, "launches_cldm_run": launches,
+                 "max_abs_err": max(r["max_abs_err"] for r in bf16), "max_rel_err": max(r["max_rel_err"] for r in bf16),
+                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+                 "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+                 "main_shape": main_rec["shape"], "shapes": records}
+        if name == "flash_attn_fwd_d64":
+            entry["launches_with_lse_cldm_run"] = by_dim["d64_with_lse"]
+        out.append(entry)
+    return out
+
+
 def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
     """K6's entry of the ``kernels`` line: f32, the stage-1 blur's times at
     top level; ``launches`` is the count of the 3-step ``--task swinir`` run."""
@@ -1435,6 +1819,7 @@ def main() -> None:
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
+    d64_fwd, d64_dq, d64_dkv, held64 = d64_phase()
     conv_records = conv_phase()
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
@@ -1450,6 +1835,7 @@ def main() -> None:
     timing = train[2]
     degrade_launches, degrade_timing = degrade_phase(filter_records)
     swinir_train = swinir_train_phase(cfg, swin_records, filter_records)
+    cldm = cldm_phase(held64)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -1476,7 +1862,8 @@ def main() -> None:
         up,
         swin,
         filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
-    ], "train": timing, "train_swinir": swinir_train[2], "degrade": degrade_timing}), flush=True)
+        *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3]),
+    ], "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2], "degrade": degrade_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

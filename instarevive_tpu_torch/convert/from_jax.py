@@ -1,11 +1,12 @@
-"""Weight bridge from the JAX package: its param tree -> the port's three
-state dicts (SwinIR, VAE, PixArt native), in the reference key layout.
+"""Weight bridge from the JAX package: its param tree -> the port's state
+dicts (SwinIR, VAE, PixArt native; the LDM stack's UNet and ControlNet), in
+the reference key layouts.
 
 ``train_state_from_jax`` carries a training state across (parameters, EMA,
 AdamW moments, the step); any tree with the parameters' structure goes
 through the same map as the parameters themselves.
 
-The exporters below are the port's own numpy-only copy of the three maps in
+The exporters below are the port's own numpy-only copy of the maps in
 ``instarevive_tpu/convert/torch_export.py`` (conv HWIO -> OIHW, dense
 (in, out) -> (out, in), norm scale -> weight); ``tests/test_torch_convert.py``
 holds them bit for bit against the JAX package's. Nothing here imports JAX
@@ -204,6 +205,105 @@ def pixart_params_to_torch(p: Mapping[str, Any], depth: int = 28) -> Dict[str, n
     return sd
 
 
+def _dense_nobias(sd, torch_path, tree, flax_path):
+    sd[torch_path + ".weight"] = _np(_get(tree, flax_path + "/kernel")).transpose(1, 0)
+
+
+def _unet_resblock(sd, tp, p, flax_path):
+    _norm(sd, f"{tp}.in_layers.0", p, f"{flax_path}/in_norm")
+    _conv(sd, f"{tp}.in_layers.2", p, f"{flax_path}/in_conv")
+    _dense(sd, f"{tp}.emb_layers.1", p, f"{flax_path}/emb_proj")
+    _norm(sd, f"{tp}.out_layers.0", p, f"{flax_path}/out_norm")
+    _conv(sd, f"{tp}.out_layers.3", p, f"{flax_path}/out_conv")
+    if _has(p, f"{flax_path}/skip"):
+        _conv(sd, f"{tp}.skip_connection", p, f"{flax_path}/skip")
+
+
+def _unet_st(sd, tp, p, flax_path, depth=1):
+    _norm(sd, f"{tp}.norm", p, f"{flax_path}/norm")
+    _dense(sd, f"{tp}.proj_in", p, f"{flax_path}/proj_in")
+    for d in range(depth):
+        bb = f"{tp}.transformer_blocks.{d}"
+        fb = f"{flax_path}/block_{d}"
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{bb}.{n}", p, f"{fb}/{n}")
+        for an in ("attn1", "attn2"):
+            _dense_nobias(sd, f"{bb}.{an}.to_q", p, f"{fb}/{an}_q")
+            _dense_nobias(sd, f"{bb}.{an}.to_k", p, f"{fb}/{an}_k")
+            _dense_nobias(sd, f"{bb}.{an}.to_v", p, f"{fb}/{an}_v")
+            _dense(sd, f"{bb}.{an}.to_out.0", p, f"{fb}/{an}_out")
+        _dense(sd, f"{bb}.ff.net.0.proj", p, f"{fb}/ff_proj")
+        _dense(sd, f"{bb}.ff.net.2", p, f"{fb}/ff_out")
+    _dense(sd, f"{tp}.proj_out", p, f"{flax_path}/proj_out")
+
+
+def unet_params_to_torch(
+    p: Mapping[str, Any],
+    channel_mult=(1, 2, 4, 4),
+    num_res_blocks: int = 2,
+    attention_ds=(1, 2, 4),
+    is_controlnet: bool = False,
+) -> Dict[str, np.ndarray]:
+    """UNet (or, with ``is_controlnet``, ControlNet) param tree -> the
+    openaimodel keys that ``models/unet.UNetBackbone`` carries."""
+    sd: Dict[str, np.ndarray] = {}
+    _dense(sd, "time_embed.0", p, "time_embed_0")
+    _dense(sd, "time_embed.2", p, "time_embed_2")
+    _conv(sd, "input_blocks.0.0", p, "input_conv")
+    if is_controlnet:
+        _conv(sd, "zero_convs.0.0", p, "zero_conv_0")
+
+    ds, ti, zi = 1, 1, 1
+    for level in range(len(channel_mult)):
+        for j in range(num_res_blocks):
+            _unet_resblock(sd, f"input_blocks.{ti}.0", p, f"in_{ti}_res")
+            if ds in attention_ds:
+                _unet_st(sd, f"input_blocks.{ti}.1", p, f"in_{ti}_st")
+            if is_controlnet:
+                _conv(sd, f"zero_convs.{zi}.0", p, f"zero_conv_{zi}")
+            ti += 1
+            zi += 1
+        if level != len(channel_mult) - 1:
+            _conv(sd, f"input_blocks.{ti}.0.op", p, f"down_{level}")
+            if is_controlnet:
+                _conv(sd, f"zero_convs.{zi}.0", p, f"zero_conv_{zi}")
+            ds *= 2
+            ti += 1
+            zi += 1
+
+    _unet_resblock(sd, "middle_block.0", p, "mid_res1")
+    _unet_st(sd, "middle_block.1", p, "mid_st")
+    _unet_resblock(sd, "middle_block.2", p, "mid_res2")
+    if is_controlnet:
+        _conv(sd, "middle_block_out.0", p, "zero_conv_mid")
+        return sd
+
+    oi = 0
+    for level in reversed(range(len(channel_mult))):
+        for j in range(num_res_blocks + 1):
+            _unet_resblock(sd, f"output_blocks.{oi}.0", p, f"out_{oi}_res")
+            sub = 1
+            if ds in attention_ds:
+                _unet_st(sd, f"output_blocks.{oi}.1", p, f"out_{oi}_st")
+                sub = 2
+            if level and j == num_res_blocks:
+                _conv(sd, f"output_blocks.{oi}.{sub}.conv", p, f"up_{level}")
+                ds //= 2
+            oi += 1
+
+    _norm(sd, "out.0", p, "out_norm")
+    _conv(sd, "out.2", p, "out_conv")
+    return sd
+
+
+def unet_kw(model_cfg: Mapping[str, Any]) -> Dict[str, Any]:
+    """``unet_params_to_torch``'s options from a ``unet`` / ``controlnet`` config section."""
+    return dict(channel_mult=tuple(model_cfg.get("channel_mult", (1, 2, 4, 4))),
+                num_res_blocks=model_cfg.get("num_res_blocks", 2),
+                attention_ds=tuple(model_cfg.get("attention_ds", (1, 2, 4))),
+                is_controlnet=bool(model_cfg.get("is_controlnet", False)))
+
+
 def state_dicts_from_jax(params: Mapping[str, Any], cfg: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
     """``params``: the JAX pipeline's param tree ({'swinir', 'vae', 'dit'}, any
     subset); ``cfg``: the config it was built from. Returns
@@ -227,6 +327,9 @@ def state_dicts_from_jax(params: Mapping[str, Any], cfg: Mapping[str, Any]) -> D
         )
     if "dit" in params:
         out["dit"] = pixart_params_to_torch(params["dit"], depth=cfg.get("dit", {}).get("depth", 28))
+    for name in ("unet", "controlnet"):  # the LDM stack (configs/cldm.yaml)
+        if name in params:
+            out[name] = unet_params_to_torch(params[name], **unet_kw(cfg.get(name, {})))
     return out
 
 
@@ -277,3 +380,32 @@ def swinir_train_state_from_jax(
     (depths, upsampler, sf, unshuffle)."""
     return _train_state_tree(lambda tree: swinir_params_to_torch(tree, **swinir_kw),
                              params, ema, mu, nu, count, names, step)
+
+
+def cldm_train_state_from_jax(
+    params: Mapping[str, Any],
+    ema: Any,
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: int,
+    names: Sequence[str],
+    cfg: Mapping[str, Any],
+    step: int = 0,
+) -> Dict[str, Any]:
+    """The same for the LDM/ControlNet training state (``--task
+    cldm|reflow``): trees {'unet', 'controlnet'} in, keys ``unet.*`` and
+    ``controlnet.*`` out, as the port's ``train.cldm.ControlLDM`` holds them.
+    ``mu``, ``nu`` and ``ema`` are read at the trainable leaves only, which
+    ``names`` lists; their other leaves may be anything."""
+    def as_dict(tree):
+        out = {}
+        for name in ("unet", "controlnet"):
+            sd = unet_params_to_torch(tree[name], **unet_kw(cfg[name]))
+            out.update({f"{name}.{k}": v for k, v in sd.items()})
+        return out
+
+    state = _train_state_tree(as_dict, params, None, mu, nu, count, names, step)
+    if ema is not None:
+        flat = as_dict(ema)
+        state["ema"] = {n: flat[n] for n in names}
+    return state

@@ -34,7 +34,9 @@
 // gradient of that mean, which is what autograd gives through the plain
 // version.
 //
-// Two forms, head dim 72 only (the DiT; head dim 512 takes no gradient):
+// Two forms, each templated on the head dim and instantiated at 64 (the UNet
+// and ControlNet of the LDM trainer) and 72 (the DiT); head dim 512 takes no
+// gradient:
 // * bf16: each of the 4 warps owns 16 rows; S, dP and the accumulators live in
 //   registers and all five products run on the tensor cores as mma.sync
 //   m16n8k16 (bf16 x bf16 -> f32). P and dS leave the softmax already in the
@@ -44,9 +46,9 @@
 //   rather than held, to keep the two 16 x 80 accumulators of the dk/dv pass
 //   and both 16 x 64 tiles within the register file. Column tiles are
 //   double-buffered with cp.async. Head dim 72 is zero-padded to 80 in shared
-//   memory only.
+//   memory only; 64 needs no padding.
 // * f32: tiles of 32 x 32 in shared memory on odd strides, plain FMAs, the
-//   accumulators in registers (18 outputs per thread and product).
+//   accumulators in registers (d / 4 outputs per thread and product).
 //
 // What bounds it on this card: 10 * BH * Nq * Nk * d useful operations against
 // a few MB of operands, far above the ridge point, so the bf16 form is bound by
@@ -108,24 +110,30 @@ __device__ __forceinline__ float key_flag(const uint8_t* mb, int key, int nk) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 72, tensor cores.
+// bf16, head dims 64 and 72, tensor cores: one body templated on the head dim.
 
 namespace bwd16 {
 
 constexpr int kThreads = 128;
 constexpr int BR = 64, BC = 64;  // rows a block owns (16 per warp); columns per streamed tile
-constexpr int D = 72, DP = 80;   // head dim and its MMA padding
-constexpr int LDS = 88;          // shared row stride: 176 B puts the 8 rows of an ldmatrix on 8 bank groups
 constexpr int kNT = BC / 8;      // n-tiles of the 16 x 64 score tile
-constexpr int kDT = DP / 8;      // n-tiles of a 16 x 80 accumulator
-constexpr int kKS = DP / 16;     // k-steps over the head dim
-constexpr size_t kSmem = sizeof(bf16) * (2 * BR + 4 * BC) * LDS + sizeof(float) * 4 * BC;
+
+// Per head dim D: DP, its MMA padding, and LDS, the shared row stride in
+// halves; an odd number of 16-byte chunks a row (144 B for 64, 176 B for 72)
+// puts the 8 rows of an ldmatrix on 8 bank groups.
+template <int D> struct Dims;
+template <> struct Dims<64> { static constexpr int DP = 64, LDS = 72; };
+template <> struct Dims<72> { static constexpr int DP = 80, LDS = 88; };
+
+template <int D>
+constexpr size_t smem_bytes() { return sizeof(bf16) * (2 * BR + 4 * BC) * Dims<D>::LDS + sizeof(float) * 4 * BC; }
 
 // Rows [row0, row0 + ROWS) x columns [0, DP) of a row-major (n, D) bf16 matrix
 // into a (ROWS, LDS) shared tile by cp.async, zero-filled past n and past D.
-template <int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
+  constexpr int LDS = Dims<D>::LDS;
+  constexpr int kChunks = Dims<D>::DP / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const bool valid = row0 + r < n && col < D;
@@ -134,8 +142,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 }
 
 // acc (16 x 64 per warp) = rows (this warp's 16 of a shared tile) x cols^T.
+template <int D>
 __device__ __forceinline__ void rows_times_cols_t(float (&acc)[kNT][4], const bf16* rows, const bf16* cols,
                                                   int warp, int lane) {
+  constexpr int LDS = Dims<D>::LDS, kKS = Dims<D>::DP / 16;  // k-steps over the head dim
 #pragma unroll
   for (int i = 0; i < kNT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll
@@ -152,9 +162,11 @@ __device__ __forceinline__ void rows_times_cols_t(float (&acc)[kNT][4], const bf
   }
 }
 
-// acc (16 x 80 per warp) += frag (16 x 64, A fragments) x cols (64 x 80 shared tile).
-__device__ __forceinline__ void accumulate(float (&acc)[kDT][4], const uint32_t (&frag)[BC / 16][4],
+// acc (16 x DP per warp) += frag (16 x 64, A fragments) x cols (64 x DP shared tile).
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::DP / 8][4], const uint32_t (&frag)[BC / 16][4],
                                            const bf16* cols, int lane) {
+  constexpr int LDS = Dims<D>::LDS, kDT = Dims<D>::DP / 8;
 #pragma unroll
   for (int c = 0; c < BC / 16; ++c) {
 #pragma unroll
@@ -176,7 +188,9 @@ __device__ __forceinline__ void to_fragments(uint32_t (&frag)[BC / 16][4], const
   }
 }
 
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kDT][4], int row0, int n, int g, int t) {
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[Dims<D>::DP / 8][4], int row0, int n,
+                                           int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
@@ -189,13 +203,17 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kDT][4]
 }
 
 // KV = false: the dq pass (out1 = dQ, out2 unused). KV = true: the dk/dv pass
-// (out1 = dK, out2 = dV).
-template <bool KV>
+// (out1 = dK, out2 = dV). ptxas -v (sm_90a, CUDA 12.8), registers per thread:
+// d = 72, 159 (dq) and 216 (dk/dv), no spills; d = 64, 128 (dq, with 24 bytes
+// of spill stores and 8 of loads: ptxas stops at 128 there) and 165 (dk/dv, no
+// spills). chip_smoke.py's build line prints them.
+template <int D, bool KV>
 __global__ void __launch_bounds__(kThreads)
 kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
        const bf16* __restrict__ dout, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
        const float* __restrict__ di, bf16* __restrict__ out1, bf16* __restrict__ out2, int heads, int nq,
        int nk, float scale) {
+  constexpr int LDS = Dims<D>::LDS, kDT = Dims<D>::DP / 8;  // n-tiles of a 16 x DP accumulator
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + BR * LDS;
@@ -221,8 +239,8 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
   // Per-column values of a tile: the key flag (dq), or L in the log2 domain and di (dk/dv).
   auto load_cols = [&](int tile, int stage) {
     const int c0 = tile * BC;
-    load_rows<BC>(sC + stage * BC * LDS, colC, c0, ncol);
-    load_rows<BC>(sD + stage * BC * LDS, colD, c0, ncol);
+    load_rows<D, BC>(sC + stage * BC * LDS, colC, c0, ncol);
+    load_rows<D, BC>(sD + stage * BC * LDS, colD, c0, ncol);
     float* f = sCol + stage * 2 * BC;
     for (int j = threadIdx.x; j < BC; j += kThreads) {
       const int c = c0 + j;
@@ -235,8 +253,8 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
     }
   };
 
-  load_rows<BR>(sA, rowA, r0, nrow);
-  load_rows<BR>(sB, rowB, r0, nrow);
+  load_rows<D, BR>(sA, rowA, r0, nrow);
+  load_rows<D, BR>(sB, rowB, r0, nrow);
   load_cols(0, 0);
   cp_async_commit();
 
@@ -273,7 +291,7 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
 
     // P from the recomputed scores
     float s[kNT][4];
-    rows_times_cols_t(s, sA, tc, warp, lane);
+    rows_times_cols_t<D>(s, sA, tc, warp, lane);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
@@ -288,12 +306,12 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
     uint32_t frag[BC / 16][4];
     if (KV) {  // dV += P^T dO
       to_fragments(frag, s);
-      accumulate(acc2, frag, td, lane);
+      accumulate<D>(acc2, frag, td, lane);
     }
 
     // dS = P (dP - di) scale
     float dp[kNT][4];
-    rows_times_cols_t(dp, sB, td, warp, lane);
+    rows_times_cols_t<D>(dp, sB, td, warp, lane);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
@@ -305,19 +323,20 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
       }
     }
     to_fragments(frag, s);
-    accumulate(acc1, frag, tc, lane);  // dQ += dS K, or dK += dS^T Q
+    accumulate<D>(acc1, frag, tc, lane);  // dQ += dS K, or dK += dS^T Q
     __syncthreads();  // the next iteration's loads overwrite this stage
   }
 
-  store_rows(out1 + (size_t)bh * nrow * D, acc1, r0 + warp * 16, nrow, g, t);
-  if (KV) store_rows(out2 + (size_t)bh * nrow * D, acc2, r0 + warp * 16, nrow, g, t);
+  store_rows<D>(out1 + (size_t)bh * nrow * D, acc1, r0 + warp * 16, nrow, g, t);
+  if (KV) store_rows<D>(out2 + (size_t)bh * nrow * D, acc2, r0 + warp * 16, nrow, g, t);
 }
 
-template <bool KV>
+template <int D, bool KV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
                    const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq,
                    int nk, float scale, cudaStream_t stream) {
-  auto fn = kernel<KV>;
+  constexpr size_t kSmem = smem_bytes<D>();
+  auto fn = kernel<D, KV>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((KV ? nk : nq) + BR - 1) / BR, bh);
@@ -331,34 +350,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace bwd16
 
 // ---------------------------------------------------------------------------
-// f32, head dim 72: shared-memory tiles and FMAs.
+// f32, head dims 64 and 72: shared-memory tiles and FMAs.
 
 namespace bwd32 {
 
 constexpr int kThreads = 128;
 constexpr int BR = 32, BC = 32;  // rows a block owns; columns per streamed tile
-constexpr int D = 72;
-constexpr int LD = 73;           // odd row stride of the operand tiles: no bank conflicts
-constexpr int LP = BC + 1;       // and of the P and dS tiles
-constexpr int kPer = BR * D / kThreads;  // outputs per thread and product
-static_assert(BR * D % kThreads == 0, "the outputs split evenly over the threads");
-constexpr size_t kSmem = sizeof(float) * (2 * BR * LD + 2 * BC * LD + 2 * BR * LP + 2 * BR + 2 * BC);
+constexpr int LP = BC + 1;       // odd row stride of the P and dS tiles
 
-// Rows [row0, row0 + ROWS) of a row-major (n, D) matrix into a (ROWS, LD) tile, zero past n.
-template <int ROWS>
+// The operand tiles' row stride is D + 1, odd (65, 73): no bank conflicts.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (2 * BR * (D + 1) + 2 * BC * (D + 1) + 2 * BR * LP + 2 * BR + 2 * BC);
+}
+
+// Rows [row0, row0 + ROWS) of a row-major (n, D) matrix into a (ROWS, D + 1) tile, zero past n.
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n) {
   for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
     const int r = e / D, col = e % D;
-    dst[r * LD + col] = row0 + r < n ? src[(size_t)(row0 + r) * D + col] : 0.f;
+    dst[r * (D + 1) + col] = row0 + r < n ? src[(size_t)(row0 + r) * D + col] : 0.f;
   }
 }
 
-template <bool KV>
+template <int D, bool KV>
 __global__ void __launch_bounds__(kThreads)
 kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
        const float* __restrict__ dout, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
        const float* __restrict__ di, float* __restrict__ out1, float* __restrict__ out2, int heads, int nq,
        int nk, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int kPer = BR * D / kThreads;  // outputs per thread and product
+  static_assert(BR * D % kThreads == 0, "the outputs split evenly over the threads");
   extern __shared__ __align__(128) unsigned char smem[];
   float* sA = reinterpret_cast<float*>(smem);
   float* sB = sA + BR * LD;
@@ -394,8 +417,8 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
     }
   };
 
-  load_tile<BR>(sA, rowA, r0, nrow);
-  load_tile<BR>(sB, rowB, r0, nrow);
+  load_tile<D, BR>(sA, rowA, r0, nrow);
+  load_tile<D, BR>(sB, rowB, r0, nrow);
   side_values(sRow, BR, r0, KV);
 
   float acc1[kPer], acc2[kPer];
@@ -404,8 +427,8 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
 
   for (int c0 = 0; c0 < ncol; c0 += BC) {
     __syncthreads();  // the previous tile's products are done with sC, sD, sP, sS
-    load_tile<BC>(sC, colC, c0, ncol);
-    load_tile<BC>(sD, colD, c0, ncol);
+    load_tile<D, BC>(sC, colC, c0, ncol);
+    load_tile<D, BC>(sD, colD, c0, ncol);
     side_values(sCol, BC, c0, !KV);
     __syncthreads();
 
@@ -457,11 +480,12 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
   }
 }
 
-template <bool KV>
+template <int D, bool KV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
                    const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq,
                    int nk, float scale, cudaStream_t stream) {
-  auto fn = kernel<KV>;
+  constexpr size_t kSmem = smem_bytes<D>();
+  auto fn = kernel<D, KV>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((KV ? nk : nq) + BR - 1) / BR, bh);
@@ -474,27 +498,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace bwd32
 
+// Both forms at one head dim; cudaErrorInvalidValue for any other.
+template <bool KV>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+                     const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq, int nk,
+                     int d, float scale, int is_bf16, cudaStream_t s) {
+  if (d == 64)
+    return is_bf16 ? bwd16::launch<64, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                   : bwd32::launch<64, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
+  if (d == 72)
+    return is_bf16 ? bwd16::launch<72, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                   : bwd32::launch<72, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, dout, dq: (bh, nq, d); k, v, dk, dv: (bh, nk, d), contiguous and of one type
 // (bf16 when is_bf16, else f32); lse, di: (bh, nq) f32; mask: (bh / heads, nk)
-// bytes, or null for no mask. Only d = 72. Each returns a cudaError_t; 0 means
-// the launch was accepted.
+// bytes, or null for no mask. d = 64 or 72. Each returns a cudaError_t; 0
+// means the launch was accepted.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* mask, const void* lse, const void* di, void* dq, int bh,
                                  int heads, int nq, int nk, int d, float scale, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != 72) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? bwd16::launch<false>(q, k, v, dout, mask, lse, di, dq, nullptr, bh, heads, nq, nk, scale, s)
-                 : bwd32::launch<false>(q, k, v, dout, mask, lse, di, dq, nullptr, bh, heads, nq, nk, scale, s);
+  return static_cast<int>(dispatch<false>(q, k, v, dout, mask, lse, di, dq, nullptr, bh, heads, nq, nk, d, scale,
+                                          is_bf16, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* mask, const void* lse, const void* di, void* dk, void* dv,
                                   int bh, int heads, int nq, int nk, int d, float scale, int is_bf16,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != 72) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? bwd16::launch<true>(q, k, v, dout, mask, lse, di, dk, dv, bh, heads, nq, nk, scale, s)
-                 : bwd32::launch<true>(q, k, v, dout, mask, lse, di, dk, dv, bh, heads, nq, nk, scale, s);
+  return static_cast<int>(dispatch<true>(q, k, v, dout, mask, lse, di, dk, dv, bh, heads, nq, nk, d, scale,
+                                         is_bf16, static_cast<cudaStream_t>(stream)));
 }

@@ -5,7 +5,7 @@
 // instarevive_tpu/ops/attention.py (reached through `_flash_fwd_impl` and
 // `flash_attention`): online-softmax attention with f32 scores and
 // accumulators, an optional (B, Nk) boolean key mask whose masked scores are
-// -1e30, and ragged Nq / Nk. With a non-null `lse` the head-dim-72 forms also
+// -1e30, and ragged Nq / Nk. With a non-null `lse` the head-dim-64 and -72 forms also
 // write the row log-sum-exp m + log(max(l, 1e-30)) (the kernel's `emit_lse`
 // output), one f32 per query row, which the backward (flash_attn_bwd.cu) reads;
 // a row whose keys are all masked gets exactly -1e30. Inference passes null and
@@ -20,25 +20,27 @@
 // by all heads of a batch row.
 //
 // Three forms:
-// * bf16, head dim 72 (the DiT: 56 of the 58 launches of one restoration
-//   call) runs FlashAttention-2 style. Each of the 4 warps owns 16 query rows
-//   and keeps S, P and the output accumulator in registers; both products
-//   run on the tensor cores as mma.sync m16n8k16 (bf16 x bf16 -> f32), with
-//   P rounded to bf16 before P.V as the TPU kernel does. Head dim 72 is
-//   zero-padded to 80 in shared memory (the MMA depth is 16).
+// * bf16, head dims 64 and 72 (the UNet and ControlNet of the LDM trainer at
+//   64; the DiT at 72: 56 of the 58 launches of one restoration call) runs
+//   FlashAttention-2 style, one body templated on the head dim. Each of the 4
+//   warps owns 16 query rows and keeps S, P and the output accumulator in
+//   registers; both products run on the tensor cores as mma.sync m16n8k16
+//   (bf16 x bf16 -> f32), with P rounded to bf16 before P.V as the TPU kernel
+//   does. Head dim 72 is zero-padded to 80 in shared memory (the MMA depth is
+//   16); 64 needs no padding (4 k-steps of Q.K^T).
 // * bf16, head dim 512 (the VAE mid block): one warp cannot hold a 512-wide
 //   accumulator, so the 8 warps of a block split both products. For S each
 //   warp takes a 64-wide slice of the head dim for all 32 query rows (its Q
 //   slice in registers) and the 8 partial score tiles meet in shared memory,
 //   where the softmax sums them; for P.V each warp owns 64 output columns of
 //   all 32 rows in registers.
-// * f32, both head dims, keeps the scores and the accumulator in shared
+// * f32, every head dim, keeps the scores and the accumulator in shared
 //   memory and runs plain FMAs on odd-strided tiles (no bank conflicts).
 // The bf16 forms double-buffer K and V tiles in shared memory with cp.async,
 // so the next tile loads while this one computes. Other head dims are refused.
 //
 // What bounds it on this card: at the DiT shapes the work is far above the
-// H100's bf16 ridge point (~295 FLOP/byte), so the head-dim-72 form is bound
+// H100's bf16 ridge point (~295 FLOP/byte), so the head-dim-64/72 form is bound
 // by mma.sync throughput and the exp/max work of the softmax, at a fraction
 // of the wgmma peak. The head-dim-512 form re-reads every K/V tile from L2
 // once per 32 query rows, so L2 bandwidth bounds it; its 210 KB of shared
@@ -125,23 +127,34 @@ __device__ __forceinline__ float masked_score(float s, float keep, float scale_l
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 72: register-resident tiles (FlashAttention-2 layout).
+// bf16, head dims 64 and 72: register-resident tiles (FlashAttention-2 layout).
 
 namespace fa2 {
 
 constexpr int kThreads = 128;
 constexpr int BQ = 64, BK = 64;  // 16 query rows per warp; keys per tile
-constexpr int D = 72, DP = 80;   // head dim and its MMA padding
-constexpr int LDS = 88;          // shared row stride: 176 B puts the 8 rows of an ldmatrix on 8 bank groups
 constexpr int kNT = BK / 8;      // score n-tiles of 8 keys
-constexpr int kDT = DP / 8;      // output n-tiles of 8 dims
-constexpr int kKS = DP / 16;     // k-steps of Q.K^T
-constexpr size_t kSmem = sizeof(bf16) * (BQ + 4 * BK) * LDS + sizeof(float) * 2 * BK;
 
+// Per head dim D: DP, its MMA padding (a multiple of 16), and LDS, the shared
+// row stride in halves. A stride of an odd number of 16-byte chunks puts the
+// 8 rows of an ldmatrix on 8 bank groups: 144 B (9 chunks) for d = 64, which
+// needs no padding, and 176 B (11 chunks) for d = 72, padded to 80.
+template <int D> struct Dims;
+template <> struct Dims<64> { static constexpr int DP = 64, LDS = 72; };
+template <> struct Dims<72> { static constexpr int DP = 80, LDS = 88; };
+
+template <int D>
+constexpr size_t smem_bytes() { return sizeof(bf16) * (BQ + 4 * BK) * Dims<D>::LDS + sizeof(float) * 2 * BK; }
+
+// ptxas -v (sm_90a, CUDA 12.8): 128 registers at d = 64, 133 at d = 72, no spills.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
        const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int heads,
        int nq, int nk, float scale_log2) {
+  constexpr int DP = Dims<D>::DP, LDS = Dims<D>::LDS;
+  constexpr int kDT = DP / 8;   // output n-tiles of 8 dims
+  constexpr int kKS = DP / 16;  // k-steps of Q.K^T
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LDS;      // two stages
@@ -279,12 +292,15 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
   }
 }
 
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                    int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  constexpr size_t kSmem = smem_bytes<D>();
+  auto fn = kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
+  fn<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse), heads, nq, nk,
       scale * 1.4426950408889634f);
@@ -684,13 +700,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // q: (bh, nq, d), k and v: (bh, nk, d), out: (bh, nq, d), all contiguous and of
 // one type (bf16 when is_bf16, else f32); mask: (bh / heads, nk) bytes, or
 // null for no mask; lse: (bh, nq) f32 to receive the row log-sum-exp, or null
-// (head dim 72 only). Returns a cudaError_t; 0 means the launch was accepted.
+// (head dims 64 and 72 only). Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* out, void* lse, int bh, int heads, int nq, int nk, int d,
                               float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) {
+    return is_bf16 ? fa2::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
+                   : fp32::launch<64, 64, 64, 65>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
+  }
   if (d == 72) {
-    return is_bf16 ? fa2::launch(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
+    return is_bf16 ? fa2::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
                    : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
   }
   if (d == 512 && lse == nullptr) {

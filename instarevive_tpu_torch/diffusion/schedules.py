@@ -1,24 +1,43 @@
 """Noise schedules (``instarevive_tpu/diffusion/schedules.py``).
 
-The ADM 'linear' beta schedule, its cumulative alphas and the square-root
-coefficients that ``diffusion/gaussian.py`` reads, computed in float64 numpy
-and stored as float32 tensors.
+The named beta schedules (ADM 'linear', 'squaredcos_cap_v2', the LDM's
+'ldm_linear'), their cumulative alphas and the square-root coefficients that
+``diffusion/gaussian.py`` reads, computed in float64 numpy and stored as
+float32 tensors. The posterior fields wait for the samplers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 
-def named_betas(name: str, num_timesteps: int = 1000) -> np.ndarray:
-    """'linear': the ADM convention, scaled by 1000/T."""
-    if name != "linear":
-        raise NotImplementedError(f"schedule {name!r} is not ported yet")
-    scale = 1000.0 / num_timesteps
-    return np.linspace(0.0001 * scale, 0.02 * scale, num_timesteps, dtype=np.float64)
+def named_betas(name: str, num_timesteps: int = 1000, **kw) -> np.ndarray:
+    """Beta schedule by name:
+
+    'linear'            ADM convention, scaled by 1000/T (``beta_start``, ``beta_end``)
+    'squaredcos_cap_v2' cosine (alpha_bar = cos^2), each beta capped at 0.999
+    'ldm_linear'        LDM: linspace on sqrt(beta) (``linear_start``, ``linear_end``)
+    """
+    if name == "linear":
+        scale = 1000.0 / num_timesteps
+        start = kw.get("beta_start", 0.0001) * scale
+        end = kw.get("beta_end", 0.02) * scale
+        return np.linspace(start, end, num_timesteps, dtype=np.float64)
+    if name == "squaredcos_cap_v2":
+        def abar(t):
+            return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+        return np.asarray([min(1 - abar((i + 1) / num_timesteps) / abar(i / num_timesteps), 0.999)
+                           for i in range(num_timesteps)], dtype=np.float64)
+    if name == "ldm_linear":
+        start = kw.get("linear_start", 0.00085)
+        end = kw.get("linear_end", 0.012)
+        return np.linspace(start**0.5, end**0.5, num_timesteps, dtype=np.float64) ** 2
+    raise ValueError(f"unknown schedule {name!r}")
 
 
 class DiffusionSchedule(NamedTuple):
@@ -34,8 +53,8 @@ class DiffusionSchedule(NamedTuple):
         return self.betas.shape[0]
 
 
-def make_schedule(name: str = "linear", num_timesteps: int = 1000) -> DiffusionSchedule:
-    betas = named_betas(name, num_timesteps)
+def make_schedule(name: str = "linear", num_timesteps: int = 1000, **kw) -> DiffusionSchedule:
+    betas = named_betas(name, num_timesteps, **kw)
     acp = np.cumprod(1.0 - betas)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     return DiffusionSchedule(

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,6 +36,10 @@ from instarevive_tpu_torch.ops.norm_kernels import upsample2x_nearest
 from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
 _RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
+def _rgb_mean() -> np.ndarray:
+    return np.asarray(_RGB_MEAN, np.float64)  # cast to the activation dtype once per call, as the literal was
 
 
 def _nhwc_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +184,7 @@ class SwinIR(nn.Module):
         b, h0, w0, _ = x.shape
         net_scale = self.sf // self.us
         x, _, _ = W.pad_to_multiple(x, self.window * self.us, mode="reflect")
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
+        mean = device_constant(_rgb_mean, (), x.device).to(x.dtype)  # copied to the card once, not every call
         x = (x - mean) * self.img_range
 
         if self.us > 1:  # the unshuffle in NHWC; conv_first[0] is its NCHW twin, kept for the key layout

@@ -12,7 +12,7 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   memory with an online softmax, so the N x N scores never reach device
   memory; see the source for what bounds it on the H100 and how its design
   answers that. On a CPU tensor the wrapper runs ``sdpa``; on a CUDA tensor
-  it launches the kernel or raises. When an input requires grad (head dim 72)
+  it launches the kernel or raises. When an input requires grad (head dim 64 or 72)
   it goes through a ``torch.autograd.Function``: the forward kernel also
   writes the row log-sum-exp, and the backward is the two kernels of
   ``csrc/flash_attn_bwd.cu`` (``flash_dq``, ``flash_dkv``), which replace
@@ -43,8 +43,8 @@ import torch
 from instarevive_tpu_torch.ops.cuda_build import load_library
 
 NEG_INF = -1e30
-HEAD_DIMS = (72, 512)  # the forward kernel's instantiations: DiT heads and the VAE mid-block
-GRAD_HEAD_DIM = 72      # the backward kernels' one instantiation
+HEAD_DIMS = (64, 72, 512)  # the forward kernel's instantiations: UNet/ControlNet heads, DiT heads, the VAE mid-block
+GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations
 DEAD_ROW = -1e29        # a log-sum-exp below this flags a row whose keys were all masked
 
 
@@ -119,13 +119,19 @@ def _forward(q, k, v, kv_mask, scale, want_lse: bool):
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    _tally(flash_attention, (b, h, nq, nk, d, kv_mask is not None, want_lse))
     return out, lse
+
+
+def _tally(fn, key) -> None:
+    if fn.shapes is not None:
+        fn.shapes[key] = fn.shapes.get(key, 0) + 1
 
 
 def _backward_args(q, k, v, kv_mask, lse, di, do):
     b, h, nq, d = q.shape
-    if d != GRAD_HEAD_DIM:
-        raise ValueError(f"the flash-attention backward supports head dim {GRAD_HEAD_DIM}, got {d}")
+    if d not in GRAD_HEAD_DIMS:
+        raise ValueError(f"the flash-attention backward supports head dims {GRAD_HEAD_DIMS}, got {d}")
     for name, t, shape in (("do", do, q.shape), ("lse", lse, (b, h, nq)), ("di", di, (b, h, nq))):
         if t.shape != shape or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {tuple(shape)} CUDA tensor, got {tuple(t.shape)}")
@@ -148,6 +154,7 @@ def flash_dq(q, k, v, kv_mask, lse, di, do, scale: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dq launch failed with CUDA error {err}")
     flash_dq.launches += 1
+    _tally(flash_dq, (b, h, nq, nk, d, kv_mask is not None))
     return dq
 
 
@@ -163,11 +170,13 @@ def flash_dkv(q, k, v, kv_mask, lse, di, do, scale: float) -> Tuple[torch.Tensor
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dkv launch failed with CUDA error {err}")
     flash_dkv.launches += 1
+    _tally(flash_dkv, (b, h, nq, nk, d, kv_mask is not None))
     return dk, dv
 
 
 flash_dq.launches = 0   # kernel launches since the last reset
 flash_dkv.launches = 0
+flash_dq.shapes = flash_dkv.shapes = None  # set to a dict to tally launches by (B, H, Nq, Nk, D, masked)
 
 
 def flash_backward(q, k, v, kv_mask, o, lse, do, scale: float):
@@ -242,14 +251,14 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention. q: (B,H,Nq,D), k/v: (B,H,Nk,D) in bf16 or f32 with D
-    in ``HEAD_DIMS``; kv_mask: (B,Nk) bool. Differentiable in q, k, v at head
-    dim 72 (the backward kernels); head dim 512 has no backward and raises if
-    an input requires grad."""
+    in ``HEAD_DIMS``; kv_mask: (B,Nk) bool. Differentiable in q, k, v at the
+    head dims of ``GRAD_HEAD_DIMS`` (the backward kernels); head dim 512 has no
+    backward and raises if an input requires grad."""
     if not q.is_cuda:
         return sdpa(q, k, v, kv_mask=kv_mask, scale=scale)
     d = _check(q, k, v, kv_mask)[-1]
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if needs_grad and d != GRAD_HEAD_DIM:
+    if needs_grad and d not in GRAD_HEAD_DIMS:
         raise RuntimeError(f"flash_attention has no backward at head dim {d}; call it under torch.no_grad()")
     if kv_mask is not None:
         kv_mask = kv_mask.contiguous()
@@ -261,6 +270,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0  # forward-kernel launches since the last reset
+flash_attention.shapes = None  # set to a dict to tally launches by (B, H, Nq, Nk, D, masked, with log-sum-exp)
 
 
 def attention(

@@ -1,24 +1,27 @@
 """Time a full-width training step on one CUDA card, and say where the time
 goes.
 
-    python -m instarevive_tpu_torch.tools.time_train [--task dmd|swinir] [--steps 5] [--depth N] [--lowmem] [--profile]
+    python -m instarevive_tpu_torch.tools.time_train [--task dmd|swinir|cldm|reflow] [--steps 5] [--depth N]
+        [--lowmem] [--profile]
 
 Writes seeded PNGs to a temporary folder, builds the trainer's task
-(``train.launcher.DMDTask`` or ``SwinIRTask``) with the launcher's own flags at
-``configs/instarevive_v1.yaml`` (bf16 compute from f32 masters, batch 2 at
-512x512; PixArt-XL-2 with every block checkpointed, or the SwinIR cleaner),
-takes two warm-up steps and prints one JSON line with the walls of the next
-``--steps`` steps (host clock around work ending in a synchronise), the split
-of a step by CUDA events (the degradation, then for DMD encode, generator
-update, generator optimizer, fake update, fake optimizer; for SwinIR forward,
-backward, optimizer), peak memory and the attention-kernel launches of one
-step beside what the configuration implies. With ``--profile`` it also prints
+(``train.launcher.DMDTask``, ``SwinIRTask`` or ``CLDMTask``) with the
+launcher's own flags (bf16 compute from f32 masters, batch 2 at 512x512) at
+``configs/instarevive_v1.yaml`` (PixArt-XL-2 with every block checkpointed, or
+the SwinIR cleaner) or, for cldm and reflow, ``configs/cldm.yaml`` (the SD-2.1
+UNet and its ControlNet), takes two warm-up steps and prints one JSON line
+with the walls of the next ``--steps`` steps (host clock around work ending in
+a synchronise), the split of a step by CUDA events (the degradation, then for
+DMD encode, generator update, generator optimizer, fake update, fake
+optimizer; for SwinIR forward, backward, optimizer; for cldm and reflow
+get_input, forward, backward, optimizer), peak memory and the
+attention-kernel launches of one step beside what the configuration implies. With ``--profile`` it also prints
 device time by kernel group from ``torch.profiler`` over one step, and that
 step's wall against its kernel time.
 
-``train_argv``, ``write_images``, ``expected_launches`` and ``time_steps`` are
-what ``chip_smoke.py``'s train phase drives too, so every timing of the
-trainer is of one set-up.
+``train_argv``, ``write_images``, ``expected_launches``,
+``cldm_expected_launches`` and ``time_steps`` are what ``chip_smoke.py``'s
+train phases drive too, so every timing of the trainer is of one set-up.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Dict, List, Optional
 
 PHASES = ("degrade", "encode", "generator_update", "generator_optimizer", "fake_update", "fake_optimizer")
 SWINIR_PHASES = ("degrade", "forward", "backward", "optimizer")
+CLDM_PHASES = ("degrade", "get_input", "forward", "backward", "optimizer")
 BATCH, CROP = 2, 512
 
 
@@ -73,6 +77,46 @@ def expected_launches(depth: int, grad_checkpoint: bool = True, encodes: int = 1
     forwards = 4 + (2 if grad_checkpoint else 0)
     return {"flash_attn_fwd": forwards * per_forward + encodes,
             "flash_attn_bwd_dq": 2 * per_forward, "flash_attn_bwd_dkv": 2 * per_forward}
+
+
+def cldm_attention_counts(cfg) -> Dict[str, int]:
+    """What one ``--task cldm|reflow`` step of ``cfg`` implies for the
+    attention kernels (no checkpointing): every SpatialTransformer block of
+    the UNet and the ControlNet runs the forward kernel twice (self and
+    cross attention) at head dim ``num_head_channels``; those whose inputs
+    take a gradient (the ControlNet's and the UNet decoder's: its encoder and
+    middle see only z_t and frozen weights) write the log-sum-exp and run the
+    dq and the dk/dv kernel once each. The two frozen VAE encodes launch the
+    forward kernel once each at head dim 512, in their mid blocks."""
+    import torch
+
+    from instarevive_tpu_torch.models.unet import SpatialTransformer, UNetBackbone
+
+    with torch.device("meta"):
+        unet, controlnet = UNetBackbone(**cfg["unet"]), UNetBackbone(**cfg["controlnet"])
+
+    def attentions(module):
+        return sum(2 * len(m.transformer_blocks) for m in module.modules() if isinstance(m, SpatialTransformer))
+
+    grad = attentions(controlnet) + attentions(unet.output_blocks)
+    total = attentions(unet) + attentions(controlnet)
+    return {"d64": total, "d64_with_lse": grad, "d512": 2, "flash_attn_fwd": total + 2,
+            "flash_attn_bwd_dq": grad, "flash_attn_bwd_dkv": grad}
+
+
+def cldm_expected_launches(cfg) -> Dict[str, int]:
+    """Every kernel's launches in one cldm/reflow step but the degradation's
+    filter (its draws decide): the attention as ``cldm_attention_counts``;
+    the frozen SwinIR on ``lq`` (one window attention a block, one upsample a
+    step of its upsampler); two frozen VAE encodes (as ``expected_launches``
+    reckons one)."""
+    counts = cldm_attention_counts(cfg)
+    levels, blocks = len(cfg["vae"]["ch_mult"]), cfg["vae"]["num_res_blocks"]
+    halves = 2 * (levels * blocks + 2)  # fused GN+SiLU+conv launches of one encode
+    return {"flash_attn_fwd": counts["flash_attn_fwd"], "flash_attn_bwd_dq": counts["flash_attn_bwd_dq"],
+            "flash_attn_bwd_dkv": counts["flash_attn_bwd_dkv"], "gn_silu_conv3x3": 2 * halves,
+            "gn_stats_fold": 2 * (halves + 2), "gn_apply": 2 * 2, "upsample2x": 3,
+            "swin_window_attention": sum(cfg["swinir"]["depths"]), "filter2d": 0}
 
 
 def attention_counts() -> Dict[str, int]:
@@ -140,14 +184,18 @@ def time_steps(task, batches, phases=PHASES) -> Dict[str, object]:
 
 GROUPS = {  # first match wins, in this order
     "K1 flash forward (flash_attn_fwd.cu)": ("fa2::kernel", "wide::kernel", "fp32::kernel"),
-    "K2a flash dq (flash_attn_bwd.cu)": ("bwd16::kernel<false", "bwd16::kernel<(bool)0", "bwd32::kernel<false", "bwd32::kernel<(bool)0"),
-    "K2b flash dk/dv (flash_attn_bwd.cu)": ("bwd16::kernel<true", "bwd16::kernel<(bool)1", "bwd32::kernel<true", "bwd32::kernel<(bool)1"),
+    "K2a flash dq (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)
+                                             for kv in ("false", "(bool)0")),
+    "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)
+                                               for kv in ("true", "(bool)1")),
     "K4 window attention (swin_attention.cu)": ("swin_tc::", "swin_f32::"),
     "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
     "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
     "optimizer, EMA, clipping (foreach)": ("multi_tensor_apply",),
     "VAE kernels (gn_conv.cu, norm_kernels.cu)": ("gnconv_tc::kernel", "stats_kernel", "fold_kernel", "apply_kernel"),
+    "convolutions (cuDNN)": ("fprop", "dgrad", "wgrad", "cudnn", "conv2d", "implicit_convolve"),
     "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
+    "GroupNorm (torch)": ("group_norm", "GroupNorm", "RowwiseMoments", "ComputeFusedParams"),
     "dtype/layout copies": ("copy_kernel", "CatArrayBatchedCopy", "direct_copy"),
     "LayerNorm": ("layer_norm", "LayerNorm"),
     "other elementwise": ("elementwise_kernel", "vectorized_elementwise"),
@@ -186,7 +234,7 @@ def profile_step(task, batch) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-    ap.add_argument("--task", default="dmd", choices=["dmd", "swinir"])
+    ap.add_argument("--task", default="dmd", choices=["dmd", "swinir", "cldm", "reflow"])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--degradation", default="realesrgan", choices=["realesrgan", "codeformer"])
     ap.add_argument("--depth", type=int, default=None, help="cut the DiT's depth (default: the config's 28)")
@@ -200,9 +248,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("time_train needs a CUDA device")
     from instarevive_tpu_torch.config import load_config, merge
-    from instarevive_tpu_torch.train.launcher import DMDTask, SwinIRTask, parse_args
+    from instarevive_tpu_torch.train.launcher import TASKS, parse_args
 
-    config = os.path.join(args.repo, "configs", "instarevive_v1.yaml")
+    ldm = args.task in ("cldm", "reflow")
+    config = os.path.join(args.repo, "configs", "cldm.yaml" if ldm else "instarevive_v1.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         data = write_images(os.path.join(tmp, "hq"))
         extra = ["--degradation", args.degradation] + (["--lowmem"] if args.lowmem else [])
@@ -210,17 +259,20 @@ def main(argv=None) -> None:
         cfg = load_config(config)
         if args.depth is not None:
             cfg = merge(cfg, {"dit": {"depth": args.depth}})
-        task = (SwinIRTask if args.task == "swinir" else DMDTask)(targs, cfg, torch.device("cuda"))
+        task = TASKS[args.task](targs, cfg, torch.device("cuda"))
         batches = load_batches(data, 2 + args.steps)
     for batch in batches[:2]:  # builds the kernels, warms the allocator
         task.run_step(batch)
-    result = time_steps(task, batches[2:], SWINIR_PHASES if args.task == "swinir" else PHASES)
+    phases = {"swinir": SWINIR_PHASES, "cldm": CLDM_PHASES, "reflow": CLDM_PHASES}.get(args.task, PHASES)
+    result = time_steps(task, batches[2:], phases)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    record = {"card": card, "config": "instarevive_v1", "task": args.task, "degradation": args.degradation,
+    record = {"card": card, "config": "cldm" if ldm else "instarevive_v1", "task": args.task, "degradation": args.degradation,
               "batch": BATCH, "crop": CROP, "bf16": True, "lowmem": args.lowmem, **result}
     if args.task == "dmd":
         record.update(depth=task.gen.depth, launches_expected=expected_launches(task.gen.depth, task.gen.grad_checkpoint))
+    if ldm:
+        record.update(launches_expected=cldm_attention_counts(cfg))
     print(json.dumps(record), flush=True)
     if args.profile:
         profile_step(task, batches[-1])

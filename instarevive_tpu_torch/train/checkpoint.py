@@ -40,12 +40,22 @@ def load_checkpoint(path: str) -> Any:
     return torch.load(_file(os.path.abspath(path)), map_location="cpu", weights_only=True)
 
 
+def _counts(tree):
+    """The tree with its 0-dim integer tensors (the counts a device-gated
+    step keeps on the card) as ints, as an ungated state holds them."""
+    if isinstance(tree, torch.Tensor) and tree.ndim == 0 and not tree.is_floating_point():
+        return int(tree)
+    if isinstance(tree, dict):
+        return {k: _counts(v) for k, v in tree.items()}
+    return tree
+
+
 def state_to_tree(s):
     if isinstance(s, TrainState):
         return {
-            "step": s.step,
+            "step": int(s.step),
             "params": {k: v.detach() for k, v in s.module.state_dict().items()},
-            "opt_state": s.opt_state,
+            "opt_state": _counts(s.opt_state),
             "ema": s.ema_state_dict(),
         }
     return s  # plain carry (or None)
@@ -53,6 +63,8 @@ def state_to_tree(s):
 
 def _copy_into(dst, src) -> Any:
     """Copy a saved optimizer-state tree into a live one of the same structure."""
+    if isinstance(dst, torch.Tensor) and dst.ndim == 0 and not dst.is_floating_point():
+        return int(src)  # a count the device kept: the restored state counts on the host again
     if isinstance(dst, torch.Tensor):
         dst.copy_(src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src)))
         return dst

@@ -1,10 +1,13 @@
 """Training launcher of the port (``python -m instarevive_tpu_torch.train``): DMD
-distillation of the one-step generator, and the stage-1 SwinIR cleaner.
+distillation of the one-step generator, the stage-1 SwinIR cleaner, and the
+LDM/ControlNet stack (ControlLDM and Reflow).
 
     python -m instarevive_tpu_torch.train --task dmd --data /path/hq --out runs/dmd \\
         --config configs/instarevive_v1.yaml --bf16 --batch_size 2 [--device cuda|cpu]
     python -m instarevive_tpu_torch.train --task swinir --data /path/hq --out runs/swinir \\
         --config configs/instarevive_v1.yaml --bf16 --batch_size 2 [--degradation realesrgan|codeformer]
+    python -m instarevive_tpu_torch.train --task cldm --data /path/hq --out runs/cldm \
+        --config configs/cldm.yaml --bf16 --batch_size 2 [--t_sampler loss_second_moment] [--context_npz ctx.npz]
 
 The flags are those of the JAX package's ``train.py`` (without ``--fsdp`` and
 the trace flags). Every batch of every task goes through the degradation
@@ -14,7 +17,8 @@ or the CodeFormer one), which turns the clean crops into the pair
 
 ``--task swinir`` trains the SwinIR cleaner to map ``lq`` to the clean image
 (mean squared error), with an EMA of its parameters; a step whose gradient is
-not finite is skipped (one flag is read from the device per step).
+not finite is skipped: the flag stays on the device, which keeps the whole
+state as it was (``utils.debug.nan_guard``).
 
 ``--task dmd`` trains three PixArt copies that start from
 one initialisation: the generator (with an EMA), the fake score, and the
@@ -28,7 +32,16 @@ optimizer moments, the EMA and the teacher in bf16 (the frozen teacher's
 weights are bf16 under ``--bf16`` too: cast once, not per call).
 Every DiT block is gradient-checkpointed unless the config says otherwise.
 
-``--task cldm|reflow`` raise ``NotImplementedError``.
+``--task cldm|reflow`` trains the SD-2.1 UNet's ControlNet (and the UNet's
+decoder unless the config says ``sd_locked``) on the latents of the frozen
+VAE: the clean image's, and the control latent of the frozen SwinIR's output
+on ``lq``. ``cldm`` predicts eps (``--t_sampler loss_second_moment`` samples t
+by importance, its state carried in the train state and the checkpoint);
+``reflow`` matches the straight path's velocity. The text context is the
+first array of ``--context_npz`` (its first row, repeated over the batch) or
+zeros (B, 4, context_dim). Every parameter that does not train has
+``requires_grad`` off before the optimizer is built; the EMA covers the
+trained ones; a step whose gradient is not finite is skipped on the device.
 
 Runs on the card by default and exits when there is none; ``--device cpu`` is
 for tests. Metrics are fetched one step late, so the host never waits for
@@ -51,19 +64,18 @@ from instarevive_tpu_torch.data.dataset import ImageFolderDataset, PrefetchLoade
 from instarevive_tpu_torch.data.codeformer import CodeformerDegradationConfig, degrade_batch_codeformer
 from instarevive_tpu_torch.data.internal import DMDPairDataset
 from instarevive_tpu_torch.data.realesrgan import RealESRGANDegradationConfig, degrade_batch, draw_degradation
+from instarevive_tpu_torch.diffusion import timestep_sampler as ts_sampler
+from instarevive_tpu_torch.models.unet import UNetBackbone, zero_init_
+from instarevive_tpu_torch.nn.layers import set_compute_dtype
 from instarevive_tpu_torch.ops.degradation import make_generators
 from instarevive_tpu_torch.pipelines.build import build_pipeline, cast_weights, init_params
 from instarevive_tpu_torch.train import checkpoint as ckpt
+from instarevive_tpu_torch.train.cldm import ControlLDM, ControlLDMTask
 from instarevive_tpu_torch.train.distill import draw_noise, make_cfg_real_fn, make_dmd_train_step, swinir_loss
 from instarevive_tpu_torch.train.optim import build_optimizer, constant_with_warmup
 from instarevive_tpu_torch.train.state import TrainState
 from instarevive_tpu_torch.utils.debug import SimpleTimer, nan_guard
 from instarevive_tpu_torch.utils.logging import LogBuffer, MetricWriter, close_logger, get_root_logger
-
-NOT_PORTED = {
-    "cldm": "needs the LDM/ControlNet trainer (ROADMAP A14)",
-    "reflow": "needs the LDM/ControlNet trainer (ROADMAP A14)",
-}
 
 
 def parse_args(argv=None):
@@ -108,7 +120,8 @@ def parse_args(argv=None):
                    help="per-sample caption-feature dir (.npz with caption_feature)")
     p.add_argument("--null_embed", default=None,
                    help="cached T5 null-prompt embedding: the unconditional branch of the teacher's CFG")
-    p.add_argument("--context_npz", default=None)
+    p.add_argument("--context_npz", default=None,
+                   help="precomputed text-encoder features for --task cldm|reflow (first array, first row)")
     return p.parse_args(argv)
 
 
@@ -297,6 +310,111 @@ class DMDTask(Task):
         return self._step(*self.states, dmd_batch, self.generator, {"y": y_step})
 
 
+def load_context(path: Optional[str], batch: int, context_dim: int, device) -> torch.Tensor:
+    """The cldm text context: the first array of a .npz/.npy file ((L, D) or
+    (N, L, D): its first row), repeated over the batch; zeros (B, 4, D)
+    without a file, as the JAX package's trainer has it."""
+    if path is None:
+        return torch.zeros(batch, 4, context_dim, device=device)
+    feat = np.load(path)
+    feat = np.asarray(feat[feat.files[0]] if hasattr(feat, "files") else feat, np.float32)
+    if feat.ndim == 2:
+        feat = feat[None]
+    return torch.from_numpy(np.repeat(feat[:1], batch, axis=0)).to(device)
+
+
+class CLDMTask(Task):
+    """``--task cldm|reflow``: the frozen SwinIR and VAE of the pipeline, the
+    UNet and the ControlNet of ``cfg['unet']`` and ``cfg['controlnet']``
+    (seeded random init, the reference's zero-initialised layers zero), one
+    train state over the trained parameters with an EMA, and the
+    loss-second-moment sampler's state for ``cldm`` under ``--t_sampler
+    loss_second_moment``. ``states`` is (train state, sampler state or None)."""
+
+    PHASES = ("degrade", "get_input", "forward", "backward", "optimizer")
+
+    def __init__(self, args, cfg, device: torch.device, logger=None):
+        super().__init__(args, device)
+        dtype = torch.bfloat16 if args.bf16 else None
+        self.pipe = init_params(build_pipeline(cfg, dtype=dtype, device=device, components=("swinir", "vae")),
+                                seed=args.seed)
+        with torch.device(device):
+            unet, controlnet = UNetBackbone(**cfg["unet"]), UNetBackbone(**cfg["controlnet"])
+        self.model = model = ControlLDM(unet, controlnet)
+        init_params(model, seed=args.seed)
+        zero_init_(unet), zero_init_(controlnet)
+        if dtype is not None:  # f32 masters, bf16 compute
+            set_compute_dtype(model, dtype)
+        model.to(memory_format=torch.channels_last)
+        # what trains: the ControlNet, and the UNet's decoder (output_blocks, out) unless sd_locked; off
+        # before the optimizer is built, so neither autograd nor the optimizer sees the rest
+        sd_locked = bool(cfg.get("sd_locked", False))
+        model.requires_grad_(False)
+        controlnet.requires_grad_(True)
+        if not sd_locked:
+            unet.output_blocks.requires_grad_(True)
+            unet.out.requires_grad_(True)
+        self.task = ControlLDMTask(unet, controlnet, self.pipe.vae, self.pipe.swinir, self.pipe.sched, sd_locked)
+        self.context = load_context(args.context_npz, args.batch_size, int(cfg["unet"].get("context_dim", 1024)),
+                                    device)
+        self.reflow = args.task == "reflow"
+        self.use_lsm = args.t_sampler == "loss_second_moment" and args.task == "cldm"
+        self.generator = torch.Generator(device=device).manual_seed(args.seed)
+        tx = build_optimizer(args.optimizer, constant_with_warmup(args.lr, args.warmup),
+                             grad_clip_norm=args.max_grad_norm, grad_accum=args.grad_accum,
+                             moment_dtype=torch.bfloat16 if args.lowmem else None)
+        state = TrainState.create(model, tx, ema=True, ema_rate=args.ema_rate)
+        lsm = ts_sampler.loss_second_moment_init(self.pipe.sched.num_timesteps, device=device) if self.use_lsm else None
+        self.states = (state, lsm)
+
+    @property
+    def states(self) -> tuple:
+        return self._states
+
+    @states.setter
+    def states(self, value) -> None:
+        state, lsm = value  # a restored sampler state comes from the checkpoint on the CPU
+        self._states = (state, None if lsm is None else {k: v.to(self.device) for k, v in lsm.items()})
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        return {"step": self.generator, **super().generators()}
+
+    def train_step(self, data: Dict[str, torch.Tensor], keep_grads: Optional[List] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """One step on a degraded pair. ``draws`` hands in t and the noise
+        ({'t', 'noise'} for cldm, {'t', 'z_T'} for reflow) in place of the
+        generator's."""
+        state, lsm = self.states
+        draws = dict(draws or {})
+        batch = {"hq": data["hq"], "lq": data["lq"], "context": self.context}
+        self.mark("get_input")
+        latents = self.task.get_input(batch)
+        self.mark("forward")
+        if self.reflow:
+            loss, aux = self.task.reflow_loss(batch, self.generator, latents=latents, **draws)
+        else:
+            weights = None
+            if self.use_lsm:
+                draws["t"], weights = ts_sampler.loss_second_moment_sample(
+                    self.generator, lsm, latents[0].shape[0], t=draws.get("t"))
+            loss, aux = self.task.eps_loss(batch, self.generator, loss_weights=weights, latents=latents, **draws)
+            if self.use_lsm:
+                lsm = ts_sampler.loss_second_moment_update(lsm, aux["t"], aux["per_sample_loss"])
+        self.mark("backward")
+        grads = torch.autograd.grad(loss, state.params)
+        self.mark("optimizer")
+        metrics = {"loss": loss.detach(), **{k: v for k, v in aux.items() if v.ndim == 0 and k != "loss_simple"}}
+        nan_guard(state, grads, metrics)
+        self.states = (state, lsm)
+        self.mark("end")
+        if keep_grads is not None:  # for tests and the card-against-CPU check
+            keep_grads.extend(grads)
+        return metrics
+
+
+TASKS = {"dmd": DMDTask, "swinir": SwinIRTask, "cldm": CLDMTask, "reflow": CLDMTask}
+
+
 class TrainRun:
     """What ``main`` hands back: the task (models and states), the step the
     run started and ended at, and every step's metrics as floats."""
@@ -310,9 +428,6 @@ def main(argv=None) -> TrainRun:
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device: run on a machine with a card, or pass --device cpu")
-    if args.task in NOT_PORTED:
-        raise NotImplementedError(f"--task {args.task} is not ported yet: {NOT_PORTED[args.task]}")
-
     os.makedirs(args.out, exist_ok=True)
     close_logger()  # a second run in one process gets its own log file
     logger = get_root_logger(os.path.join(args.out, "train.log"))
@@ -320,7 +435,7 @@ def main(argv=None) -> TrainRun:
     device = torch.device(args.device)
     logger.info(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}  task: {args.task}")
 
-    task = (SwinIRTask if args.task == "swinir" else DMDTask)(args, load_config(args.config), device, logger)
+    task = TASKS[args.task](args, load_config(args.config), device, logger)
     logger.info("params initialized")
     ds = ImageFolderDataset(args.data, out_size=args.crop_size, crop_type="random", seed=args.seed)
     loader = PrefetchLoader(ds, args.batch_size, seed=args.seed)

@@ -16,7 +16,12 @@ against lists of tensors so that they compute optax's updates exactly:
 An ``Optimizer`` is stateless; ``init(params)`` makes its state (a dict of
 ints and lists of tensors, which ``train/checkpoint.py`` saves as it is) and
 ``update(params, grads, state)`` changes params and state in place. Nothing
-here reads a value back from the device.
+here reads a value back from the device. ``update(..., ok=flag)`` (a 0-dim
+bool tensor on the device; the gradients finite) gates the whole update on
+the device, as ``utils.debug.nan_guard`` needs: where the flag is down every
+tensor of params and state keeps its bits and the count does not advance.
+The count is then a 0-dim tensor, and the schedules and bias corrections are
+computed from it on the device (the schedules take an int or a tensor).
 """
 
 from __future__ import annotations
@@ -27,6 +32,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import torch
 
 Schedule = Callable[[int], float]
+Count = Union[int, torch.Tensor]
+
+
+def _min1(x):
+    """min(x, 1) of a number or a tensor, without reading the tensor."""
+    return torch.clamp(x, max=1.0) if isinstance(x, torch.Tensor) else min(x, 1.0)
+
+
+def _clip01(x):
+    return torch.clamp(x, 0.0, 1.0) if isinstance(x, torch.Tensor) else min(max(x, 0.0), 1.0)
+
+
+def _cos(x):
+    return torch.cos(x) if isinstance(x, torch.Tensor) else math.cos(x)
 
 
 def auto_scale_lr(base_lr: float, effective_bs: int, base_bs: int = 256, rule: str = "sqrt") -> float:
@@ -40,17 +59,17 @@ def auto_scale_lr(base_lr: float, effective_bs: int, base_bs: int = 256, rule: s
 
 
 def constant_with_warmup(lr: float, warmup_steps: int) -> Schedule:
-    def sched(step: int) -> float:
-        return lr * min(1.0, (step + 1) / max(warmup_steps, 1))
+    def sched(step: Count):
+        return lr * _min1((step + 1) / max(warmup_steps, 1))
 
     return sched
 
 
 def cosine_with_warmup(lr: float, warmup_steps: int, total_steps: int) -> Schedule:
-    def sched(step: int) -> float:
-        warm = min(1.0, (step + 1) / max(warmup_steps, 1))
-        prog = min(max((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
-        return lr * warm * 0.5 * (1.0 + math.cos(math.pi * prog))
+    def sched(step: Count):
+        warm = _min1((step + 1) / max(warmup_steps, 1))
+        prog = _clip01((step - warmup_steps) / max(total_steps - warmup_steps, 1))
+        return lr * warm * 0.5 * (1.0 + _cos(math.pi * prog))
 
     return sched
 
@@ -61,18 +80,61 @@ def cosine_decay_to_constant_with_warmup(
     """Cosine decays over decay_fraction of the run, then holds final_ratio."""
     decay_steps = max(int((total_steps - warmup_steps) * decay_fraction), 1)
 
-    def sched(step: int) -> float:
-        warm = min(1.0, (step + 1) / max(warmup_steps, 1))
-        prog = min(max((step - warmup_steps) / decay_steps, 0.0), 1.0)
-        cos = 0.5 * (1.0 + math.cos(math.pi * prog))
-        factor = final_ratio if prog >= 1.0 else cos * (1 - final_ratio) + final_ratio
+    def sched(step: Count):
+        warm = _min1((step + 1) / max(warmup_steps, 1))
+        prog = _clip01((step - warmup_steps) / decay_steps)
+        cos = 0.5 * (1.0 + _cos(math.pi * prog))
+        if isinstance(prog, torch.Tensor):
+            factor = torch.where(prog >= 1.0, final_ratio, cos * (1 - final_ratio) + final_ratio)
+        else:
+            factor = final_ratio if prog >= 1.0 else cos * (1 - final_ratio) + final_ratio
         return lr * warm * factor
 
     return sched
 
 
-def _lr(learning_rate: Union[float, Schedule], count: int) -> float:
+def _lr(learning_rate: Union[float, Schedule], count: Count):
     return learning_rate(count) if callable(learning_rate) else learning_rate
+
+
+def _advance(count: Count, ok: Optional[torch.Tensor]) -> Count:
+    """The count after this call: one more, or with a device flag one more
+    where it is up, as a 0-dim tensor on its device from then on (made by a
+    fill, not copied from the host, when it was an int, as after a restore:
+    the schedules then read a tensor count either way, so a resumed run takes
+    the same bits)."""
+    if ok is None:
+        return count + 1
+    if not isinstance(count, torch.Tensor):
+        count = torch.full((), count, dtype=torch.int64, device=ok.device)
+    return count + ok.long()
+
+
+def _gate(lr, ok: Optional[torch.Tensor]):
+    """lr, or 0 where the flag is down."""
+    return lr if ok is None else torch.where(ok, lr, 0.0)
+
+
+def _add_scaled(p: torch.Tensor, x: torch.Tensor, a) -> None:
+    """p += a * x for a number or a 0-dim tensor a."""
+    if isinstance(a, torch.Tensor):
+        p.add_(x * a)
+    else:
+        p.add_(x, alpha=a)
+
+
+class _Keep:
+    """Snapshot of some tensors, put back where a device flag is down (the
+    per-tensor optimizers' form of the gate)."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor], ok: Optional[torch.Tensor]):
+        self.ok, self.tensors = ok, list(tensors)
+        self.saved = None if ok is None else [t.clone() for t in self.tensors]
+
+    def restore(self) -> None:
+        if self.ok is not None:
+            for t, s in zip(self.tensors, self.saved):
+                t.copy_(torch.where(self.ok, t, s))
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +147,8 @@ class Optimizer:
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         raise NotImplementedError
 
-    def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict) -> None:
+    def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict,
+               ok: Optional[torch.Tensor] = None) -> None:
         raise NotImplementedError
 
 
@@ -101,19 +164,25 @@ class AdamW(Optimizer):
         zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)  # noqa: E731
         return {"count": 0, "mu": [zeros(p) for p in params], "nu": [zeros(p) for p in params]}
 
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, ok=None):
         b1, b2 = self.b1, self.b2
-        lr = _lr(self.learning_rate, state["count"])
-        state["count"] += 1
-        bc1, bc2 = 1.0 - b1 ** state["count"], 1.0 - b2 ** state["count"]
+        state["count"] = _advance(state["count"], ok)
+        lr = _gate(_lr(self.learning_rate, state["count"] - 1), ok)  # the schedule at the count before this call
+        m1, m2 = b1, b2
+        if ok is None:
+            bc1, bc2 = 1.0 - b1 ** state["count"], 1.0 - b2 ** state["count"]
+        else:  # the gradients are 0 where the flag is down: the moments keep their bits (x1, + 0), the params too
+            m1, m2 = torch.where(ok, b1, 1.0), torch.where(ok, b2, 1.0)
+            count = state["count"].clamp_min(1)  # a skipped first step: no 0/0
+            bc1, bc2 = 1.0 - b1**count, 1.0 - b2**count
         stored_mu, stored_nu = state["mu"], state["nu"]
         low = self.moment_dtype is not None
         mu = [m.float() for m in stored_mu] if low else stored_mu
         nu = [v.float() for v in stored_nu] if low else stored_nu
         grads = [g.float() for g in grads] if low else grads
-        torch._foreach_mul_(mu, b1)
+        torch._foreach_mul_(mu, m1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(nu, b2)
+        torch._foreach_mul_(nu, m2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
@@ -141,16 +210,18 @@ class Lion(Optimizer):
     def init(self, params):
         return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params]}
 
-    def update(self, params, grads, state):
-        lr = _lr(self.learning_rate, state["count"])
-        state["count"] += 1
+    def update(self, params, grads, state, ok=None):
+        state["count"] = _advance(state["count"], ok)
+        lr = _gate(_lr(self.learning_rate, state["count"] - 1), ok)
         for p, g, m in zip(params, grads, state["mu"]):
+            keep = _Keep((p, m), ok)
             m32 = m.to(g.dtype)
             step = torch.sign((1.0 - self.b1) * g + self.b1 * m32)
             if self.weight_decay:
                 step = step + self.weight_decay * p
             m.copy_(self.b2 * m32 + (1.0 - self.b2) * g)
-            p.add_(step.to(p.dtype), alpha=-lr)
+            _add_scaled(p, step.to(p.dtype), -lr)
+            keep.restore()
 
 
 class CAME(Optimizer):
@@ -179,13 +250,14 @@ class CAME(Optimizer):
         denom = r.mean(dim=-1, keepdim=True).clamp_min(self.eps[0])
         return r[..., None] * c[..., None, :] / denom[..., None]
 
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, ok=None):
         b1, b2, b3 = self.betas
         eps1, eps2 = self.eps
-        state["count"] += 1
+        state["count"] = _advance(state["count"], ok)
         lr = _lr(self.learning_rate, state["count"])
         for i, (p, g) in enumerate(zip(params, grads)):
             m, vr, vc, rr, rc = (state[k][i] for k in ("m", "vr", "vc", "rr", "rc"))
+            keep = _Keep((p, m, vr, vc, rr, rc), ok)
             factored = g.ndim >= 2
             if factored:
                 g2 = g * g + eps1
@@ -207,7 +279,8 @@ class CAME(Optimizer):
                 out = m
             if self.weight_decay:
                 out = out + self.weight_decay * p
-            p.add_(out, alpha=-lr)
+            _add_scaled(p, out, -lr)
+            keep.restore()
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -231,23 +304,35 @@ class Chain(Optimizer):
             state.update(mini_step=0, gradient_step=0, acc_grads=[torch.zeros_like(p) for p in params])
         return state
 
-    def _inner(self, params, grads, state):
+    def _inner(self, params, grads, state, ok=None):
         if self.grad_clip_norm:
             grads = clip_by_global_norm(grads, self.grad_clip_norm)
-        self.opt.update(params, grads, state["inner"])
+        self.opt.update(params, grads, state["inner"], ok=ok)
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, ok=None):
         if self.grad_accum <= 1:
-            return self._inner(params, grads, state)
+            return self._inner(params, grads, state, ok)
         acc, n = state["acc_grads"], state["mini_step"]
-        for a, g in zip(acc, grads):  # running mean of the gradients seen since the last update
-            a.add_((g - a) / (n + 1))
-        if n == self.grad_accum - 1:
-            self._inner(params, acc, state)
-            state["gradient_step"] += 1
-            torch._foreach_zero_(acc)
-        state["mini_step"] = (n + 1) % self.grad_accum
+        if ok is None:
+            for a, g in zip(acc, grads):  # running mean of the gradients seen since the last update
+                a.add_((g - a) / (n + 1))
+            if n == self.grad_accum - 1:
+                self._inner(params, acc, state)
+                state["gradient_step"] += 1
+                torch._foreach_zero_(acc)
+            state["mini_step"] = (n + 1) % self.grad_accum
+            return
+        # the same on the device: the inner update runs on every call, gated by "the flag is up and this is
+        # the k-th call", and the running mean and the counters move only where the flag is up
+        n = torch.as_tensor(n, device=ok.device)
+        for a, g in zip(acc, grads):
+            a.add_((g - a) * (ok.float() / (n + 1)))
+        fire = ok & (n == self.grad_accum - 1)
+        self._inner(params, torch._foreach_mul(acc, fire.float()), state, fire)
+        state["gradient_step"] = state["gradient_step"] + fire.long()
+        torch._foreach_mul_(acc, (~fire).float())
+        state["mini_step"] = torch.where(ok, (n + 1) % self.grad_accum, n)
 
 
 def build_optimizer(

@@ -6,7 +6,8 @@ The state updates in place (JAX's returns a new one): ``apply_gradients``
 changes the module's parameters, the optimizer state and the EMA. The step
 and the EMA advance on every call, also on the calls between two updates of
 an accumulating optimizer, as the JAX package's does under
-``optax.MultiSteps``.
+``optax.MultiSteps``; a call gated by a device flag (``utils.debug.nan_guard``)
+advances them only where the flag is up.
 """
 
 from __future__ import annotations
@@ -40,18 +41,34 @@ class TrainState:
         return cls(module, tx, ema=ema, ema_rate=ema_rate, ema_dtype=ema_dtype)
 
     @torch.no_grad()
-    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> "TrainState":
-        self.tx.update(self.params, list(grads), self.opt_state)
-        self.step += 1
+    def apply_gradients(self, grads: Sequence[torch.Tensor], ok: Optional[torch.Tensor] = None) -> "TrainState":
+        """One optimizer step, the step count and the EMA. With ``ok`` (a 0-dim
+        bool tensor; the gradients finite, e.g. zeroed where it is down) all
+        of it is gated on the device: where ``ok`` is False the parameters,
+        moments, step and EMA keep their bits. The step and the optimizer's
+        count then become 0-dim tensors on the device."""
+        if ok is None:
+            self.tx.update(self.params, list(grads), self.opt_state)
+        else:
+            self.tx.update(self.params, list(grads), self.opt_state, ok=ok)
+        self.step = self.step + (1 if ok is None else ok.long())
         if self.ema_params is not None:
             decay = self.ema_rate
-            if self.ema_warmup:
-                decay = min(self.ema_rate, (1.0 + self.step) / (10.0 + self.step))
+            if ok is None:
+                if self.ema_warmup:
+                    decay = min(self.ema_rate, (1.0 + self.step) / (10.0 + self.step))
+            else:
+                if self.ema_warmup:
+                    decay = torch.clamp((1.0 + self.step) / (10.0 + self.step), max=self.ema_rate)
+                decay = torch.where(ok, decay, 1.0)  # 1: the shadow keeps its bits
             f32 = [e for e in self.ema_params if e.dtype == torch.float32]
             if f32:
+                src = [p for e, p in zip(self.ema_params, self.params) if e.dtype == torch.float32]
                 torch._foreach_mul_(f32, decay)
-                torch._foreach_add_(f32, [p for e, p in zip(self.ema_params, self.params) if e.dtype == torch.float32],
-                                    alpha=1.0 - decay)
+                if ok is None:
+                    torch._foreach_add_(f32, src, alpha=1.0 - decay)
+                else:
+                    torch._foreach_add_(f32, torch._foreach_mul(src, 1.0 - decay))
             for e, p in zip(self.ema_params, self.params):
                 if e.dtype != torch.float32:
                     e.copy_(e.float() * decay + p.float() * (1.0 - decay))

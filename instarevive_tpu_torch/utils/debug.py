@@ -2,8 +2,10 @@
 
 * ``tree_finite_check`` / ``first_nonfinite_paths``: a per-tensor inf/nan
   audit of a name -> tensor mapping (a state dict, named gradients);
-* ``all_finite``: one 0-dim bool tensor, computed on the tensors' device;
-* ``nan_guard``: applies a gradient step only when every gradient is finite;
+* ``all_finite``: one 0-dim bool tensor, computed on the tensors' device by
+  one fused check;
+* ``nan_guard``: applies a gradient step only where every gradient is finite,
+  selecting on the device (no flag is read on the host);
 * ``SimpleTimer``: progress and ETA lines.
 """
 
@@ -25,21 +27,31 @@ def first_nonfinite_paths(tree: Mapping[str, torch.Tensor], limit: int = 10) -> 
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """0-dim bool tensor; no host synchronisation."""
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    """0-dim bool tensor on the tensors' device: every element is finite.
+    One fused check, not one reduction per tensor: the 2-norms of all the
+    tensors by ``torch._foreach_norm`` (multi-tensor launches), stacked, and
+    one ``isfinite`` of them. A NaN or an inf anywhere makes its tensor's norm
+    non-finite; a finite tensor whose norm overflows f32 (elements near 1e19)
+    counts as not finite too. Nothing is read on the host."""
+    norms = torch._foreach_norm(list(tensors))
+    return torch.isfinite(torch.stack(norms)).all()
 
 
-def nan_guard(state, grads, metrics: Optional[dict] = None) -> bool:
-    """``state.apply_gradients(grads)`` unless a gradient is not finite, in
-    which case the whole state (step and EMA included) stays as it was.
-    Reads one flag from the device. Returns whether the step was applied."""
+def nan_guard(state, grads, metrics: Optional[dict] = None) -> torch.Tensor:
+    """``state.apply_gradients(grads)`` where every gradient is finite, and
+    the state (parameters, optimizer moments, step and EMA) bit for bit as it
+    was where one is not: the JAX package's ``jnp.where(ok, new, old)`` over
+    the whole state. The flag never leaves the device: the gradients are
+    zeroed where it is down (one ``torch.where`` each, so no NaN reaches an
+    update) and the update is gated by it on the device (``apply_gradients``
+    with ``ok``). ``metrics['grads_finite']`` is the flag as an f32 0-dim
+    tensor, read by the caller when it reads the step's other metrics.
+    Returns the flag, a 0-dim bool tensor."""
     ok = all_finite(grads)
     if metrics is not None:
         metrics["grads_finite"] = ok.float()
-    applied = bool(ok)
-    if applied:
-        state.apply_gradients(grads)
-    return applied
+    state.apply_gradients([torch.where(ok, g, 0.0) for g in grads], ok=ok)
+    return ok
 
 
 class SimpleTimer:

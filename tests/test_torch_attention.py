@@ -56,6 +56,8 @@ def test_sdpa_matches_jax_sdpa(case):
         (2, 3, 130, 300, 72, [300, 123]),  # caption-length keys, ragged mask
         (1, 1, 33, 100, 512, None),        # VAE mid-block head dim
         (2, 1, 20, 77, 512, [77, 5]),
+        (2, 2, 64, 4, 64, None),           # UNet head dim: the middle block's 64 queries over a 4-key context
+        (1, 2, 100, 77, 64, [40]),         # ragged queries over a CLIP-length, masked context
     ],
 )
 def test_sdpa_matches_jax_flash_interpret(b, h, nq, nk, d, lens):

@@ -55,6 +55,46 @@ def test_own_exporters_equal_the_jax_packages(params, model):
         np.testing.assert_array_equal(a, b, err_msg=key)
 
 
+CLDM_TINY = load_config(os.path.join(REPO, "configs", "cldm_tiny.yaml"))
+
+
+@pytest.mark.parametrize("model", ["unet", "controlnet"])
+def test_own_unet_exporter_equals_the_jax_packages(model):
+    """The UNet / ControlNet map (openaimodel keys) on a cldm_tiny tree made
+    from a seed in the shapes ``jax.eval_shape`` gives, bit for bit; and the
+    train-state carry of the LDM stack names its leaves ``unet.*`` and
+    ``controlnet.*``."""
+    from instarevive_tpu.models.unet import UNetBackbone
+
+    sec = CLDM_TINY[model]
+    x = jnp.zeros((1, 8, 8, sec["in_channels"]))
+    shapes = jax.eval_shape(UNetBackbone(**{k: tuple(v) if isinstance(v, list) else v for k, v in sec.items()}).init,
+                            jax.random.key(0), x, jnp.zeros((1,)), jnp.zeros((1, 4, sec["context_dim"])))["params"]
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    want = jax_export.unet_params_to_torch(params, channel_mult=tuple(sec["channel_mult"]),
+                                           num_res_blocks=sec["num_res_blocks"], attention_ds=tuple(sec["attention_ds"]),
+                                           is_controlnet=bool(sec.get("is_controlnet", False)))
+    got = from_jax.state_dicts_from_jax({model: params}, CLDM_TINY)[model]
+    assert list(got) == list(want) and (("middle_block_out.0.weight" in got) == (model == "controlnet"))
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        np.testing.assert_array_equal(a, b, err_msg=key)
+    other = "controlnet" if model == "unet" else "unet"
+    tree = {model: params, other: jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), jax.eval_shape(
+            UNetBackbone(**{k: tuple(v) if isinstance(v, list) else v for k, v in CLDM_TINY[other].items()}).init,
+            jax.random.key(0), jnp.zeros((1, 8, 8, CLDM_TINY[other]["in_channels"])), jnp.zeros((1,)),
+            jnp.zeros((1, 4, CLDM_TINY[other]["context_dim"])))["params"])}
+    names = [f"{model}.{k}" for k in list(got)[:3]]
+    state = from_jax.cldm_train_state_from_jax(tree, tree, tree, tree, 2, names, CLDM_TINY, step=2)
+    assert set(state["params"]) == {f"{m}.{k}" for m in ("unet", "controlnet")
+                                    for k in from_jax.state_dicts_from_jax({m: tree[m]}, CLDM_TINY)[m]}
+    assert list(state["ema"]) == names and len(state["opt_state"]["inner"]["mu"]) == 3 and state["step"] == 2
+    np.testing.assert_array_equal(state["opt_state"]["inner"]["nu"][0], got[names[0].split(".", 1)[1]])
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "instarevive_tpu_torch")):

@@ -79,6 +79,16 @@ def _vae_inputs(cuda, dtype, n, h, w, c, co=None, seed=0):
         (1, 3, 70, 45, 72, [13]),
         (2, 1, 4096, 4096, 512, None),
         (1, 1, 33, 100, 512, [57]),
+        # head dim 64: every UNet / ControlNet shape of configs/cldm.yaml at batch 2, 512x512 crops
+        (2, 5, 4096, 4096, 64, None),
+        (2, 5, 4096, 4, 64, None),
+        (2, 5, 4096, 77, 64, [77, 30]),
+        (2, 10, 1024, 1024, 64, None),
+        (2, 10, 1024, 4, 64, None),
+        (2, 20, 256, 256, 64, None),
+        (2, 20, 256, 4, 64, None),
+        (2, 20, 64, 64, 64, None),
+        (2, 20, 64, 4, 64, [4, 0]),  # the middle block over 4 keys, one sample with none
     ],
 )
 def test_flash_attention_matches_sdpa(cuda, dtype, b, h, nq, nk, d, lens):
@@ -99,10 +109,10 @@ def test_flash_attention_matches_sdpa(cuda, dtype, b, h, nq, nk, d, lens):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_cannot_run(cuda):
-    q = torch.randn(1, 2, 8, 64, device=cuda)
+    q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
-    q = torch.randn(1, 1, 8, 512, device=cuda, requires_grad=True)  # only head dim 72 has backward kernels
+    q = torch.randn(1, 1, 8, 512, device=cuda, requires_grad=True)  # head dims 64 and 72 have backward kernels
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, q, q)
     with torch.no_grad():
@@ -127,21 +137,30 @@ def _backward_inputs(cuda, dtype, b, h, nq, nk, d, lens, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
-    "b,h,nq,nk,lens",
+    "b,h,nq,nk,lens,d",
     [
-        (2, 16, 1024, 1024, None),
-        (2, 16, 1024, 300, [77, 300]),
-        (2, 4, 256, 300, [0, 120]),  # a sample with every key masked
-        (1, 16, 1000, 77, None),     # ragged
-        (1, 3, 70, 45, [13]),
-        (1, 2, 5, 3, None),
+        (2, 16, 1024, 1024, None, 72),
+        (2, 16, 1024, 300, [77, 300], 72),
+        (2, 4, 256, 300, [0, 120], 72),  # a sample with every key masked
+        (1, 16, 1000, 77, None, 72),     # ragged
+        (1, 3, 70, 45, [13], 72),
+        (1, 2, 5, 3, None, 72),
+        # head dim 64: the shapes of the UNet's decoder and the ControlNet that take a gradient
+        (2, 5, 4096, 4096, None, 64),
+        (2, 5, 4096, 4, None, 64),
+        (2, 5, 4096, 77, [77, 20], 64),
+        (2, 10, 1024, 1024, None, 64),
+        (2, 20, 256, 256, None, 64),
+        (2, 20, 64, 64, None, 64),
+        (2, 20, 64, 4, [4, 0], 64),
+        (1, 3, 70, 45, [13], 64),
     ],
 )
-def test_flash_backward_matches_plain_and_repeats_bitwise(cuda, dtype, b, h, nq, nk, lens):
+def test_flash_backward_matches_plain_and_repeats_bitwise(cuda, dtype, b, h, nq, nk, lens, d):
     from instarevive_tpu_torch.ops import attention as A
 
-    q, k, v, do, mask = _backward_inputs(cuda, dtype, b, h, nq, nk, 72, lens)
-    scale = 72**-0.5
+    q, k, v, do, mask = _backward_inputs(cuda, dtype, b, h, nq, nk, d, lens)
+    scale = d**-0.5
     out, lse = A._forward(q, k, v, mask, scale, want_lse=True)
     torch.cuda.synchronize()
     want_lse = A.flash_lse_plain(q, k, mask, scale)
@@ -161,13 +180,14 @@ def test_flash_backward_matches_plain_and_repeats_bitwise(cuda, dtype, b, h, nq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72])
 @pytest.mark.parametrize("lens", [None, [0, 120]], ids=["unmasked", "one_sample_fully_masked"])
-def test_flash_attention_autograd_matches_autograd_through_sdpa(cuda, lens):
+def test_flash_attention_autograd_matches_autograd_through_sdpa(cuda, lens, d):
     """f32, through the autograd.Function and through non-contiguous head
-    views as the DiT makes them."""
+    views as the DiT and the UNet make them."""
     from instarevive_tpu_torch.ops import attention as A
 
-    b, h, nq, nk, d = 2, 4, 130, 300, 72
+    b, h, nq, nk = 2, 4, 130, 300
     gen = torch.Generator(device=cuda).manual_seed(1)
     x, y = torch.randn(b, nq, h * d, device=cuda, generator=gen), torch.randn(b, nk, 2 * h * d, device=cuda, generator=gen)
     do = torch.randn(b, h, nq, d, device=cuda, generator=gen)
@@ -606,3 +626,73 @@ def test_swinir_train_step_on_the_card_agrees_with_the_cpu(cuda, bf16):
     err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want)) / top
     rel_loss = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / float(m_cpu["loss"])
     assert (rel_loss <= 1e-3 and err <= 1e-3) if not bf16 else (rel_loss <= 0.05 and err <= 0.2)
+
+
+@pytest.mark.cuda
+def test_nan_guard_reads_no_flag_on_the_host(cuda):
+    """Under ``set_sync_debug_mode("error")`` a guarded step, finite or not,
+    never waits for the card; a NaN gradient leaves the state's bits."""
+    from instarevive_tpu_torch.train import optim
+    from instarevive_tpu_torch.train.state import TrainState
+    from instarevive_tpu_torch.utils.debug import nan_guard
+
+    module = torch.nn.Linear(64, 32).to(cuda)
+    state = TrainState.create(module, optim.build_optimizer("adamw", optim.constant_with_warmup(1e-2, 2)), ema=True)
+    good = [torch.randn_like(p) for p in state.params]
+    bad = [g.clone() for g in good]
+    bad[0][3, 5] = float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = {}
+        nan_guard(state, good, metrics)
+        before = [t.clone() for t in (*state.params, *state.ema_params, *state.opt_state["inner"]["mu"],
+                                      *state.opt_state["inner"]["nu"])]
+        nan_guard(state, bad, metrics)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = [*state.params, *state.ema_params, *state.opt_state["inner"]["mu"], *state.opt_state["inner"]["nu"]]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert int(state.step) == 1 and int(state.opt_state["inner"]["count"]) == 1 and float(metrics["grads_finite"]) == 0.0
+
+
+@pytest.mark.cuda
+def test_cldm_step_on_the_card_agrees_with_the_cpu(cuda):
+    """One f32 ``CLDMTask.train_step`` at head dim 64 (so the d = 64 kernels
+    run, forward and backward), depth cut, every layer random (no zero
+    init): the card against the CPU on the same weights, pair and draws;
+    loss and every gradient within 1e-3 of their largest magnitude."""
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.train import launcher
+    from instarevive_tpu_torch.pipelines.build import init_params
+
+    net = dict(model_channels=64, num_res_blocks=1, attention_ds=[1, 2], channel_mult=[1, 2], num_head_channels=64,
+               context_dim=64)
+    cfg = {"unet": dict(net, in_channels=4, out_channels=4), "controlnet": dict(net, in_channels=8, is_controlnet=True),
+           "vae": {"ch": 64, "ch_mult": [1, 2, 8], "num_res_blocks": 1},  # a 512-wide mid block: K1's head dim 512
+           "swinir": {"embed_dim": 60, "depths": [2], "num_heads": [6], "window": 8, "sf": 8, "unshuffle": True,
+                      "unshuffle_scale": 8},
+           "schedule": {"name": "ldm_linear", "num_timesteps": 1000}}
+    args = launcher.parse_args(["--task", "cldm", "--data", "-", "--out", "-", "--batch_size", "2"])
+    cpu, gpu = launcher.CLDMTask(args, cfg, torch.device("cpu")), launcher.CLDMTask(args, cfg, cuda)
+    init_params(cpu.model, seed=3)  # every layer random, so every gradient is exercised
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.pipe.load_state_dict(cpu.pipe.state_dict())  # the frozen SwinIR and VAE too: their inits drew on two devices
+    gen = torch.Generator().manual_seed(0)
+    pair = {"hq": torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1, "lq": torch.rand(2, 64, 64, 3, generator=gen)}
+    draws = {"t": torch.tensor([17, 803]), "noise": torch.randn(2, 16, 16, 4, generator=gen)}  # the VAE's factor is 4
+    out = {}
+    for label, task in (("cpu", cpu), ("cuda", gpu)):
+        kept = []
+        before = (A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches)
+        metrics = task.train_step({k: v.to(task.device) for k, v in pair.items()}, keep_grads=kept,
+                                  draws={k: v.to(task.device) for k, v in draws.items()})
+        counts = [a - b for a, b in zip((A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches), before)]
+        out[label] = (float(metrics["loss"]), [g.cpu() for g in kept], counts)
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
+    # two attentions a transformer: the UNet's 2 + 1 + 4 and the ControlNet's 3 forward, and the mid block of each
+    # of the two VAE encodes; the backward for the ControlNet's and the UNet decoder's
+    assert counts == [2 * 10 + 2, 2 * 7, 2 * 7]
+    assert abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu)
+    top = max(g.abs().max().item() for g in g_cpu)
+    assert max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) <= 1e-3 * top

@@ -57,6 +57,7 @@ CASES = {
     "masked": (2, 2, 256, 256, 64, [100, 200]),
     "ragged_cross": (1, 2, 200, 300, 64, [250]),
     "head_dim_72": (1, 2, 130, 77, 72, None),
+    "unet_mid_4_keys": (2, 2, 64, 4, 64, None),  # head dim 64 at the UNet's middle block over the zero context
 }
 
 
@@ -87,11 +88,12 @@ def test_lse_plain_matches_jax_forward_emit_lse_interpret(masked):
     np.testing.assert_allclose(got.numpy().reshape(b * h, n), np.asarray(lse)[..., 0], atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [64, 72])
 @pytest.mark.parametrize("lens", [None, [30, 7, 19], [30, 0, 19]], ids=["unmasked", "masked", "one_row_fully_masked"])
-def test_backward_plain_matches_autograd_through_sdpa(lens):
+def test_backward_plain_matches_autograd_through_sdpa(lens, d):
     """A sample with no real key gets the mean of V over the Nk keys in the
     forward; its gradient is dV = dO / Nk on every key and nothing to q, k."""
-    b, h, nq, nk, d = 3, 2, 40, 30, 72
+    b, h, nq, nk = 3, 2, 40, 30
     q, k, v, do = _inputs(b, h, nq, nk, d, seed=3)
     mask = _mask(b, nk, lens)
     leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]

@@ -382,6 +382,105 @@ def test_grad_accum_steps_and_ema_advance_on_every_call_like_multisteps():
     assert ts.opt_state["inner"]["count"] == 2
 
 
+class _Tree(torch.nn.Module):
+    """A module whose parameters are the arrays of a dict, in its key order."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.p = torch.nn.ParameterDict({k: torch.nn.Parameter(_t(v).clone()) for k, v in tree.items()})
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("which", list(OPTIMIZERS))
+def test_nan_guard_matches_jax_and_a_nan_step_keeps_every_bit(which, accum):
+    """Finite, NaN, finite, finite gradients through both packages'
+    ``nan_guard``: after every step params and EMA agree with JAX's (whose
+    guard selects ``jnp.where(ok, new, old)`` over the whole state), and
+    after the NaN step the port's params, moments, EMA, step and count are
+    bit for bit what they were."""
+    from instarevive_tpu.utils.debug import nan_guard as jax_nan_guard
+    from instarevive_tpu_torch.utils import debug
+
+    kw = dict(OPTIMIZERS[which])
+    low = kw.pop("moment_dtype", None)
+    common = dict(learning_rate=None, grad_clip_norm=0.5, grad_accum=accum)
+    jtx = jax_optim.build_optimizer(**dict(common, learning_rate=jax_optim.constant_with_warmup(1e-2, 2)),
+                                    moment_dtype=jnp.bfloat16 if low else None, **kw)
+    ttx = optim.build_optimizer(**dict(common, learning_rate=optim.constant_with_warmup(1e-2, 2)),
+                                moment_dtype=torch.bfloat16 if low else None, **kw)
+    params = _tree()
+    js = JaxTrainState.create({k: jnp.asarray(v) for k, v in params.items()}, jtx, ema=True)
+    ts = TrainState.create(_Tree(params), ttx, ema=True)
+
+    def snapshot():
+        inner = ts.opt_state["inner"]
+        tensors = [*ts.params, *ts.ema_params] + [t for v in inner.values() if isinstance(v, list) for t in v]
+        tensors += [t for t in ts.opt_state.get("acc_grads", [])]
+        return [t.clone() for t in tensors], int(ts.step), int(inner["count"])
+
+    tol = 2e-4 if low else 1e-5
+    for i, bad in enumerate((False, True, False, False)):
+        g = _grads_for(params, i)
+        if bad:
+            g["k"][1, 2, 3, 4] = np.nan
+        before = snapshot()
+        metrics = {}
+        js = jax_nan_guard(js.apply_gradients, js, {k: jnp.asarray(v) for k, v in g.items()})
+        ok = debug.nan_guard(ts, [_t(v) for v in g.values()], metrics)
+        assert ok.dtype == torch.bool and ok.ndim == 0 and bool(ok) != bad and float(metrics["grads_finite"]) == float(not bad)
+        if bad:
+            after = snapshot()
+            assert after[1:] == before[1:] and all(torch.equal(a, b) for a, b in zip(after[0], before[0]))
+        assert int(ts.step) == int(js.step)
+        for name, got, ema in zip(ts.names, ts.params, ts.ema_params):
+            key = name.split(".")[-1]
+            assert _rel(got.detach().numpy(), js.params[key]) <= tol, (name, i)
+            assert _rel(ema.numpy(), js.ema_params[key]) <= tol, (name, i)
+
+
+def test_nan_guard_reads_no_flag_on_the_host(monkeypatch):
+    """Nothing inside ``nan_guard`` turns a tensor into a Python value: with
+    ``bool``, ``item``, ``float`` and ``int`` of a tensor raising, a finite
+    and a NaN step both run (AdamW with clipping, warm-up and an EMA)."""
+    from instarevive_tpu_torch.utils import debug
+
+    params = _tree()
+    ts = TrainState.create(_Tree(params), optim.build_optimizer("adamw", optim.constant_with_warmup(1e-2, 2)), ema=True)
+    grads = [_t(v) for v in _grads_for(params, 0).values()]
+    nan = [g.clone() for g in grads]
+    nan[0][0] = float("nan")
+
+    def refuse(*_):
+        raise AssertionError("a flag was read on the host")
+
+    for name in ("__bool__", "item", "__float__", "__int__", "__index__", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    ok_good = debug.nan_guard(ts, grads)
+    ok_bad = debug.nan_guard(ts, nan)
+    monkeypatch.undo()
+    assert bool(ok_good) and not bool(ok_bad) and int(ts.step) == 1
+
+
+def test_optax_masked_moves_a_frozen_leaf_by_its_gradient_and_the_port_keeps_it():
+    """The JAX trainer freezes the UNet's encoder with ``optax.masked``, which
+    passes a masked-out leaf's raw gradient through as its update, so
+    ``TrainState.apply_gradients`` adds it: the "frozen" leaf moves by +1 x its
+    gradient. The port freezes by ``requires_grad``: the leaf is not in the
+    optimizer and keeps its bits. On the trained leaf both agree."""
+    jtx = optax.masked(jax_optim.build_optimizer("adamw", 1e-4, grad_clip_norm=10.0), {"a": True, "b": False})
+    js = JaxTrainState.create({"a": jnp.ones(3), "b": jnp.ones(3)}, jtx, ema=False)
+    js = js.apply_gradients({"a": jnp.full(3, 0.5), "b": jnp.full(3, 0.5)})
+    np.testing.assert_array_equal(np.asarray(js.params["b"]), np.full(3, 1.5, np.float32))  # 1.0 + the raw gradient
+
+    module = _Tree({"a": np.ones(3, np.float32), "b": np.ones(3, np.float32)})
+    module.p["b"].requires_grad_(False)
+    ts = TrainState.create(module, optim.build_optimizer("adamw", 1e-4, grad_clip_norm=10.0), ema=False)
+    assert ts.names == ["p.a"]
+    ts.apply_gradients([torch.full((3,), 0.5)])
+    assert torch.equal(module.p["b"].detach(), torch.ones(3))
+    assert _rel(module.p["a"].detach().numpy(), js.params["a"]) <= 1e-6
+
+
 def test_train_state_ema_warmup_and_bf16_shadow():
     w = np.ones((4, 4), np.float32)
     js = JaxTrainState.create({"w": jnp.asarray(w)}, optax.sgd(0.1), ema=True, ema_dtype=jnp.bfloat16)
@@ -692,7 +791,7 @@ def test_logging_and_debug_helpers(tmp_path):
     assert bool(debug.all_finite(good.values())) and not bool(debug.all_finite(bad.values()))
     state = TrainState.create(_Leaf(np.ones((2, 2), np.float32)), optim.build_optimizer("adamw", 0.1), ema=True)
     metrics = {}
-    assert not debug.nan_guard(state, [torch.full((2, 2), float("inf"))], metrics)
+    assert not debug.nan_guard(state, [torch.full((2, 2), float("inf"))], metrics)  # the flag, a 0-dim bool tensor
     assert state.step == 0 and (state.params[0] == 1).all() and float(metrics["grads_finite"]) == 0.0
     assert debug.nan_guard(state, [torch.ones(2, 2)]) and state.step == 1 and (state.params[0] < 1).all()
     timer = debug.SimpleTimer(10, log_interval=2, initial=4)
@@ -728,9 +827,8 @@ def test_launcher_trains_writes_final_and_resumes(tmp_path):
     assert os.path.isfile(os.path.join(out, "step_3", ckpt.FILE))  # and no second save as 'final'
     assert again.task.states[0].step == 3
 
-    for task in ("cldm", "reflow"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            launcher.main(["--device", "cpu", "--task", task, "--data", data, "--out", out])
+    # every task the flags name has its trainer (cldm and reflow: tests/test_torch_cldm.py)
+    assert set(launcher.TASKS) == {"dmd", "swinir", "cldm", "reflow"} and launcher.TASKS["reflow"] is launcher.CLDMTask
     # the degradation ran on every batch: its generators moved, and its draws imply the filter2d calls
     assert again.task.degrade.kind == "realesrgan" and 2 <= again.task.degrade.filter_calls <= 3
     assert not torch.equal(again.task.degrade.gens.host.get_state(), torch.Generator().manual_seed(0).get_state())
