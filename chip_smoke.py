@@ -12,10 +12,14 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
+   for the bf16 head-dim-64/72 forward also its shared memory a block, blocks
+   an SM and its count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions,
+   and fails if either count is 0;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
-   the same function: flash attention (K1), the fused GN+SiLU+conv3x3 (K3,
+   the same function: flash attention (K1, with ragged and masked shapes
+   and its TFLOP/s), the fused GN+SiLU+conv3x3 (K3,
    with a border case that tells a zero halo from a ``silu(b)`` halo), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
    nearest 2x upsample (K5c), the Swin window attention (K4, shifted and
@@ -391,6 +395,40 @@ def norm_phase():
     return stats, applies, ups
 
 
+def hopper_build_report(log: str):
+    """The bf16 head-dim-64/72 forward as built: registers and spill stores of
+    each instantiation (ptxas, when this run compiled it), the shared memory a
+    block takes and the blocks an SM holds (the library's own figures), and
+    its count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+    library's SASS. Fails if either count is 0."""
+    import ctypes
+    import shutil
+
+    from instarevive_tpu_torch.ops import cuda_build
+
+    report = {}
+    for fn_name, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S):
+        m = re.search(r"hopper6kernelILi(\d+)E", fn_name)
+        if m:
+            report[f"d{m.group(1)}_registers"] = int(re.search(r"Used (\d+) registers", body).group(1))
+            report[f"d{m.group(1)}_spill_stores"] = int(re.search(r"(\d+) bytes spill stores", body).group(1))
+    occupancy = cuda_build.load_library("flash_attn_fwd").flash_attn_fwd_occupancy
+    occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    for d in (64, 72):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+            fail(f"flash_attn_fwd_occupancy({d}) failed")
+        report[f"d{d}_smem_bytes"], report[f"d{d}_blocks_per_sm"] = smem.value, blocks.value
+    so = cuda_build.library_path("flash_attn_fwd", cuda_build.LIBRARIES["flash_attn_fwd"])
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    report["HGMMA"], report["UTMALDG"] = sass.count("HGMMA"), sass.count("UTMALDG")
+    print(f"[build] flash_attn_fwd.cu, the bf16 head-dim-64/72 form: {report}", flush=True)
+    if not (report["HGMMA"] and report["UTMALDG"]):
+        fail(f"the forward library has {report['HGMMA']} HGMMA and {report['UTMALDG']} UTMALDG instructions")
+    return report
+
+
 def kernel_phase():
     """K1 against sdpa at the main-path shapes; returns per-shape records."""
     import torch
@@ -404,6 +442,8 @@ def kernel_phase():
         ("dit_cross_masked", (4, 16, 1024, 300, 72), True, ("bf16", "f32")),
         ("vae_mid", (4, 1, 4096, 4096, 512), False, ("bf16",)),
         ("dit_self_tile576", (4, 16, 1296, 1296, 72), False, ("bf16",)),
+        ("ragged_q1000_k77_masked", (1, 16, 1000, 77, 72), True, ("bf16",)),
+        ("ragged_q1000_k333", (1, 16, 1000, 333, 72), False, ("bf16",)),
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -414,8 +454,8 @@ def kernel_phase():
             k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtypes[dt])
             v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtypes[dt])
             mask = None
-            if masked:  # ragged lengths, one row with no key at all
-                lens = torch.tensor([nk, nk * 3 // 5, 0, nk // 5 + 1][:b], device="cuda")
+            if masked:  # ragged lengths, one row with no key at all (at batch 4)
+                lens = torch.tensor([nk, nk * 3 // 5, 0, nk // 5 + 1][:b] if b > 1 else [nk * 2 // 3], device="cuda")
                 mask = torch.arange(nk, device="cuda")[None] < lens[:, None]
             with torch.no_grad():
                 out = flash_attention(q, k, v, kv_mask=mask)
@@ -430,14 +470,15 @@ def kernel_phase():
                 lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
             # the work this run's data needs: masked keys take no product
             keys = b * nk if mask is None else int(mask.sum().item())
-            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), 4.0 * h * nq * keys * d, dt)
+            flops = 4.0 * h * nq * keys * d
+            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), flops, dt)
             rec = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=masked,
                        max_abs_err=err, bound=BOUNDS[dt], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-            print(f"[kernel] {name:17s} {dt:4s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} "
+                       bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
+            print(f"[kernel] {name:23s} {dt:4s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} "
                   f"mask={masked!s:5s} max_abs_err={err:.3e} (bound {BOUNDS[dt]:.0e}) "
-                  f"ms={ms:.4f} sdpa_ms={plain_ms:.4f} torch_sdpa_ms={lib_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                  f"ms={ms:.4f} ({flops / ms / 1e9:.0f} TFLOP/s) sdpa_ms={plain_ms:.4f} "
+                  f"torch_sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
             if not err <= BOUNDS[dt]:
                 fail(f"{name} {dt}: kernel differs from sdpa by {err} > {BOUNDS[dt]}")
             records.append(rec)
@@ -1395,6 +1436,7 @@ D64_CASES = [  # (name, (B, H, Nq, Nk), keys kept per sample or None)
     ("mid_self", (2, 20, 64, 64), None),
     ("mid_cross4", (2, 20, 64, 4), None),
     ("mid_cross77", (2, 20, 64, 77), None),
+    ("ragged_q1000_k40_masked", (1, 5, 1000, 40), (33,)),  # ragged Nq, Nk under one key tile
 ]
 
 
@@ -1478,7 +1520,7 @@ def d64_phase():
             fwd_records.append(dict(common, max_abs_err=o_err, max_rel_err=o_rel, lse_max_abs_err=lse_err,
                                     lse_bound=LSE_BOUNDS[dt], ms=ms_fwd, ms_with_lse=ms_lse, plain_ms=plain_fwd_ms,
                                     library_ms=lib_fwd_ms, bound_ms=b_fwd[0], bound_by=b_fwd[1],
-                                    bound_with_lse_ms=b_lse[0]))
+                                    bound_with_lse_ms=b_lse[0], tflops=4.0 * pairs * d / ms_fwd / 1e9))
             back = dict(common, bitwise_repeat=same, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
                         library_forward_backward_ms=lib_fwd_bwd_ms, together_ms=ms_both, together_bound_ms=b_both[0])
             dq_records.append(dict(back, max_abs_err=abs_err["dq"], max_rel_err=rel["dq"], ms=ms_dq, bound_ms=b_dq[0],
@@ -1810,12 +1852,15 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
+    fwd_build = None
     for name, (seconds, cached, log) in cuda_build.build_libraries().items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
         print(f"[build] {', '.join(cuda_build.LIBRARIES[name])} for sm_90a: {seconds:.1f}s"
               + (" (cached build)" if cached else f" (nvcc runs together; registers {regs}, spill stores {spills} B)"),
               flush=True)
+        if name == "flash_attn_fwd":
+            fwd_build = hopper_build_report(log)
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
@@ -1840,6 +1885,7 @@ def main() -> None:
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
     fwd["with_lse"] = lse_records  # the training forward: the same kernel writing the row log-sum-exp
+    fwd["build"] = fwd_build
     swin = kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
                         launches, tiled, swin_records, "process_b4_64x64_shifted", train)
     up = kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",

@@ -21,37 +21,62 @@
 //
 // Three forms:
 // * bf16, head dims 64 and 72 (the UNet and ControlNet of the LDM trainer at
-//   64; the DiT at 72: 56 of the 58 launches of one restoration call) runs
-//   FlashAttention-2 style, one body templated on the head dim. Each of the 4
-//   warps owns 16 query rows and keeps S, P and the output accumulator in
-//   registers; both products run on the tensor cores as mma.sync m16n8k16
-//   (bf16 x bf16 -> f32), with P rounded to bf16 before P.V as the TPU kernel
-//   does. Head dim 72 is zero-padded to 80 in shared memory (the MMA depth is
-//   16); 64 needs no padding (4 k-steps of Q.K^T).
+//   64; the DiT at 72: 56 of the 58 launches of one restoration call) runs on
+//   Hopper's tensor-core path, one body templated on the head dim. A block is
+//   one (d = 64) or two (d = 72) warpgroups of 64 query rows that share a ring
+//   of three 64-key K/V stages. One thread of the block brings every tile in
+//   by TMA (Q once, then K and V tile by tile), each stage tracked by a full
+//   mbarrier (the bytes landed) and an empty one (every warp is done with
+//   it); no warp is set aside to produce. Both products are wgmma: S = Q.K^T
+//   (m64 n64 k16) with Q and K read from shared memory, and O += P.V (m64 n64
+//   k16, plus n16 at d = 72) with P taken from registers, since the accumulator layout of S is wgmma's
+//   register-A fragment layout, and V read as an MN-major operand. S, P and
+//   the output accumulator stay in registers; P is rounded to bf16 before P.V
+//   as the TPU kernel does. Tiles are laid out for TMA's widest rows: head
+//   dims 0-63 of a row are 128 bytes under the 128-byte swizzle, and at d = 72
+//   head dims 64-79 are a second tile of 32-byte rows under the 32-byte
+//   swizzle, 72-79 zero-filled by TMA past the tensor (a fifth Q.K^T k-step
+//   and an n16 P.V, whose last 8 columns are not stored). Exponentials are
+//   ex2.approx.ftz (flushing results below 2^-126 to 0, which moves no
+//   output by a bf16 step), and an unmasked tile's scale rides in one FFMA.
 // * bf16, head dim 512 (the VAE mid block): one warp cannot hold a 512-wide
 //   accumulator, so the 8 warps of a block split both products. For S each
 //   warp takes a 64-wide slice of the head dim for all 32 query rows (its Q
 //   slice in registers) and the 8 partial score tiles meet in shared memory,
 //   where the softmax sums them; for P.V each warp owns 64 output columns of
-//   all 32 rows in registers.
+//   all 32 rows in registers. It double-buffers K and V tiles with cp.async,
+//   so the next tile loads while this one computes.
 // * f32, every head dim, keeps the scores and the accumulator in shared
 //   memory and runs plain FMAs on odd-strided tiles (no bank conflicts).
-// The bf16 forms double-buffer K and V tiles in shared memory with cp.async,
-// so the next tile loads while this one computes. Other head dims are refused.
+// Other head dims are refused.
 //
-// What bounds it on this card: at the DiT shapes the work is far above the
-// H100's bf16 ridge point (~295 FLOP/byte), so the head-dim-64/72 form is bound
-// by mma.sync throughput and the exp/max work of the softmax, at a fraction
-// of the wgmma peak. The head-dim-512 form re-reads every K/V tile from L2
-// once per 32 query rows, so L2 bandwidth bounds it; its 210 KB of shared
-// memory allow one block per SM. The f32 form is bound by shared-memory
-// traffic and the barriers between its phases. wgmma, TMA and warp
-// specialisation are left for later work.
+// What bounds it on this card: at the DiT and UNet shapes the work is far
+// above the H100's bf16 ridge point (~295 FLOP/byte), so operations bound the
+// head-dim-64/72 form. Within a warpgroup the two products and the softmax
+// run one after another: per 64-key tile a warpgroup's 4,096 exponentials
+// take the SM's exp units about as long as its two products take the tensor
+// cores, and only the other warpgroups on the SM (two blocks of two at d = 72,
+// as registers allow; three of one at d = 64, as shared memory allows) fill
+// the gaps. A first layout with 16-byte TMA rows (wgmma's no-swizzle core
+// matrices) was bound by the copies instead, at the rate of the mma.sync form
+// it replaced. A producer warp, ping-pong between two warpgroups and
+// overlapping one tile's softmax with the next tile's Q.K^T are the next
+// steps. On the host the launcher encodes the tensor maps (about 1 us a call
+// for all of them) and keeps the last 256 by address and shape, so a call on
+// tensors seen before costs what the mma.sync form's launcher did, within a
+// microsecond (tools/time_flash_fwd.py). The head-dim-512 form re-reads
+// every K/V tile from L2 once per 32 query rows, so L2 bandwidth bounds it;
+// its 210 KB of shared memory allow one block per SM. The f32 form is bound by shared-memory traffic and the
+// barriers between its phases.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
@@ -96,7 +121,6 @@ __device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool val
                "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // Rows [row0, row0 + ROWS) x columns [0, DP) of a row-major (n, D) bf16
@@ -127,120 +151,249 @@ __device__ __forceinline__ float masked_score(float s, float keep, float scale_l
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 72: register-resident tiles (FlashAttention-2 layout).
+// bf16, head dims 64 and 72: wgmma on TMA-fed tiles.
 
-namespace fa2 {
+namespace hopper {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 64, BK = 64;  // 16 query rows per warp; keys per tile
-constexpr int kNT = BK / 8;      // score n-tiles of 8 keys
+constexpr int BK = 64;                      // keys a tile
+constexpr int kStages = 3;                  // the K/V ring: tiles in flight
 
-// Per head dim D: DP, its MMA padding (a multiple of 16), and LDS, the shared
-// row stride in halves. A stride of an odd number of 16-byte chunks puts the
-// 8 rows of an ldmatrix on 8 bank groups: 144 B (9 chunks) for d = 64, which
-// needs no padding, and 176 B (11 chunks) for d = 72, padded to 80.
-template <int D> struct Dims;
-template <> struct Dims<64> { static constexpr int DP = 64, LDS = 72; };
-template <> struct Dims<72> { static constexpr int DP = 80, LDS = 88; };
-
+// Shared tiles. Head dims 0-63 of a row are one 128-byte row of a tile under
+// the 128-byte swizzle, the widest rows TMA and wgmma share; at d = 72 head
+// dims 64-79 are a second tile of 32-byte rows under the 32-byte swizzle,
+// where TMA zero-fills 72-79 (past the tensor), so the last Q.K^T k-step adds
+// nothing for them and their P.V columns come out 0 and are not stored. The
+// same bytes serve Q and K as K-major operands and V as an MN-major one.
+// A main tile starts on 1024 bytes and a tail tile on 256 (their swizzle
+// atoms: 8 rows).
 template <int D>
-constexpr size_t smem_bytes() { return sizeof(bf16) * (BQ + 4 * BK) * Dims<D>::LDS + sizeof(float) * 2 * BK; }
+struct Tile {
+  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  // warpgroups a block, 64 query rows each, sharing the K/V ring: two at d = 72, whose
+  // 32-byte tail rows make the copies dearer; one at d = 64 (chosen by time, time_flash_fwd.py)
+  static constexpr int kWarpgroups = D == 64 ? 1 : 2;
+  static constexpr int kThreads = 128 * kWarpgroups, BQ = 64 * kWarpgroups;  // threads, query rows a block
+  static constexpr bool kTail = D > 64;  // head dims 64-79 in their own tiles
+  static constexpr uint32_t kQMain = BQ * 128, kQTail = kTail ? BQ * 32 : 0;
+  static constexpr uint32_t kKVMain = BK * 128, kKVTail = kTail ? BK * 32 : 0;
+  // the main tiles (Q, the K ring, the V ring), the tail tiles in the same order, 2 kStages + 1 barriers
+  static constexpr uint32_t kTails = kQMain + 2 * kStages * kKVMain;
+  static constexpr uint32_t kBars = kTails + kQTail + 2 * kStages * kKVTail;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
+};
 
-// ptxas -v (sm_90a, CUDA 12.8): 128 registers at d = 64, 133 at d = 72, no spills.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int heads,
-       int nq, int nk, float scale_log2) {
-  constexpr int DP = Dims<D>::DP, LDS = Dims<D>::LDS;
-  constexpr int kDT = DP / 8;   // output n-tiles of 8 dims
-  constexpr int kKS = DP / 16;  // k-steps of Q.K^T
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LDS;      // two stages
-  bf16* sV = sK + 2 * BK * LDS;  // two stages
-  float* sKeep = reinterpret_cast<float*>(sV + 2 * BK * LDS);  // two stages
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group and column pair
-  const bf16* kb = k + (size_t)bh * nk * D;
-  const bf16* vb = v + (size_t)bh * nk * D;
-  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
-  const int n_tiles = (nk + BK - 1) / BK;
+// One box of `map` (head dims [col, col + box width) of rows [row, row + box
+// rows) of head `head`) into shared memory at dst; its bytes complete on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(head), "r"(bar)
+      : "memory");
+}
 
-  auto load_kv = [&](int tile, int stage) {
-    const int kv0 = tile * BK;
-    load_rows<kThreads, BK, D, DP, LDS>(sK + stage * BK * LDS, kb, kv0, nk);
-    load_rows<kThreads, BK, D, DP, LDS>(sV + stage * BK * LDS, vb, kv0, nk);
-    load_keep<kThreads, BK>(sKeep + stage * BK, mb, kv0, nk);
-  };
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle (1: 128 bytes, 3: 32 bytes). K-major under a swizzle: the
+// stride offset is between 8-row groups and the leading one unused (1). MN-major:
+// the stride offset is between groups of 8 along K; the leading one (between
+// swizzle-wide groups along M or N) is unused when the tile is one group wide.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(sbo >> 4) << 32 | swizzle << 62;
+}
+constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
 
-  load_rows<kThreads, BQ, D, DP, LDS>(sQ, q + (size_t)bh * nq * D, q0, nq);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  uint32_t qf[kKS][4];
-  float o[kDT][4];
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Keeps the compiler from moving reads or writes of wgmma's registers across the asm around them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < kDT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define WGMMA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_ACC16(i) WGMMA_ACC4(i), WGMMA_ACC4(i + 4), WGMMA_ACC4(i + 8), WGMMA_ACC4(i + 12)
+
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<16> {
+  // D (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7}, "
+                 "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC4(0), WGMMA_ACC4(4)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // D (64 x 64, f32) = [D +] A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef WGMMA_ACC16
+#undef WGMMA_ACC4
+
+template <int D>
+struct Maps {  // the tensor maps of Q, K and V: head dims 0-63, and 64-79 at d = 72
+  CUtensorMap q, k, v, q_tail, k_tail, v_tail;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads)
+kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+       float* __restrict__ lse, int heads, int nq, int nk, float scale_log2) {
+  using T = Tile<D>;
+  constexpr int kNT = BK / 8;  // score n-tiles of 8 keys
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sK = sQ + T::kQMain, sV = sK + kStages * T::kKVMain;
+  const uint32_t sQt = sQ + T::kTails, sKt = sQt + T::kQTail, sVt = sKt + kStages * T::kKVTail;
+  const uint32_t full = sQ + T::kBars;       // per stage: its K and V tiles have landed
+  const uint32_t empty = full + 8 * kStages;  // per stage: every warp is done with it
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
+  const int n_tiles = (nk + BK - 1) / BK;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const bool producer = threadIdx.x == 0;  // issues every copy; no warp is set aside for it
+
+  auto load_kv = [&](int tile) {
+    const int s = tile % kStages;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * (T::kKVMain + T::kKVTail));
+    tma_load(sK + s * T::kKVMain, &maps.k, bar, 0, tile * BK, bh);
+    tma_load(sV + s * T::kKVMain, &maps.v, bar, 0, tile * BK, bh);
+    if (T::kTail) {
+      tma_load(sKt + s * T::kKVTail, &maps.k_tail, bar, 64, tile * BK, bh);
+      tma_load(sVt + s * T::kKVTail, &maps.v_tail, bar, 64, tile * BK, bh);
+    }
+  };
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, T::kThreads / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    mbar_expect_tx(qbar, T::kQMain + T::kQTail);
+    tma_load(sQ, &maps.q, qbar, 0, q0, bh);
+    if (T::kTail) tma_load(sQt, &maps.q_tail, qbar, 64, q0, bh);
+    for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) load_kv(tile);
+  }
+
+  // this warpgroup's 64 query rows; a k-step of 16 head dims is 32 bytes along a 128-byte row
+  const uint64_t q_desc = smem_desc(sQ + wg * 64 * 128, 1024, kSwizzle128);
+  const uint64_t q_tail = smem_desc(sQt + wg * 64 * 32, 256, kSwizzle32);
+  float o[32], o_tail[8];  // head dims 0-63; 64-79 (of which 72-79 are 0) at d = 72
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o_tail[i] = 0.f;
   float m_run[2] = {kMaskedScore, kMaskedScore}, l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    if (tile + 1 < n_tiles) load_kv(tile + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();  // this tile (and Q) have landed
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks)
-        ldsm_x4(qf[ks], sQ + (warp * 16 + lane % 16) * LDS + ks * 16 + (lane / 16) * 8);
+    const int s = tile % kStages;
+    // refill the stage of the previous tile once every warp is done with it
+    if (producer && tile > 0 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty + 8 * ((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_kv(tile - 1 + kStages);
     }
-    const bf16* tk = sK + stage * BK * LDS;
-    const bf16* tv = sV + stage * BK * LDS;
-    const float* keep = sKeep + stage * BK;
+    __syncwarp();
+    mbar_wait(full + 8 * s, (tile / kStages) & 1);
 
-    // S = Q K^T, 16 x 64 per warp
-    float s[kNT][4];
+    // S = Q K^T, 64 x BK a warpgroup: four k-steps in the main tiles, one in the tails
+    float sc[BK / 2];
+    const uint64_t k_desc = smem_desc(sK + s * T::kKVMain, 1024, kSwizzle128);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kNT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    for (int ks = 0; ks < 4; ++ks) Wgmma<BK>::ss(sc, q_desc + 2 * ks, k_desc + 2 * ks, ks > 0);
+    if (T::kTail) Wgmma<BK>::ss(sc, q_tail, smem_desc(sKt + s * T::kKVTail, 256, kSwizzle32), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax in the log2 domain; this thread holds rows g and g + 8 of its warp's 16:
+    // sc[4 nt + e] is key nt * 8 + 2 t + (e & 1) of row g + 8 (e >> 1). A tile of real,
+    // unmasked keys is scaled inside the exponent (one FFMA a score, the max taken on the
+    // raw scores); any other tile is scaled first and its absent and masked keys set.
+    const int kv0 = tile * BK;
+    float mul = scale_log2;
+    if (mb != nullptr || kv0 + BK > nk || scale_log2 <= 0.f) {
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, tk + (np * 16 + (lane / 16) * 8 + lane % 8) * LDS + ks * 16 + ((lane / 8) % 2) * 8);
-        mma(s[2 * np], qf[ks], b[0], b[1]);
-        mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+      for (int i = 0; i < BK / 2; ++i) {
+        const int key = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
+        sc[i] = key >= nk ? -CUDART_INF_F : (mb != nullptr && mb[key] == 0) ? kMaskedScore : sc[i] * scale_log2;
       }
+      mul = 1.f;
     }
-
-    // online softmax in the log2 domain; this thread holds rows g and g + 8
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = masked_score(s[nt][e], keep[nt * 8 + 2 * t + (e & 1)], scale_log2);
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);
+      const float m_new = fmaxf(m_run[r], mx[r] * mul);
+      alpha[r] = ex2(m_run[r] - m_new);
       m_run[r] = m_new;
     }
-    uint32_t pf[BK / 16][4];  // P as mma A fragments: n-tile pairs become 16-key k-steps
+    uint32_t pf[BK / 16][4];  // P as wgmma A fragments: n-tile pairs become 16-key k-steps
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m_run[0]), p1 = exp2f(s[nt][1] - m_run[0]);
-      const float p2 = exp2f(s[nt][2] - m_run[1]), p3 = exp2f(s[nt][3] - m_run[1]);
+      const float p0 = ex2(fmaf(sc[4 * nt], mul, -m_run[0])), p1 = ex2(fmaf(sc[4 * nt + 1], mul, -m_run[0]));
+      const float p2 = ex2(fmaf(sc[4 * nt + 2], mul, -m_run[1])), p3 = ex2(fmaf(sc[4 * nt + 3], mul, -m_run[1]));
       sum[0] += p0 + p1;
       sum[1] += p2 + p3;
       pf[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
@@ -253,37 +406,46 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
       l_run[r] = l_run[r] * alpha[r] + sum[r];
     }
 #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    if (T::kTail) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o_tail[i] *= alpha[(i >> 1) & 1];
     }
 
-    // O += P V
+    // O += P V: P from registers, the V tiles (keys x head dims) as MN-major operands;
+    // a k-step of 16 keys is two 8-row swizzle atoms
+    const uint64_t v_desc = smem_desc(sV + s * T::kKVMain, 1024, kSwizzle128);
+    const uint64_t v_tail = smem_desc(sVt + s * T::kKVTail, 256, kSwizzle32);
+    fence_regs(o);
+    if (T::kTail) fence_regs(o_tail);
+    wgmma_fence();
 #pragma unroll
     for (int c = 0; c < BK / 16; ++c) {
-#pragma unroll
-      for (int dp = 0; dp < kDT / 2; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, tv + (c * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDS + dp * 16 + (lane / 16) * 8);
-        mma(o[2 * dp], pf[c], b[0], b[1]);
-        mma(o[2 * dp + 1], pf[c], b[2], b[3]);
-      }
+      Wgmma<64>::rs(o, pf[c], v_desc + c * 128);
+      if (T::kTail) Wgmma<16>::rs(o_tail, pf[c], v_tail + c * 32);
     }
-    __syncthreads();  // the next iteration's loads overwrite this stage
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (T::kTail) fence_regs(o_tail);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
   bf16* ob = out + (size_t)bh * nq * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
+    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
     if (row >= nq) continue;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    bf16* orow = ob + (size_t)row * D + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(o[4 * dt + 2 * r] * inv,
+                                                                                o[4 * dt + 2 * r + 1] * inv);
+    if (T::kTail)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 64) = __floats2bfloat162_rn(o_tail[2 * r] * inv,
+                                                                            o_tail[2 * r + 1] * inv);
     // the running max is in the log2 domain; a row with no real key keeps the mask's score
     if (lse != nullptr && t == 0)
       lse[(size_t)bh * nq + row] = m_run[r] <= kMaskedScore
@@ -292,22 +454,95 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry point, found through the runtime:
+// the library links no libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (bh, n, d) bf16 tensor seen as 3-D (d, n, bh), read in boxes of `width`
+// head dims x `rows` rows of one head under the given swizzle (the box's rows
+// are its width, 128 or 32 bytes). Rows past n and head dims past d are
+// zero-filled, so a ragged tail never reads the next head.
+//
+// A map holds only the address, the shape and the box, never the data, so the
+// maps made last are kept in a table of kMapSlots slots indexed by a hash of
+// those, and a call on tensors at the same addresses and shapes encodes none.
+constexpr int kMapSlots = 256;
+
+struct MapSlot {
+  const void* ptr;
+  int d, n, bh, width, rows, swizzle;
+  CUtensorMap map;
+};
+
+bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows, CUtensorMapSwizzle swizzle) {
+  static MapSlot slots[kMapSlots];
+  static std::mutex lock;
+  const int key[6] = {d, n, bh, width, rows, (int)swizzle};
+  uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
+  for (const int x : key) h = (h ^ (uint32_t)x) * 0x100000001b3ull;
+  MapSlot& slot = slots[(h ^ (h >> 29)) % kMapSlots];
+  std::lock_guard<std::mutex> guard(lock);
+  if (slot.ptr != ptr || memcmp(&slot.d, key, sizeof(key)) != 0) {
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    slot.ptr = nullptr;
+    if (encode_tiled()(&slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+    slot.ptr = ptr;
+    memcpy(&slot.d, key, sizeof(key));
+  }
+  *map = slot.map;
+  return true;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                    int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D>();
+  using T = Tile<D>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  Maps<D> maps = {};
+  bool ok = make_map(&maps.q, q, D, nq, bh, 64, T::BQ, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.k, k, D, nk, bh, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.v, v, D, nk, bh, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (T::kTail)
+    ok = ok && make_map(&maps.q_tail, q, D, nq, bh, 16, T::BQ, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.k_tail, k, D, nk, bh, 16, BK, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.v_tail, v, D, nk, bh, 16, BK, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (!ok) return cudaErrorInvalidValue;
   auto fn = kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + BQ - 1) / BQ, bh);
-  fn<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse), heads, nq, nk,
-      scale * 1.4426950408889634f);
+  const dim3 grid((nq + T::BQ - 1) / T::BQ, bh);
+  fn<<<grid, T::kThreads, T::kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+                                           static_cast<float*>(lse), heads, nq, nk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-}  // namespace fa2
+template <int D>
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = (int)Tile<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel<D>, Tile<D>::kThreads, Tile<D>::kSmem);
+}
+
+}  // namespace hopper
 
 // ---------------------------------------------------------------------------
 // bf16, head dim 512: both products split over the 8 warps of a block.
@@ -706,16 +941,25 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
                               float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) {
-    return is_bf16 ? fa2::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
+    return is_bf16 ? hopper::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
                    : fp32::launch<64, 64, 64, 65>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
   }
   if (d == 72) {
-    return is_bf16 ? fa2::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
+    return is_bf16 ? hopper::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
                    : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
   }
   if (d == 512 && lse == nullptr) {
     return is_bf16 ? wide::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
                    : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, nullptr, bh, heads, nq, nk, d, scale, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 head-dim-64/72 form at head dim d: the shared memory a block takes
+// and how many of its blocks fit on one SM, registers and shared memory
+// together (for reports). Returns a cudaError_t.
+extern "C" int flash_attn_fwd_occupancy(int d, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 64) return hopper::occupancy<64>(smem_bytes, blocks_per_sm);
+  if (d == 72) return hopper::occupancy<72>(smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -183,7 +183,7 @@ def time_steps(task, batches, phases=PHASES) -> Dict[str, object]:
 
 
 GROUPS = {  # first match wins, in this order
-    "K1 flash forward (flash_attn_fwd.cu)": ("fa2::kernel", "wide::kernel", "fp32::kernel"),
+    "K1 flash forward (flash_attn_fwd.cu)": ("hopper::kernel", "wide::kernel", "fp32::kernel"),
     "K2a flash dq (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)
                                              for kv in ("false", "(bool)0")),
     "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)

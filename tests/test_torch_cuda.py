@@ -10,7 +10,7 @@ Without a card every test here skips.
 import pytest
 import torch
 
-from instarevive_tpu_torch.ops.attention import flash_attention, sdpa
+from instarevive_tpu_torch.ops.attention import NEG_INF, _forward, flash_attention, flash_lse_plain, sdpa
 from instarevive_tpu_torch.ops.filters import filter2d, filter2d_plain
 from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from instarevive_tpu_torch.ops.norm_kernels import (
@@ -77,6 +77,8 @@ def _vae_inputs(cuda, dtype, n, h, w, c, co=None, seed=0):
         (2, 16, 1024, 1024, 72, None),
         (2, 16, 1024, 300, 72, [300, 0]),  # ragged keys, one fully masked row
         (1, 3, 70, 45, 72, [13]),
+        (1, 16, 1000, 77, 72, [50]),  # ragged queries and keys, masked
+        (1, 16, 1000, 333, 72, None),
         (2, 1, 4096, 4096, 512, None),
         (1, 1, 33, 100, 512, [57]),
         # head dim 64: every UNet / ControlNet shape of configs/cldm.yaml at batch 2, 512x512 crops
@@ -89,6 +91,7 @@ def _vae_inputs(cuda, dtype, n, h, w, c, co=None, seed=0):
         (2, 20, 256, 4, 64, None),
         (2, 20, 64, 64, 64, None),
         (2, 20, 64, 4, 64, [4, 0]),  # the middle block over 4 keys, one sample with none
+        (1, 5, 1000, 40, 64, [33]),  # ragged queries, keys under one key tile, masked
     ],
 )
 def test_flash_attention_matches_sdpa(cuda, dtype, b, h, nq, nk, d, lens):
@@ -105,6 +108,54 @@ def test_flash_attention_matches_sdpa(cuda, dtype, b, h, nq, nk, d, lens):
     assert flash_attention.launches == before + 1
     err = (out.float() - sdpa(q, k, v, kv_mask=mask).float()).abs().max().item()
     assert err <= BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72])
+def test_flash_attention_reads_views_at_an_offset(cuda, d):
+    """q, k and v as contiguous views at 16-byte-aligned offsets into one
+    buffer of NaNs: the kernel reads them in place (no copy) and reads no
+    element outside them, past the last key or head dim included."""
+    b, h, nq, nk = 2, 3, 200, 77
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    sizes = [b * h * n * d for n in (nq, nk, nk)]
+    buf = torch.full((sum(sizes) + 3 * 64,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    views, at = [], 24  # elements: 48 bytes past the buffer's start, a multiple of 16
+    for n, size in zip((nq, nk, nk), sizes):
+        t = buf[at:at + size].view(b, h, n, d)
+        t.copy_(torch.rand(b, h, n, d, device=cuda, generator=gen) * 2 - 1)
+        views.append(t)
+        at += size + 64
+    q, k, v = views
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 and t.data_ptr() != buf.data_ptr() for t in views)
+    mask = torch.arange(nk, device=cuda)[None] < torch.tensor([nk, 30], device=cuda)[:, None]
+    out = flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = (out.float() - sdpa(q, k, v, kv_mask=mask).float()).abs().max().item()
+    assert err <= BOUNDS[torch.bfloat16]
+
+
+# The row log-sum-exp (about log Nk + 0.5 here) is f32 in both versions; the
+# kernel works in the log2 domain (ex2.approx, log2f); 1e-3.
+LSE_BOUND = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72])
+def test_flash_forward_lse_matches_plain(cuda, d):
+    """The bf16 forward's log-sum-exp against flash_lse_plain; a sample
+    whose keys are all masked gets exactly -1e30, the backward's flag."""
+    b, h, nq, nk = 2, 4, 200, 150
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k = (torch.randn(b, h, n, d, device=cuda, generator=gen).to(torch.bfloat16) for n in (nq, nk))
+    v = (torch.rand(b, h, nk, d, device=cuda, generator=gen) * 2 - 1).to(torch.bfloat16)
+    mask = torch.arange(nk, device=cuda)[None] < torch.tensor([0, 97], device=cuda)[:, None]
+    out, lse = _forward(q, k, v, mask, d**-0.5, want_lse=True)
+    torch.cuda.synchronize()
+    assert (lse - flash_lse_plain(q, k, mask, d**-0.5)).abs().max().item() <= LSE_BOUND
+    assert torch.all(lse[0] == NEG_INF)
+    assert (out.float() - sdpa(q, k, v, kv_mask=mask).float()).abs().max().item() <= BOUNDS[torch.bfloat16]
 
 
 @pytest.mark.cuda
