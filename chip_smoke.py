@@ -12,15 +12,17 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
-   for the bf16 head-dim-64/72 forward also its shared memory a block, blocks
-   an SM and its count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions,
-   and fails if either count is 0;
+   for the bf16 head-dim-64/72 forward and the bf16 fused convolution also
+   their shared memory a block, blocks an SM and their count of wgmma (HGMMA)
+   and TMA-load (UTMALDG) instructions, and fails if either count is 0 or if
+   the convolution's bf16 kernels hold an mma.sync (HMMA);
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
    the same function: flash attention (K1, with ragged and masked shapes
-   and its TFLOP/s), the fused GN+SiLU+conv3x3 (K3,
-   with a border case that tells a zero halo from a ``silu(b)`` halo), the
+   and its TFLOP/s), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
+   cuDNN's convolution alone on the activated input beside the kernel alone,
+   and a border case that tells a zero halo from a ``silu(b)`` halo), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
    nearest 2x upsample (K5c), the Swin window attention (K4, shifted and
    unshifted, bf16 and f32) and the per-sample reflect-padded 2-D filter (K6,
@@ -200,17 +202,26 @@ def max_err(out, ref) -> float:
 
 
 def conv_phase():
-    """K3 against the plain version at every shape of the main path; the
-    yardstick is group_norm -> silu -> conv2d in channels-last. ``ms`` is the
-    wrapper's time, the moments and fold launches inside it included;
-    ``conv_only_ms`` is the convolution kernel alone on a fold made before.
-    Returns per-shape records."""
+    """K3 against the plain version at every shape of the main path and at
+    shapes ragged against its 16 x 16 pixel tile; the yardstick is
+    group_norm -> silu -> conv2d in channels-last. ``ms`` is the wrapper's
+    time, the moments and fold launches inside it included; ``conv_only_ms``
+    is the convolution kernel alone on a fold made before, and
+    ``conv_library_ms`` cuDNN's ``F.conv2d`` alone on the activated input
+    (channels-last, x's dtype), the one library call for what the kernel body
+    computes. ``tile_n`` is the channel tile the launcher took. Returns
+    per-shape records."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
-    from instarevive_tpu_torch.ops import gn_conv
+    from instarevive_tpu_torch.ops import cuda_build, gn_conv
     from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
-    from instarevive_tpu_torch.ops.norm_kernels import gn_affine
+    from instarevive_tpu_torch.ops.norm_kernels import affine_silu_plain, gn_affine
+
+    tile_n = cuda_build.load_library("gn_conv").gn_silu_conv3x3_tile_n
+    tile_n.argtypes, tile_n.restype = [ctypes.c_int], ctypes.c_int
 
     b4 = [  # process at 4 x 512 x 512: (H = W, C, Co)
         (512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512),
@@ -221,6 +232,11 @@ def conv_phase():
     cases += [(f"tiled_encode_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in encode]
     tile = [(72, 512, 512), (144, 512, 512), (288, 512, 256), (288, 256, 256), (576, 256, 128), (576, 128, 128)]
     cases += [(f"tile576_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in tile]
+    # ragged against the 16 x 16 pixel tile, C = 32 (half a 64-channel chunk), C and Co = 96; batch 1 at 72² and
+    # 144² is the tile decode above
+    ragged = [(3, 31, 47, 128, 128), (2, 9, 21, 128, 256), (1, 17, 33, 32, 64), (1, 40, 24, 96, 96),
+              (1, 3, 40, 96, 96), (1, 2, 3, 32, 32)]
+    cases += [("ragged_" + "_".join(map(str, shape)), shape, ("bf16",)) for shape in ragged]
     cases += [("b4_64_512_512", (4, 64, 64, 512, 512), ("f32",)),
               ("tile576_72_512_512", (1, 72, 72, 512, 512), ("f32",)),
               ("small_128_128_128", (2, 128, 128, 128, 128), ("f32",))]
@@ -250,15 +266,22 @@ def conv_phase():
                 conv_ms = cuda_ms(lambda: gn_conv._launch(x, a, b, wk, bias), iters=iters)
                 plain_ms = cuda_ms(lambda: gn_silu_conv3x3_plain(x, gamma, beta, wk, bias), iters=3, warmup=1)
                 lib_ms = cuda_ms(library, iters=iters)
+                act = affine_silu_plain(x, a, b, silu=True).permute(0, 3, 1, 2)
+                conv_lib_ms = cuda_ms(lambda: F.conv2d(act, w_oihw, biasl, padding=1), iters=iters)
+                del act
             flops = 2.0 * n * h * w * 9 * c * co
             nbytes = x.element_size() * (x.numel() + wk.numel() + out.numel())
             b_ms, b_by = bound(nbytes, flops, dt)
             rec = dict(name=name, dtype=dt, shape=[n, h, w, c, co], max_abs_err=err, bound=CONV_BOUNDS[dt], ms=ms,
-                       includes="gn_stats_fold", conv_only_ms=conv_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
+                       includes="gn_stats_fold", conv_only_ms=conv_ms, conv_library_ms=conv_lib_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9,
+                       conv_only_tflops=flops / conv_ms / 1e9)
+            if dt == "bf16":
+                rec["tile_n"] = tile_n(co)
             print(f"[gn_conv] {name:27s} {dt:4s} N,H,W,C,Co={n},{h},{w},{c},{co} max_abs_err={err:.3e} "
-                  f"(bound {CONV_BOUNDS[dt]:.0e}) ms={ms:.4f} ({rec['tflops']:.1f} TFLOP/s; conv alone {conv_ms:.4f}) "
-                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                  f"(bound {CONV_BOUNDS[dt]:.0e}) ms={ms:.4f} ({rec['tflops']:.1f} TFLOP/s; conv alone {conv_ms:.4f}, "
+                  f"{rec['conv_only_tflops']:.1f} TFLOP/s; cuDNN conv alone {conv_lib_ms:.4f}) plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) tile_n={rec.get('tile_n', '-')}", flush=True)
             if not err <= CONV_BOUNDS[dt]:
                 fail(f"gn_conv {name} {dt}: kernel differs from the plain version by {err} > {CONV_BOUNDS[dt]}")
             records.append(rec)
@@ -426,6 +449,44 @@ def hopper_build_report(log: str):
     print(f"[build] flash_attn_fwd.cu, the bf16 head-dim-64/72 form: {report}", flush=True)
     if not (report["HGMMA"] and report["UTMALDG"]):
         fail(f"the forward library has {report['HGMMA']} HGMMA and {report['UTMALDG']} UTMALDG instructions")
+    return report
+
+
+def gn_conv_build_report(log: str):
+    """The bf16 fused convolution as built: registers and spill stores of each
+    channel tile (ptxas, when this run compiled it), the shared memory a block
+    takes at C = 512 and the blocks an SM holds (the library's own figures),
+    and the counts of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+    instructions in its bf16 kernels' SASS. Fails if either of the first two
+    is 0 or if an HMMA is left."""
+    import ctypes
+    import shutil
+
+    from instarevive_tpu_torch.ops import cuda_build
+
+    report = {}
+    for fn_name, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S):
+        m = re.search(r"gnconv_wg6kernelILi(\d+)E", fn_name)
+        if m:
+            report[f"n{m.group(1)}_registers"] = int(re.search(r"Used (\d+) registers", body).group(1))
+            report[f"n{m.group(1)}_spill_stores"] = int(re.search(r"(\d+) bytes spill stores", body).group(1))
+    occupancy = cuda_build.load_library("gn_conv").gn_silu_conv3x3_occupancy
+    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
+    for bn in (64, 128):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        if occupancy(bn, 512, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+            fail(f"gn_silu_conv3x3_occupancy({bn}, 512) failed")
+        report[f"n{bn}_smem_bytes_c512"], report[f"n{bn}_blocks_per_sm"] = smem.value, blocks.value
+    so = cuda_build.library_path("gn_conv", cuda_build.LIBRARIES["gn_conv"])
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    bf16 = "".join(part for part in sass.split("Function : ")[1:] if "gnconv_wg" in part.split("\n", 1)[0])
+    report["HGMMA"], report["UTMALDG"], report["HMMA"] = bf16.count("HGMMA"), bf16.count("UTMALDG"), bf16.count("HMMA")
+    print(f"[build] gn_conv.cu, the bf16 form: {report}", flush=True)
+    if not (report["HGMMA"] and report["UTMALDG"]) or report["HMMA"]:
+        fail(f"the fused convolution's bf16 kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG "
+             f"and {report['HMMA']} HMMA instructions")
     return report
 
 
@@ -1830,7 +1891,7 @@ def kernel_entry(name, source, replaces, launches, tiled_launches, records, main
     if "max_rel_err" in main_rec:  # the fold and the attention backward are held to a relative bound
         entry["max_rel_err"] = max(r["max_rel_err"] for r in bf16)
     # the fused convolution's ms covers its moments launches; the window attention has a second yardstick
-    for key in ("includes", "conv_only_ms", "library_composition_ms", "max_abs_err_vs_f32"):
+    for key in ("includes", "conv_only_ms", "conv_library_ms", "library_composition_ms", "max_abs_err_vs_f32"):
         if key in main_rec:
             entry[key] = main_rec[key]
     return entry
@@ -1852,7 +1913,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
-    fwd_build = None
+    fwd_build = conv_build = None
     for name, (seconds, cached, log) in cuda_build.build_libraries().items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
@@ -1861,6 +1922,8 @@ def main() -> None:
               flush=True)
         if name == "flash_attn_fwd":
             fwd_build = hopper_build_report(log)
+        if name == "gn_conv":
+            conv_build = gn_conv_build_report(log)
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
@@ -1890,6 +1953,9 @@ def main() -> None:
                         launches, tiled, swin_records, "process_b4_64x64_shifted", train)
     up = kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
                       launches, tiled, up_records, "b4_256_256", train)
+    conv = kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
+                        launches, tiled, conv_records, "b4_512_128_128", train)
+    conv["build"] = conv_build
     for entry in (swin, up):  # forward launches of the SwinIR trainer; their backward is the plain version's
         entry["launches_swinir_train_run"] = swinir_train[0][entry["name"]]
         entry["launches_swinir_train_step"] = swinir_train[1][entry["name"]]
@@ -1899,8 +1965,7 @@ def main() -> None:
                      launches, tiled, dq_records, "dit_self", train),
         kernel_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166",
                      launches, tiled, dkv_records, "dit_self", train),
-        kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
-                     launches, tiled, conv_records, "b4_512_128_128", train),
+        conv,
         kernel_entry("gn_stats_fold", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:77",
                      launches, tiled, stats_records, "b4_512_128", train),
         kernel_entry("gn_apply", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:86",

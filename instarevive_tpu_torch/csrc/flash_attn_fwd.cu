@@ -69,14 +69,12 @@
 // its 210 KB of shared memory allow one block per SM. The f32 form is bound by shared-memory traffic and the
 // barriers between its phases.
 
-#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
-#include <string.h>
 
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
@@ -86,15 +84,6 @@ constexpr float kMaskedScore = -1e30f;  // as the plain version: masked keys kee
 
 // ---------------------------------------------------------------------------
 // PTX helpers of the bf16 forms.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -182,101 +171,11 @@ struct Tile {
   static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of `map` (head dims [col, col + box width) of rows [row, row + box
-// rows) of head `head`) into shared memory at dst; its bytes complete on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
-                                         int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(head), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets, swizzle (1: 128 bytes, 3: 32 bytes). K-major under a swizzle: the
-// stride offset is between 8-row groups and the leading one unused (1). MN-major:
-// the stride offset is between groups of 8 along K; the leading one (between
-// swizzle-wide groups along M or N) is unused when the tile is one group wide.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, uint64_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(sbo >> 4) << 32 | swizzle << 62;
-}
-constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Keeps the compiler from moving reads or writes of wgmma's registers across the asm around them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-
-#define WGMMA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WGMMA_ACC16(i) WGMMA_ACC4(i), WGMMA_ACC4(i + 4), WGMMA_ACC4(i + 8), WGMMA_ACC4(i + 12)
-
-template <int N> struct Wgmma;
-
-template <> struct Wgmma<16> {
-  // D (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16, shared, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-                 "%0, %1, %2, %3, %4, %5, %6, %7}, "
-                 "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-                 : WGMMA_ACC4(0), WGMMA_ACC4(4)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Wgmma<64> {
-  // D (64 x 64, f32) = [D +] A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
-                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
-                 : "l"(a), "l"(b), "r"(accumulate));
-  }
-  // D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef WGMMA_ACC16
-#undef WGMMA_ACC4
 
 template <int D>
 struct Maps {  // the tensor maps of Q, K and V: head dims 0-63, and 64-79 at d = 72
@@ -321,7 +220,7 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
       mbar_init(empty + 8 * s, T::kThreads / 32);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   if (producer) {
@@ -360,7 +259,7 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
     for (int ks = 0; ks < 4; ++ks) Wgmma<BK>::ss(sc, q_desc + 2 * ks, k_desc + 2 * ks, ks > 0);
     if (T::kTail) Wgmma<BK>::ss(sc, q_tail, smem_desc(sKt + s * T::kKVTail, 256, kSwizzle32), 1);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     // online softmax in the log2 domain; this thread holds rows g and g + 8 of its warp's 16:
@@ -425,7 +324,7 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
       if (T::kTail) Wgmma<16>::rs(o_tail, pf[c], v_tail + c * 32);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     if (T::kTail) fence_regs(o_tail);
     __syncwarp();
@@ -454,61 +353,17 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda entry point, found through the runtime:
-// the library links no libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A (bh, n, d) bf16 tensor seen as 3-D (d, n, bh), read in boxes of `width`
 // head dims x `rows` rows of one head under the given swizzle (the box's rows
 // are its width, 128 or 32 bytes). Rows past n and head dims past d are
-// zero-filled, so a ragged tail never reads the next head.
-//
-// A map holds only the address, the shape and the box, never the data, so the
-// maps made last are kept in a table of kMapSlots slots indexed by a hash of
-// those, and a call on tensors at the same addresses and shapes encodes none.
-constexpr int kMapSlots = 256;
-
-struct MapSlot {
-  const void* ptr;
-  int d, n, bh, width, rows, swizzle;
-  CUtensorMap map;
-};
-
+// zero-filled, so a ragged tail never reads the next head. Cached by
+// hopper::tiled_map: a call on tensors at the same addresses and shapes
+// encodes none.
 bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows, CUtensorMapSwizzle swizzle) {
-  static MapSlot slots[kMapSlots];
-  static std::mutex lock;
-  const int key[6] = {d, n, bh, width, rows, (int)swizzle};
-  uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
-  for (const int x : key) h = (h ^ (uint32_t)x) * 0x100000001b3ull;
-  MapSlot& slot = slots[(h ^ (h >> 29)) % kMapSlots];
-  std::lock_guard<std::mutex> guard(lock);
-  if (slot.ptr != ptr || memcmp(&slot.d, key, sizeof(key)) != 0) {
-    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-    const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    slot.ptr = nullptr;
-    if (encode_tiled()(&slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return false;
-    slot.ptr = ptr;
-    memcpy(&slot.d, key, sizeof(key));
-  }
-  *map = slot.map;
-  return true;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
+  return tiled_map(map, ptr, 3, dims, strides, box, swizzle);
 }
 
 template <int D>

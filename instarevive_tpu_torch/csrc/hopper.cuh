@@ -1,0 +1,239 @@
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
+// flash_attn_fwd.cu (K1 at head dims 64 and 72) and gn_conv.cu (K3, bf16).
+//
+// * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
+//   phase's parity;
+// * TMA: cp.async.bulk.tensor loads of one box of a tiled tensor map into
+//   shared memory, completing on an mbarrier (3-D and 4-D);
+// * wgmma: shared-memory descriptors, the fences and commit/wait around
+//   wgmma.mma_async, and the bf16 x bf16 -> f32 forms the kernels use
+//   (Wgmma<N>::ss with both operands in shared memory, Wgmma<N>::rs with A in
+//   registers and B an MN-major shared tile);
+// * on the host: cuTensorMapEncodeTiled, a libcuda entry point found through
+//   the runtime (the libraries link no libcuda), and a cache of the maps
+//   last made, keyed by address, shape, box and swizzle.
+//
+// Every library that includes this header hashes it into its build path
+// (ops/cuda_build.py), so an edit here rebuilds both.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+namespace hopper {
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// After the mbarriers are initialised, before any thread or TMA uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One box of `map` at the given coordinates (innermost first) into shared
+// memory at dst; its bytes complete on bar. Coordinates may be negative or
+// past the tensor: those elements are zero-filled.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle (1: 128 bytes, 3: 32 bytes). K-major under a swizzle: the
+// stride offset is between 8-row groups and the leading one unused. MN-major:
+// the stride offset is between groups of 8 along K; the leading one is between
+// swizzle-wide groups along M or N (64 bf16 under the 128-byte swizzle), and
+// unused when the tile is one group wide.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, uint64_t swizzle, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 |
+         swizzle << 62;
+}
+constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Waits until at most N committed groups of this warpgroup's wgmmas are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma's registers across the asm around them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WGMMA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_ACC16(i) WGMMA_ACC4(i), WGMMA_ACC4(i + 4), WGMMA_ACC4(i + 8), WGMMA_ACC4(i + 12)
+
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<16> {
+  // D (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7}, "
+                 "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC4(0), WGMMA_ACC4(4)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // D (64 x 64, f32) = [D +] A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major: two 64-wide groups LBO apart)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+                 "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC16(32), WGMMA_ACC16(48)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef WGMMA_ACC16
+#undef WGMMA_ACC4
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime; null where the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of `rank` (at most 5) dimensions, innermost first: dims,
+// the byte strides of dimensions 1.. (rank - 1 of them), the box and the
+// swizzle; elements outside the tensor read as zero. A map holds only the
+// address, the shape and the box, never the data, so the maps made last are
+// kept in a table of kMapSlots slots indexed by a hash of those, and a call on
+// tensors at the same addresses and shapes encodes none. Returns false when
+// the driver refuses the map.
+constexpr int kMapSlots = 256;
+
+struct MapKey {
+  const void* ptr;
+  int rank, swizzle;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+};
+
+inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  struct Slot {
+    MapKey key;
+    CUtensorMap map;
+  };
+  static Slot slots[kMapSlots];
+  static std::mutex lock;
+  MapKey key;
+  memset(&key, 0, sizeof(key));  // the padding too: keys are compared and hashed as raw memory
+  key.ptr = ptr;
+  key.rank = rank;
+  key.swizzle = (int)swizzle;
+  memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
+  memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
+  memcpy(key.box, box, rank * sizeof(cuuint32_t));
+  static_assert(sizeof(MapKey) % 8 == 0, "the key is hashed as 8-byte words");
+  uint64_t h = 0xcbf29ce484222325ull;
+  for (size_t i = 0; i < sizeof(key); i += 8) {
+    uint64_t word;
+    memcpy(&word, reinterpret_cast<const unsigned char*>(&key) + i, 8);
+    h = (h ^ word) * 0x100000001b3ull;
+  }
+  h = (h ^ (h >> 33)) * 0xff51afd7ed558ccdull;  // mix the high bits down before taking the low ones
+  Slot& slot = slots[(h ^ (h >> 33)) % kMapSlots];
+  std::lock_guard<std::mutex> guard(lock);
+  if (memcmp(&slot.key, &key, sizeof(key)) != 0) {
+    const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+    slot.key.ptr = nullptr;
+    if (encode_tiled()(&slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+                       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+    slot.key = key;
+  }
+  *map = slot.map;
+  return true;
+}
+
+}  // namespace hopper
+
+}  // namespace

@@ -2,8 +2,9 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` from the ``.cu`` files in
 ``instarevive_tpu_torch/csrc`` into ``build/kernels/`` at the repository root,
-named by a hash of its sources and flags, so a changed source rebuilds and an
-unchanged one loads from the cache. The sources expose plain ``extern "C"``
+named by a hash of its sources, the headers they include from ``csrc`` and
+the flags, so a changed source or header rebuilds and an unchanged one loads
+from the cache. The sources expose plain ``extern "C"``
 launchers; callers bind them with ``ctypes``. Nothing here runs at import
 time: a CPU-only process never touches ``nvcc``.
 """
@@ -13,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,10 +48,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def headers(sources: Sequence[str]) -> List[str]:
+    """The files of ``csrc`` that ``sources`` include with ``#include "..."``,
+    directly or through one another, relative to ``csrc``, sorted."""
+    found, todo = set(), list(sources)
+    while todo:
+        for name in _INCLUDE.findall((CSRC_DIR / todo.pop()).read_bytes()):
+            header = name.decode()
+            if header not in found and (CSRC_DIR / header).is_file():
+                found.add(header)
+                todo.append(header)
+    return sorted(found - set(sources))
+
+
 def library_path(name: str, sources: Sequence[str]) -> Path:
-    """Where the library built from ``sources`` lives (built or not)."""
+    """Where the library built from ``sources`` and the headers they include
+    lives (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers(sources)):
         digest.update(src.encode())
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -49,16 +49,14 @@ def build(sources):
     """name -> path of a built library; the committed source is "main"."""
     from instarevive_tpu_torch.ops import cuda_build
 
-    texts = {"main": (cuda_build.CSRC_DIR / "flash_attn_fwd.cu").read_text()}
-    for name, path in sources.items():
-        texts[name] = Path(path).read_text()
+    paths = {"main": cuda_build.CSRC_DIR / "flash_attn_fwd.cu", **{name: Path(p) for name, p in sources.items()}}
     out_dir = cuda_build.BUILD_DIR / "flash_fwd_sources"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in texts.items():
-        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-        cu.write_text(text)
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so), str(cu)]
+    for name, path in paths.items():
+        so = out_dir / f"lib{name}.so"
+        # a source finds the headers it includes beside itself first, then in csrc
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC_DIR), "-o", str(so), str(path)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():

@@ -159,7 +159,7 @@ def kernel_table(fn, label: str, top: int = 28) -> None:
           f"copies {sum(c[0] for c in copies):.2f} ms", flush=True)
     for ms, count, key in rows[:top]:
         print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:150]}", flush=True)
-    groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_tc::kernel", "gnconv_f32::kernel"),
+    groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_wg::kernel", "gnconv_f32::kernel"),
               "GroupNorm, upsample (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel", "upsample_kernel"),
               "flash attention (flash_attn_fwd.cu)": ("hopper::kernel", "wide::kernel", "fp32::kernel"),
               "window attention (swin_attention.cu)": ("swin_tc::kernel", "swin_f32::kernel"),
@@ -180,7 +180,13 @@ def main(argv=None) -> None:
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo))
+    import instarevive_tpu_torch
 
+    # under python -m the package is already the running checkout's, whatever --repo says
+    found = os.path.dirname(os.path.dirname(os.path.abspath(instarevive_tpu_torch.__file__)))
+    if found != os.path.abspath(args.repo):
+        sys.exit(f"time_restore: --repo {args.repo} is not the checkout the package came from ({found}); "
+                 "run this file by its path to time another tree")
     import torch
 
     if not torch.cuda.is_available():

@@ -192,7 +192,7 @@ GROUPS = {  # first match wins, in this order
     "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
     "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
     "optimizer, EMA, clipping (foreach)": ("multi_tensor_apply",),
-    "VAE kernels (gn_conv.cu, norm_kernels.cu)": ("gnconv_tc::kernel", "stats_kernel", "fold_kernel", "apply_kernel"),
+    "VAE kernels (gn_conv.cu, norm_kernels.cu)": ("gnconv_wg::kernel", "stats_kernel", "fold_kernel", "apply_kernel"),
     "convolutions (cuDNN)": ("fprop", "dgrad", "wgrad", "cudnn", "conv2d", "implicit_convolve"),
     "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
     "GroupNorm (torch)": ("group_norm", "GroupNorm", "RowwiseMoments", "ComputeFusedParams"),
@@ -242,7 +242,13 @@ def main(argv=None) -> None:
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo))
+    import instarevive_tpu_torch
 
+    # under python -m the package is already the running checkout's, whatever --repo says
+    found = os.path.dirname(os.path.dirname(os.path.abspath(instarevive_tpu_torch.__file__)))
+    if found != os.path.abspath(args.repo):
+        sys.exit(f"time_train: --repo {args.repo} is not the checkout the package came from ({found}); "
+                 "run this file by its path to time another tree")
     import torch
 
     if not torch.cuda.is_available():

@@ -327,11 +327,16 @@ def test_upsample2x_matches_plain(cuda, dtype, n, h, w, c):
     "n,h,w,c,co",
     [
         (2, 64, 64, 512, 512),
-        (1, 72, 72, 256, 128),   # the 576 tile's latent size: ragged against the 8 x 16 pixel tile
+        (1, 72, 72, 256, 128),   # the 576 tile's latent size: ragged against the 16 x 16 pixel tile
         (2, 9, 21, 128, 256),    # odd H and W
         (1, 1, 1, 32, 32),
         (1, 3, 40, 96, 96),      # C, Co multiples of 32 only: the 64-wide channel tile, ragged
         (1, 16, 16, 64, 160),
+        (1, 72, 72, 512, 512),   # tile decode at batch 1: the 64-wide channel tile fills the card
+        (1, 144, 144, 512, 512),
+        (3, 31, 47, 128, 128),   # H and W one short of and past multiples of 16
+        (1, 17, 33, 32, 64),     # C = 32: half a 64-channel chunk, the rest zero-filled
+        (1, 40, 24, 96, 96),     # C = 96: a whole chunk and half of one; Co = 96 in 64-wide tiles
     ],
 )
 def test_gn_silu_conv3x3_matches_plain(cuda, dtype, n, h, w, c, co):
@@ -343,6 +348,17 @@ def test_gn_silu_conv3x3_matches_plain(cuda, dtype, n, h, w, c, co):
     ref = gn_silu_conv3x3_plain(x, gamma, beta, wk, bias)
     assert out.dtype == dtype and out.shape == (n, h, w, co) and torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= CONV_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_silu_conv3x3_repeats_its_bits(cuda, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x, gamma, beta, wk, bias = _vae_inputs(cuda, dtype, 2, 40, 56, 256, 256, seed=4)
+    first = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+    second = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
