@@ -39,13 +39,20 @@
 //   and an n16 P.V, whose last 8 columns are not stored). Exponentials are
 //   ex2.approx.ftz (flushing results below 2^-126 to 0, which moves no
 //   output by a bf16 step), and an unmasked tile's scale rides in one FFMA.
-// * bf16, head dim 512 (the VAE mid block): one warp cannot hold a 512-wide
-//   accumulator, so the 8 warps of a block split both products. For S each
-//   warp takes a 64-wide slice of the head dim for all 32 query rows (its Q
-//   slice in registers) and the 8 partial score tiles meet in shared memory,
-//   where the softmax sums them; for P.V each warp owns 64 output columns of
-//   all 32 rows in registers. It double-buffers K and V tiles with cp.async,
-//   so the next tile loads while this one computes.
+// * bf16, head dim 512 (the VAE mid block, 2 of the 58 launches of one
+//   restoration call, 5 of the tiled call's 61) on the same path. A 64 x 512
+//   f32 output accumulator is half of an SM's registers, so a block is one
+//   wgmma M of 64 query rows whose 512 output columns are split between two
+//   warpgroups (128 accumulator registers a thread). Q is resident in shared
+//   memory as 8 boxes of 64 head dims x 64 rows under the 128-byte swizzle;
+//   K and V arrive by TMA in 32-key tiles of 8 such boxes through a ring of
+//   two stages, issued by one thread under full and empty mbarriers as
+//   above. Each warpgroup computes S = Q.K^T over its half of the head dim
+//   (16 k-steps of m64 n32 k16, both operands in shared memory); the two
+//   partial 64 x 32 tiles meet once a tile in shared memory, and each adds
+//   the other's, so both hold the same S and run the same online softmax.
+//   O += P.V is m64 n256 k16 with P from registers and the warpgroup's four
+//   V boxes read as one MN-major operand.
 // * f32, every head dim, keeps the scores and the accumulator in shared
 //   memory and runs plain FMAs on odd-strided tiles (no bank conflicts).
 // Other head dims are refused.
@@ -64,10 +71,26 @@
 // steps. On the host the launcher encodes the tensor maps (about 1 us a call
 // for all of them) and keeps the last 256 by address and shape, so a call on
 // tensors seen before costs what the mma.sync form's launcher did, within a
-// microsecond (tools/time_flash_fwd.py). The head-dim-512 form re-reads
-// every K/V tile from L2 once per 32 query rows, so L2 bandwidth bounds it;
-// its 210 KB of shared memory allow one block per SM. The f32 form is bound by shared-memory traffic and the
-// barriers between its phases.
+// microsecond (tools/time_flash_fwd.py). At head dim 512 the block's 64
+// query rows set the ratio of work to K/V bytes: each 32-key tile (64 KB)
+// feeds 4 MFLOP, and every block streams all of K and V through L2. On an
+// H100 (700 W, tools/time_flash_fwd.py with edited copies of this file) a
+// copy without its two products took 0.36 ms where the body took 0.48 at
+// (4,1,4096,4096,512); each SM drew the same
+// ~45 GB/s from L2 with 81 busy SMs as with 132 (so not the aggregate L2
+// rate), and 16-key tiles in three or four stages were 1.7x slower: what a
+// tile costs whatever its size bounds it. Each tile's S re-reads the
+// warpgroup's 32 KB of Q from shared memory, and a tile's S, exchange,
+// softmax and P.V run one after another with no other block on the SM to
+// fill the gaps. A stage's K tile is refilled as soon as both warpgroups are
+// past the exchange, half a tile before its V tile (8% faster). Tried and
+// not kept: S whole in each warpgroup with no exchange (9% slower); a
+// cluster of two blocks on adjacent query tiles sharing each K/V tile by TMA
+// multicast (twice as slow with the copying thread waiting on the other
+// block, and as slow without the multicast: the wait, not the copies,
+// costs). 225 KB of shared memory allow one block per SM; at batch 1 a
+// 5184-token tile gives 81 blocks for 132 SMs. The f32 form is bound by
+// shared-memory traffic and the barriers between its phases.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,61 +105,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kMaskedScore = -1e30f;  // as the plain version: masked keys keep a finite score
 
-// ---------------------------------------------------------------------------
-// PTX helpers of the bf16 forms.
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), f32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// Two f32 values rounded to bf16 in one register: a wgmma A-fragment word.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Rows [row0, row0 + ROWS) x columns [0, DP) of a row-major (n, D) bf16
-// matrix into a (ROWS, LDS) shared tile by cp.async, zero-filled past n and
-// past column D.
-template <int THREADS, int ROWS, int D, int DP, int LDS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < n && col < D;
-    cp_async_16(dst + r * LDS + col, valid ? src + (size_t)(row0 + r) * D + col : src, valid);
-  }
-}
-
-// Key flags of one tile: 1 keep, 0 masked, -1 past Nk.
-template <int THREADS, int BK>
-__device__ __forceinline__ void load_keep(float* dst, const uint8_t* mb, int kv0, int nk) {
-  for (int j = threadIdx.x; j < BK; j += THREADS) {
-    const int key = kv0 + j;
-    dst[j] = key >= nk ? -1.f : (mb == nullptr || mb[key] != 0) ? 1.f : 0.f;
-  }
-}
-
-// A tile's score in the log2 domain, from its key flag.
-__device__ __forceinline__ float masked_score(float s, float keep, float scale_log2) {
-  return keep > 0.f ? s * scale_log2 : (keep == 0.f ? kMaskedScore : -CUDART_INF_F);
 }
 
 // ---------------------------------------------------------------------------
@@ -177,6 +149,71 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The accumulator layout of wgmma's m64 fragments: this thread holds rows g and g + 8 (r = 0, 1) of
+// its warp's 16, and x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
+
+// One key tile of the online softmax in the log2 domain over the scores sc of keys kv0.. of this
+// thread's two rows. A tile of real, unmasked keys is scaled inside the exponent (one FFMA a score,
+// the max taken on the raw scores); any other tile is scaled first and its absent keys (past nk:
+// weight exactly 0) and masked keys (kMaskedScore) set. Updates the running max and sum, and gives
+// each row's rescale of the accumulator (alpha) and P, rounded to bf16, as wgmma A fragments (pf:
+// n-tile pairs become 16-key k-steps).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int kv0, int nk, const uint8_t* mb,
+                                             float scale_log2, int t, float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], uint32_t (&pf)[BK / 16][4]) {
+  float mul = scale_log2;
+  if (mb != nullptr || kv0 + BK > nk || scale_log2 <= 0.f) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
+      sc[i] = key >= nk ? -CUDART_INF_F : (mb != nullptr && mb[key] == 0) ? kMaskedScore : sc[i] * scale_log2;
+    }
+    mul = 1.f;
+  }
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r] * mul);
+    alpha[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    const float p0 = ex2(fmaf(sc[4 * nt], mul, -m_run[0])), p1 = ex2(fmaf(sc[4 * nt + 1], mul, -m_run[0]));
+    const float p2 = ex2(fmaf(sc[4 * nt + 2], mul, -m_run[1])), p3 = ex2(fmaf(sc[4 * nt + 3], mul, -m_run[1]));
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    pf[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
+    pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l_run[r] = l_run[r] * alpha[r] + sum[r];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// Row r of the accumulator times inv, as bf16 from orow (the row's column 2 t) on.
+template <int N>
+__device__ __forceinline__ void store_row(bf16* orow, const float (&o)[N], int r, float inv) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                                                             o[4 * j + 2 * r + 1] * inv);
+}
+
 template <int D>
 struct Maps {  // the tensor maps of Q, K and V: head dims 0-63, and 64-79 at d = 72
   CUtensorMap q, k, v, q_tail, k_tail, v_tail;
@@ -187,7 +224,6 @@ __global__ void __launch_bounds__(Tile<D>::kThreads)
 kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, bf16* __restrict__ out,
        float* __restrict__ lse, int heads, int nq, int nk, float scale_log2) {
   using T = Tile<D>;
-  constexpr int kNT = BK / 8;  // score n-tiles of 8 keys
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t sK = sQ + T::kQMain, sV = sK + kStages * T::kKVMain;
@@ -262,54 +298,12 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // online softmax in the log2 domain; this thread holds rows g and g + 8 of its warp's 16:
-    // sc[4 nt + e] is key nt * 8 + 2 t + (e & 1) of row g + 8 (e >> 1). A tile of real,
-    // unmasked keys is scaled inside the exponent (one FFMA a score, the max taken on the
-    // raw scores); any other tile is scaled first and its absent and masked keys set.
-    const int kv0 = tile * BK;
-    float mul = scale_log2;
-    if (mb != nullptr || kv0 + BK > nk || scale_log2 <= 0.f) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int key = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
-        sc[i] = key >= nk ? -CUDART_INF_F : (mb != nullptr && mb[key] == 0) ? kMaskedScore : sc[i] * scale_log2;
-      }
-      mul = 1.f;
-    }
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r] * mul);
-      alpha[r] = ex2(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    uint32_t pf[BK / 16][4];  // P as wgmma A fragments: n-tile pairs become 16-key k-steps
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const float p0 = ex2(fmaf(sc[4 * nt], mul, -m_run[0])), p1 = ex2(fmaf(sc[4 * nt + 1], mul, -m_run[0]));
-      const float p2 = ex2(fmaf(sc[4 * nt + 2], mul, -m_run[1])), p3 = ex2(fmaf(sc[4 * nt + 3], mul, -m_run[1]));
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      pf[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
-    if (T::kTail) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) o_tail[i] *= alpha[(i >> 1) & 1];
-    }
+    // online softmax in the log2 domain, P as wgmma A fragments
+    float alpha[2];
+    uint32_t pf[BK / 16][4];
+    softmax_tile<BK>(sc, tile * BK, nk, mb, scale_log2, t, m_run, l_run, alpha, pf);
+    rescale(o, alpha);
+    if (T::kTail) rescale(o_tail, alpha);
 
     // O += P V: P from registers, the V tiles (keys x head dims) as MN-major operands;
     // a k-step of 16 keys is two 8-row swizzle atoms
@@ -338,10 +332,7 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
     if (row >= nq) continue;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
     bf16* orow = ob + (size_t)row * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(o[4 * dt + 2 * r] * inv,
-                                                                                o[4 * dt + 2 * r + 1] * inv);
+    store_row(orow, o, r, inv);
     if (T::kTail)
       *reinterpret_cast<__nv_bfloat162*>(orow + 64) = __floats2bfloat162_rn(o_tail[2 * r] * inv,
                                                                             o_tail[2 * r + 1] * inv);
@@ -400,212 +391,188 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 512: both products split over the 8 warps of a block.
+// bf16, head dim 512: wgmma on TMA-fed tiles, the head dim split over two warpgroups.
 
-namespace wide {
+namespace d512 {
 
-constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int BQ = 32, BK = 32, D = 512;
-constexpr int kSlice = D / kWarps;  // head dims (for S) or output columns (for P.V) per warp
-constexpr int LDS = D + 8;          // 1040-byte rows put the 8 rows of an ldmatrix on 8 bank groups
-constexpr int LDSP = BK + 8;        // partial-score rows of 40 words: conflict-free float2 stores
-constexpr int LDP = BK + 8;         // P rows of 80 bytes, for ldmatrix as above
-constexpr int kNT = BK / 8;         // score n-tiles of 8 keys
-constexpr int kKS = kSlice / 16;    // k-steps of one warp's part of Q.K^T
-constexpr int kDT = kSlice / 8;     // output n-tiles of 8 columns per warp
-constexpr size_t kSmem = sizeof(bf16) * (BQ + 4 * BK) * LDS + sizeof(float) * kWarps * BQ * LDSP +
-                         sizeof(bf16) * BQ * LDP + sizeof(float) * (2 * BQ + 2 * BK);
-static_assert(kThreads == BQ * 8 && BK == 4 * 8, "the softmax gives each query row 8 threads of 4 keys");
+using namespace hopper;
+
+constexpr int D = 512, BQ = 64, BK = 32;    // head dims, query rows a block, keys a tile
+constexpr int kStages = 2;                  // the K/V ring: tiles in flight
+constexpr int kWarpgroups = 2, kThreads = 128 * kWarpgroups;
+constexpr int kChunks = D / 64;             // 64-wide head-dim chunks, one 128-byte swizzled row each
+constexpr int kMine = kChunks / kWarpgroups;  // a warpgroup's chunks: its half of Q.K^T, its output columns
+// Shared memory, from a 1024-byte aligned base: Q (64 KB, resident), the K ring, the V ring (32 KB a
+// stage each), the partial scores (8 KB a warpgroup, double-buffered by tile parity), the barriers.
+// A chunk of a tile is its rows x 128 bytes, so chunks start on 1024 bytes (the swizzle atom).
+constexpr uint32_t kQChunk = BQ * 128, kKVChunk = BK * 128;
+constexpr uint32_t kQ = kChunks * kQChunk, kKV = kChunks * kKVChunk;
+constexpr uint32_t kPart = 128 * (BK / 2) * 4;  // 16 f32 scores a thread
+constexpr uint32_t kOffK = kQ, kOffV = kOffK + kStages * kKV, kOffParts = kOffV + kStages * kKV;
+constexpr uint32_t kOffBars = kOffParts + 2 * kWarpgroups * kPart;
+constexpr size_t kSmem = 1024 + kOffBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
+static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+
+struct Maps {  // Q in boxes of 64 head dims x 64 rows, K and V in boxes of 64 head dims x 32 rows
+  CUtensorMap q, k, v;
+};
 
 __global__ void __launch_bounds__(kThreads, 1)
-kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const uint8_t* __restrict__ mask, bf16* __restrict__ out, int heads, int nq, int nk,
-       float scale_log2) {
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, bf16* __restrict__ out, int heads,
+       int nq, int nk, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LDS;      // two stages
-  bf16* sV = sK + 2 * BK * LDS;  // two stages
-  float* sSp = reinterpret_cast<float*>(sV + 2 * BK * LDS);  // each warp's partial S
-  bf16* sP = reinterpret_cast<bf16*>(sSp + kWarps * BQ * LDSP);
-  float* sAlpha = reinterpret_cast<float*>(sP + BQ * LDP);  // per-row rescale of this tile
-  float* sL = sAlpha + BQ;                                   // final row sums
-  float* sKeep = sL + BQ;                                    // two stages
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sK = sQ + kOffK, sV = sQ + kOffV;
+  const uint32_t full = sQ + kOffBars;        // per stage: its K and V tiles have landed
+  const uint32_t empty = full + 8 * kStages;  // per stage: every warp is done with its V tile
+  const uint32_t qbar = empty + 8 * kStages;
+  float* parts = reinterpret_cast<float*>(smem + (sQ - smem_u32(smem)) + kOffParts);
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group and column pair
-  const int slice = warp * kSlice;
-  const int srow = threadIdx.x / 8, spart = threadIdx.x % 8;  // softmax: row, 4-key part
-  const bf16* kb = k + (size_t)bh * nk * D;
-  const bf16* vb = v + (size_t)bh * nk * D;
-  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
   const int n_tiles = (nk + BK - 1) / BK;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const bool producer = threadIdx.x == 0;  // issues every copy; no warp is set aside for it
 
-  auto load_kv = [&](int tile, int stage) {
-    const int kv0 = tile * BK;
-    load_rows<kThreads, BK, D, D, LDS>(sK + stage * BK * LDS, kb, kv0, nk);
-    load_rows<kThreads, BK, D, D, LDS>(sV + stage * BK * LDS, vb, kv0, nk);
-    load_keep<kThreads, BK>(sKeep + stage * BK, mb, kv0, nk);
+  // a stage's K and V tiles complete on one barrier, whose expected bytes come with the K copies
+  auto load_k = [&](int tile) {
+    const int s = tile % kStages;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * kKV);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) tma_load(sK + s * kKV + c * kKVChunk, &maps.k, bar, 64 * c, tile * BK, bh);
   };
-
-  load_rows<kThreads, BQ, D, D, LDS>(sQ, q + (size_t)bh * nq * D, q0, nq);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  uint32_t qf[2][kKS][4];  // this warp's head-dim slice of Q: rows 0-15 and 16-31
-  float o[2][kDT][4];      // this warp's output columns: rows 0-15 and 16-31
+  auto load_v = [&](int tile) {
+    const int s = tile % kStages;
 #pragma unroll
-  for (int rg = 0; rg < 2; ++rg)
-#pragma unroll
-    for (int i = 0; i < kDT; ++i) o[rg][i][0] = o[rg][i][1] = o[rg][i][2] = o[rg][i][3] = 0.f;
-  float m_run = kMaskedScore, l_run = 0.f;  // row srow, the same in its 8 threads
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed, and the previous tile's readers are done
-    if (tile + 1 < n_tiles) load_kv(tile + 1, stage ^ 1);
-    cp_async_commit();
-    if (tile == 0) {
-#pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
-#pragma unroll
-        for (int ks = 0; ks < kKS; ++ks)
-          ldsm_x4(qf[rg][ks], sQ + (rg * 16 + lane % 16) * LDS + slice + ks * 16 + (lane / 16) * 8);
+    for (int c = 0; c < kChunks; ++c) tma_load(sV + s * kKV + c * kKVChunk, &maps.v, full + 8 * s, 64 * c, tile * BK, bh);
+  };
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);
     }
-    const bf16* tk = sK + stage * BK * LDS;
-    const bf16* tv = sV + stage * BK * LDS;
-    const float* keep = sKeep + stage * BK;
-
-    // partial S over this warp's head-dim slice, 32 rows x 32 keys
-    float s[2][kNT][4];
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (producer) {
+    mbar_expect_tx(qbar, kQ);
 #pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
-#pragma unroll
-      for (int i = 0; i < kNT; ++i) s[rg][i][0] = s[rg][i][1] = s[rg][i][2] = s[rg][i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, tk + (np * 16 + (lane / 16) * 8 + lane % 8) * LDS + slice + ks * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int rg = 0; rg < 2; ++rg) {
-          mma(s[rg][2 * np], qf[rg][ks], b[0], b[1]);
-          mma(s[rg][2 * np + 1], qf[rg][ks], b[2], b[3]);
-        }
-      }
-    }
-    float* sp = sSp + warp * BQ * LDSP;
-#pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(sp + (rg * 16 + g + 8 * h) * LDSP + nt * 8 + 2 * t) =
-              make_float2(s[rg][nt][2 * h], s[rg][nt][2 * h + 1]);
-    __syncthreads();
-
-    // online softmax in the log2 domain: the 8 partial sums, then row max and sum over 8 lanes
-    {
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float4 part = *reinterpret_cast<const float4*>(sSp + (w * BQ + srow) * LDSP + spart * 4);
-        x[0] += part.x;
-        x[1] += part.y;
-        x[2] += part.z;
-        x[3] += part.w;
-      }
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        x[c] = masked_score(x[c], keep[spart * 4 + c], scale_log2);
-        mx = fmaxf(mx, x[c]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = exp2f(m_run - m_new);
-      m_run = m_new;
-      float p[4], sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = exp2f(x[c] - m_new);
-        sum += p[c];
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run = l_run * alpha + sum;
-      *reinterpret_cast<uint2*>(sP + srow * LDP + spart * 4) = make_uint2(pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
-      if (spart == 0) sAlpha[srow] = alpha;
-    }
-    __syncthreads();
-
-    // O = alpha O + P V over this warp's output columns
-#pragma unroll
-    for (int rg = 0; rg < 2; ++rg) {
-      const float a0 = sAlpha[rg * 16 + g], a1 = sAlpha[rg * 16 + g + 8];
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        o[rg][dt][0] *= a0;
-        o[rg][dt][1] *= a0;
-        o[rg][dt][2] *= a1;
-        o[rg][dt][3] *= a1;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      uint32_t pf[2][4];
-#pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
-        ldsm_x4(pf[rg], sP + (rg * 16 + lane % 16) * LDP + c * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int dp = 0; dp < kDT / 2; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, tv + (c * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDS + slice + dp * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int rg = 0; rg < 2; ++rg) {
-          mma(o[rg][2 * dp], pf[rg], b[0], b[1]);
-          mma(o[rg][2 * dp + 1], pf[rg], b[2], b[3]);
-        }
-      }
+    for (int c = 0; c < kChunks; ++c) tma_load(sQ + c * kQChunk, &maps.q, qbar, 64 * c, q0, bh);
+    for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) {
+      load_k(tile);
+      load_v(tile);
     }
   }
-  if (spart == 0) sL[srow] = l_run;
-  __syncthreads();
 
-  bf16* ob = out + (size_t)bh * nq * D;
+  float o[128];  // 64 rows x this warpgroup's 256 output columns
 #pragma unroll
-  for (int rg = 0; rg < 2; ++rg) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = rg * 16 + g + 8 * h;
-      if (q0 + row >= nq) continue;
-      const float inv = 1.f / fmaxf(sL[row], 1e-30f);
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(q0 + row) * D + slice + dt * 8 + 2 * t) =
-            __floats2bfloat162_rn(o[rg][dt][2 * h] * inv, o[rg][dt][2 * h + 1] * inv);
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_run[2] = {kMaskedScore, kMaskedScore}, l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s = tile % kStages;
+    // refill the V tile of the previous tile's stage once every warp is done with it (its K tile went
+    // in after the previous tile's exchange)
+    if (producer && tile > 0 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty + 8 * ((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_v(tile - 1 + kStages);
     }
+    __syncwarp();
+    mbar_wait(full + 8 * s, (tile / kStages) & 1);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+
+    // this warpgroup's half of S = Q K^T, 64 x BK: four k-steps of 16 head dims in each of its chunks
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kMine; ++c) {
+      const int chunk = wg * kMine + c;
+      const uint64_t q_desc = smem_desc(sQ + chunk * kQChunk, 1024, kSwizzle128);
+      const uint64_t k_desc = smem_desc(sK + s * kKV + chunk * kKVChunk, 1024, kSwizzle128);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) Wgmma<BK>::ss(sc, q_desc + 2 * ks, k_desc + 2 * ks, c > 0 || ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the two halves meet in shared memory: thread tid of either warpgroup holds the same rows and
+    // keys, so each adds the other's 16 values (a + b == b + a: both get the same bits)
+    float4* mine = reinterpret_cast<float4*>(parts + ((tile & 1) * kWarpgroups + wg) * (kPart / 4));
+    const float4* theirs = reinterpret_cast<const float4*>(parts + ((tile & 1) * kWarpgroups + (wg ^ 1)) * (kPart / 4));
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) mine[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+    __syncthreads();  // a part is rewritten two tiles on, after the next barrier: its reader is past it
+    // both warpgroups are done with this K tile: refill it now, half a tile before its V tile
+    if (producer && tile + kStages < n_tiles) load_k(tile + kStages);
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const float4 x = theirs[i * 128 + tid];
+      sc[4 * i] += x.x;
+      sc[4 * i + 1] += x.y;
+      sc[4 * i + 2] += x.z;
+      sc[4 * i + 3] += x.w;
+    }
+
+    // online softmax in the log2 domain, as the head-dim-64/72 form (both warpgroups compute the same)
+    float alpha[2];
+    uint32_t pf[BK / 16][4];
+    softmax_tile<BK>(sc, tile * BK, nk, mb, scale_log2, t, m_run, l_run, alpha, pf);
+    rescale(o, alpha);
+
+    // O += P V over this warpgroup's 256 columns: P from registers, its four V chunks as one MN-major
+    // operand (64-wide groups a chunk apart); a k-step of 16 keys is two 8-row swizzle atoms
+    const uint64_t v_desc = smem_desc(sV + s * kKV + wg * kMine * kKVChunk, 1024, kSwizzle128, kKVChunk);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) Wgmma<256>::rs(o, pf[c], v_desc + c * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  bf16* ob = out + (size_t)bh * nq * D + wg * (D / kWarpgroups);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= nq) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    bf16* orow = ob + (size_t)row * D + 2 * t;
+    store_row(orow, o, r, inv);
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, int bh,
-                   int heads, int nq, int nk, float scale, cudaStream_t stream) {
-  static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, int bh, int heads,
+                   int nq, int nk, float scale, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  Maps maps = {};
+  if (!(make_map(&maps.q, q, D, nq, bh, 64, BQ, CU_TENSOR_MAP_SWIZZLE_128B) &&
+        make_map(&maps.k, k, D, nk, bh, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+        make_map(&maps.v, v, D, nk, bh, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), heads, nq, nk,
-      scale * 1.4426950408889634f);
+  kernel<<<grid, kThreads, kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), heads,
+                                            nq, nk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-}  // namespace wide
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = (int)kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, kSmem);
+}
+
+}  // namespace d512
 
 // ---------------------------------------------------------------------------
 // f32, head dims 72 and 512: scores and accumulator in shared memory, FMAs.
@@ -804,17 +771,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
                    : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
   }
   if (d == 512 && lse == nullptr) {
-    return is_bf16 ? wide::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
+    return is_bf16 ? d512::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
                    : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, nullptr, bh, heads, nq, nk, d, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 head-dim-64/72 form at head dim d: the shared memory a block takes
-// and how many of its blocks fit on one SM, registers and shared memory
-// together (for reports). Returns a cudaError_t.
+// The bf16 form at head dim d: the shared memory a block takes and how many
+// of its blocks fit on one SM, registers and shared memory together (for
+// reports). Returns a cudaError_t.
 extern "C" int flash_attn_fwd_occupancy(int d, int* smem_bytes, int* blocks_per_sm) {
   if (d == 64) return hopper::occupancy<64>(smem_bytes, blocks_per_sm);
   if (d == 72) return hopper::occupancy<72>(smem_bytes, blocks_per_sm);
+  if (d == 512) return d512::occupancy(smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

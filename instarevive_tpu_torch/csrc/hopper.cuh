@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
-// flash_attn_fwd.cu (K1 at head dims 64 and 72) and gn_conv.cu (K3, bf16).
+// flash_attn_fwd.cu (K1 at head dims 64, 72 and 512) and gn_conv.cu (K3, bf16).
 //
 // * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
 //   phase's parity;
@@ -123,6 +123,18 @@ template <> struct Wgmma<16> {
   }
 };
 
+template <> struct Wgmma<32> {
+  // D (64 x 32, f32) = [D +] A (64 x 16, shared, K-major) . B (32 x 16, shared, K-major)^T
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+                 "%16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : WGMMA_ACC16(0)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
 template <> struct Wgmma<64> {
   // D (64 x 64, f32) = [D +] A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
@@ -157,6 +169,26 @@ template <> struct Wgmma<128> {
                  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
                  "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
                  : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC16(32), WGMMA_ACC16(48)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<256> {
+  // D (64 x 256, f32) += A (64 x 16, registers) . B (16 x 256, shared, MN-major: four 64-wide groups LBO apart)
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+                 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+                 "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+                 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+                 "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+                 "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC16(32), WGMMA_ACC16(48), WGMMA_ACC16(64),
+                   WGMMA_ACC16(80), WGMMA_ACC16(96), WGMMA_ACC16(112)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

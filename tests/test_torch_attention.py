@@ -56,6 +56,8 @@ def test_sdpa_matches_jax_sdpa(case):
         (2, 3, 130, 300, 72, [300, 123]),  # caption-length keys, ragged mask
         (1, 1, 33, 100, 512, None),        # VAE mid-block head dim
         (2, 1, 20, 77, 512, [77, 5]),
+        (1, 1, 81, 81, 512, None),         # the card's 64-row blocks and 32-key tiles, ragged
+        (2, 1, 65, 129, 512, [129, 40]),
         (2, 2, 64, 4, 64, None),           # UNet head dim: the middle block's 64 queries over a 4-key context
         (1, 2, 100, 77, 64, [40]),         # ragged queries over a CLIP-length, masked context
     ],
