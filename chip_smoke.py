@@ -12,12 +12,13 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
-   for the bf16 forward (head dims 64, 72 and 512) and the bf16 fused
-   convolution also their shared memory a block, blocks an SM and their
-   count of wgmma (HGMMA) and TMA-load (UTMALDG) instructions, and fails if
-   either count is 0 (for the head-dim-512 kernel too), if the forward
-   library or the convolution's bf16 kernels hold an mma.sync (HMMA), or if
-   the head-dim-512 kernel spills;
+   for the bf16 forward (head dims 64, 72 and 512), the bf16 backward (both
+   passes at head dims 64 and 72) and the bf16 fused convolution also their
+   shared memory a block, blocks an SM and their count of wgmma (HGMMA) and
+   TMA-load (UTMALDG) instructions, and fails if either count is 0 (for the
+   head-dim-512 kernel too), if the forward library or the backward's or the
+   convolution's bf16 kernels hold an mma.sync (HMMA), or if the
+   head-dim-512 kernel or a bf16 backward kernel spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
@@ -428,6 +429,33 @@ def norm_phase():
     return stats, applies, ups
 
 
+def ptxas_figures(log: str, pattern: str, key) -> dict:
+    """Registers and spill stores, from ptxas's lines in an nvcc log, of each
+    kernel whose mangled name matches ``pattern``, under the prefix ``key``
+    makes of the match (``{prefix}_registers``, ``{prefix}_spill_stores``)."""
+    report = {}
+    for fn_name, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S):
+        m = re.search(pattern, fn_name)
+        if m:
+            report[f"{key(m)}_registers"] = int(re.search(r"Used (\d+) registers", body).group(1))
+            report[f"{key(m)}_spill_stores"] = int(re.search(r"(\d+) bytes spill stores", body).group(1))
+    return report
+
+
+def sass_counts(library: str, in_name: str = "") -> dict:
+    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
+    the SASS of the built library's functions whose name holds ``in_name``."""
+    import shutil
+
+    from instarevive_tpu_torch.ops import cuda_build
+
+    so = cuda_build.library_path(library, cuda_build.LIBRARIES[library])
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    text = "".join(part for part in sass.split("Function : ")[1:] if in_name in part.split("\n", 1)[0])
+    return {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+
+
 def hopper_build_report(log: str):
     """The bf16 forward as built: registers and spill stores of each head
     dim's kernel (ptxas, when this run compiled it), the shared memory a block
@@ -437,16 +465,10 @@ def hopper_build_report(log: str):
     Fails if the library or the head-dim-512 kernel has no HGMMA or no
     UTMALDG, if an HMMA is left, or if the head-dim-512 kernel spills."""
     import ctypes
-    import shutil
 
     from instarevive_tpu_torch.ops import cuda_build
 
-    report = {}
-    for fn_name, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S):
-        m = re.search(r"hopper6kernelILi(\d+)E", fn_name) or re.search(r"(512)6kernelE", fn_name)
-        if m:
-            report[f"d{m.group(1)}_registers"] = int(re.search(r"Used (\d+) registers", body).group(1))
-            report[f"d{m.group(1)}_spill_stores"] = int(re.search(r"(\d+) bytes spill stores", body).group(1))
+    report = ptxas_figures(log, r"hopper6kernelILi(\d+)E|d(512)6kernelE", lambda m: f"d{m.group(1) or m.group(2)}")
     occupancy = cuda_build.load_library("flash_attn_fwd").flash_attn_fwd_occupancy
     occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     for d in (64, 72, 512):
@@ -454,12 +476,9 @@ def hopper_build_report(log: str):
         if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
             fail(f"flash_attn_fwd_occupancy({d}) failed")
         report[f"d{d}_smem_bytes"], report[f"d{d}_blocks_per_sm"] = smem.value, blocks.value
-    so = cuda_build.library_path("flash_attn_fwd", cuda_build.LIBRARIES["flash_attn_fwd"])
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
-    d512 = "".join(part for part in sass.split("Function : ")[1:] if "d5126kernel" in part.split("\n", 1)[0])
-    report["HGMMA"], report["UTMALDG"], report["HMMA"] = sass.count("HGMMA"), sass.count("UTMALDG"), sass.count("HMMA")
-    report["d512_HGMMA"], report["d512_UTMALDG"] = d512.count("HGMMA"), d512.count("UTMALDG")
+    report.update(sass_counts("flash_attn_fwd"))
+    d512 = sass_counts("flash_attn_fwd", "d5126kernel")
+    report["d512_HGMMA"], report["d512_UTMALDG"] = d512["HGMMA"], d512["UTMALDG"]
     print(f"[build] flash_attn_fwd.cu, the bf16 forms: {report}", flush=True)
     if not (report["HGMMA"] and report["UTMALDG"] and report["d512_HGMMA"] and report["d512_UTMALDG"]):
         fail(f"the forward library has {report['HGMMA']} HGMMA and {report['UTMALDG']} UTMALDG instructions, "
@@ -478,16 +497,10 @@ def gn_conv_build_report(log: str):
     instructions in its bf16 kernels' SASS. Fails if either of the first two
     is 0 or if an HMMA is left."""
     import ctypes
-    import shutil
 
     from instarevive_tpu_torch.ops import cuda_build
 
-    report = {}
-    for fn_name, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S):
-        m = re.search(r"gnconv_wg6kernelILi(\d+)E", fn_name)
-        if m:
-            report[f"n{m.group(1)}_registers"] = int(re.search(r"Used (\d+) registers", body).group(1))
-            report[f"n{m.group(1)}_spill_stores"] = int(re.search(r"(\d+) bytes spill stores", body).group(1))
+    report = ptxas_figures(log, r"gnconv_wg6kernelILi(\d+)E", lambda m: f"n{m.group(1)}")
     occupancy = cuda_build.load_library("gn_conv").gn_silu_conv3x3_occupancy
     occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     occupancy.restype = ctypes.c_int
@@ -496,15 +509,42 @@ def gn_conv_build_report(log: str):
         if occupancy(bn, 512, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
             fail(f"gn_silu_conv3x3_occupancy({bn}, 512) failed")
         report[f"n{bn}_smem_bytes_c512"], report[f"n{bn}_blocks_per_sm"] = smem.value, blocks.value
-    so = cuda_build.library_path("gn_conv", cuda_build.LIBRARIES["gn_conv"])
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
-    bf16 = "".join(part for part in sass.split("Function : ")[1:] if "gnconv_wg" in part.split("\n", 1)[0])
-    report["HGMMA"], report["UTMALDG"], report["HMMA"] = bf16.count("HGMMA"), bf16.count("UTMALDG"), bf16.count("HMMA")
+    report.update(sass_counts("gn_conv", "gnconv_wg"))
     print(f"[build] gn_conv.cu, the bf16 form: {report}", flush=True)
     if not (report["HGMMA"] and report["UTMALDG"]) or report["HMMA"]:
         fail(f"the fused convolution's bf16 kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG "
              f"and {report['HMMA']} HMMA instructions")
+    return report
+
+
+def bwd_build_report(log: str):
+    """The bf16 backward as built: registers and spill stores of each pass
+    at each head dim (ptxas, when this run compiled it), the shared memory a
+    block takes and the blocks an SM holds (the library's own figures), and
+    the counts of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+    instructions in the bf16 kernels' SASS. Fails if either of the first two
+    is 0, if an HMMA is left or if a bf16 kernel spills."""
+    import ctypes
+
+    from instarevive_tpu_torch.ops import cuda_build
+
+    report = ptxas_figures(log, r"bwd166kernelILi(\d+)ELb([01])E",
+                           lambda m: f"{'dkv' if m.group(2) == '1' else 'dq'}_d{m.group(1)}")
+    occupancy = cuda_build.load_library("flash_attn_bwd").flash_attn_bwd_occupancy
+    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
+    for kv, pass_name in ((0, "dq"), (1, "dkv")):
+        for d in (64, 72):
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            if occupancy(d, kv, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+                fail(f"flash_attn_bwd_occupancy({d}, {kv}) failed")
+            report[f"{pass_name}_d{d}_smem_bytes"], report[f"{pass_name}_d{d}_blocks_per_sm"] = smem.value, blocks.value
+    report.update(sass_counts("flash_attn_bwd", "bwd16"))
+    print(f"[build] flash_attn_bwd.cu, the bf16 form: {report}", flush=True)
+    spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
+    if not (report["HGMMA"] and report["UTMALDG"]) or report["HMMA"] or spills:
+        fail(f"the backward's bf16 kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
+             f"{report['HMMA']} HMMA instructions; spills {spills}")
     return report
 
 
@@ -579,16 +619,11 @@ def backward_phase():
     import torch.nn.functional as F
 
     from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.tools.time_flash_bwd import BACKWARD_CASES
 
-    cases = [  # (name, (B, H, Nq, Nk, D), keys kept per sample or None)
-        ("dit_self", (2, 16, 1024, 1024, 72), None),
-        ("dit_cross", (2, 16, 1024, 300, 72), None),
-        ("dit_cross_masked", (2, 16, 1024, 300, 72), (77, 300)),
-        ("ragged", (1, 16, 1000, 77, 72), None),
-    ]
     dq_records, dkv_records, lse_records = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for name, (b, h, nq, nk, d), kept in cases:
+    for name, (b, h, nq, nk, d), kept in BACKWARD_CASES:
         for dt in ("bf16", "f32"):
             dtype = getattr(torch, DTYPES[dt])
             q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
@@ -1519,28 +1554,6 @@ def swinir_train_phase(cfg_full, swin_records, filter_records):
     return counts, per_step, dict(timing, three_steps_s=seconds, card_vs_cpu=errs)
 
 
-# The UNet's and the ControlNet's attention at head dim 64 (configs/cldm.yaml at
-# batch 2 on 512x512 crops: 64x64 latents, heads = channels / 64): self-attention
-# at ds 1, 2, 4 and in the middle block, and cross-attention over the trainer's
-# 4-key zero context and over a 77-key CLIP context, one with a ragged mask.
-D64_CASES = [  # (name, (B, H, Nq, Nk), keys kept per sample or None)
-    ("ds1_self", (2, 5, 4096, 4096), None),
-    ("ds1_cross4", (2, 5, 4096, 4), None),
-    ("ds1_cross77", (2, 5, 4096, 77), None),
-    ("ds1_cross77_masked", (2, 5, 4096, 77), (77, 20)),
-    ("ds2_self", (2, 10, 1024, 1024), None),
-    ("ds2_cross4", (2, 10, 1024, 4), None),
-    ("ds2_cross77", (2, 10, 1024, 77), None),
-    ("ds4_self", (2, 20, 256, 256), None),
-    ("ds4_cross4", (2, 20, 256, 4), None),
-    ("ds4_cross77", (2, 20, 256, 77), None),
-    ("mid_self", (2, 20, 64, 64), None),
-    ("mid_cross4", (2, 20, 64, 4), None),
-    ("mid_cross77", (2, 20, 64, 77), None),
-    ("ragged_q1000_k40_masked", (1, 5, 1000, 40), (33,)),  # ragged Nq, Nk under one key tile
-]
-
-
 def d64_phase():
     """K1 (without and with the log-sum-exp) and K2 (dq, dk/dv) at head dim
     64 against ``sdpa``, ``flash_lse_plain`` and ``flash_backward_plain`` at
@@ -1555,6 +1568,7 @@ def d64_phase():
     import torch.nn.functional as F
 
     from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.tools.time_flash_bwd import D64_CASES
 
     fwd_records, dq_records, dkv_records, held = [], [], [], set()
     gen = torch.Generator(device="cuda").manual_seed(64)
@@ -1866,11 +1880,18 @@ def cldm_step_card_against_cpu(cfg_full, merge):
     return errs
 
 
-def d64_entries(fwd_records, dq_records, dkv_records, by_dim):
+def bwd_pass(build, pass_name):
+    """One backward pass's part of ``bwd_build_report``: its registers,
+    spills, shared memory and blocks an SM at each head dim, and the bf16
+    form's instruction counts, which both passes share."""
+    return {k: v for k, v in build.items() if k.startswith(pass_name + "_") or k in ("HGMMA", "UTMALDG", "HMMA")}
+
+
+def d64_entries(fwd_records, dq_records, dkv_records, by_dim, bwd_build):
     """The head-dim-64 instantiations' entries of the ``kernels`` line: the
     UNet's largest self-attention (ds 1) at top level, every shape below;
     ``launches`` is the 3-step ``--task cldm`` run's count from the shape
-    tally."""
+    tally; the backward's entries carry their pass's build figures."""
     out = []
     for name, replaces, records, launches in (
             ("flash_attn_fwd_d64", "instarevive_tpu/ops/attention.py:63", fwd_records, by_dim["d64"]),
@@ -1887,6 +1908,8 @@ def d64_entries(fwd_records, dq_records, dkv_records, by_dim):
                  "main_shape": main_rec["shape"], "shapes": records}
         if name == "flash_attn_fwd_d64":
             entry["launches_with_lse_cldm_run"] = by_dim["d64_with_lse"]
+        else:
+            entry["build"] = bwd_pass(bwd_build, "dq" if "_dq_" in name else "dkv")
         out.append(entry)
     return out
 
@@ -1970,7 +1993,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
-    fwd_build = conv_build = None
+    fwd_build = conv_build = bwd_build = None
     for name, (seconds, cached, log) in cuda_build.build_libraries().items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
@@ -1981,6 +2004,8 @@ def main() -> None:
             fwd_build = hopper_build_report(log)
         if name == "gn_conv":
             conv_build = gn_conv_build_report(log)
+        if name == "flash_attn_bwd":
+            bwd_build = bwd_build_report(log)
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
@@ -2019,10 +2044,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         fwd,
         d512_entry(attn_records, fwd_build),
-        kernel_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127",
-                     launches, tiled, dq_records, "dit_self", train),
-        kernel_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166",
-                     launches, tiled, dkv_records, "dit_self", train),
+        dict(kernel_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127",
+                          launches, tiled, dq_records, "dit_self", train), build=bwd_pass(bwd_build, "dq")),
+        dict(kernel_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166",
+                          launches, tiled, dkv_records, "dit_self", train), build=bwd_pass(bwd_build, "dkv")),
         conv,
         kernel_entry("gn_stats_fold", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:77",
                      launches, tiled, stats_records, "b4_512_128", train),
@@ -2031,7 +2056,7 @@ def main() -> None:
         up,
         swin,
         filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
-        *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3]),
+        *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3], bwd_build),
     ], "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2], "degrade": degrade_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,9 @@
 //     dP = dO V^T
 //     dS = P * (dP - di) * scale
 // and sum, in f32,
-//     dQ = dS K          (dq pass: a block owns 64 queries and walks the keys)
+//     dQ = dS K          (dq pass: a block owns queries and walks the keys)
 //     dV = P^T dO, dK = dS^T Q
-//                        (dk/dv pass: a block owns 64 keys and walks the queries)
+//                        (dk/dv pass: a block owns keys and walks the queries)
 // with P and dS rounded to the operands' type before those products. Every
 // output element is written once by one block, in a fixed order of sums: no
 // atomics, and the same inputs give the same bits.
@@ -37,29 +37,52 @@
 // Two forms, each templated on the head dim and instantiated at 64 (the UNet
 // and ControlNet of the LDM trainer) and 72 (the DiT); head dim 512 takes no
 // gradient:
-// * bf16: each of the 4 warps owns 16 rows; S, dP and the accumulators live in
-//   registers and all five products run on the tensor cores as mma.sync
-//   m16n8k16 (bf16 x bf16 -> f32). P and dS leave the softmax already in the
-//   A-fragment layout of the next product; the transposed products need no
-//   transposed copy because the dk/dv pass computes S^T directly (K as the
-//   row operand). The row operands are re-read from shared memory per k-step
-//   rather than held, to keep the two 16 x 80 accumulators of the dk/dv pass
-//   and both 16 x 64 tiles within the register file. Column tiles are
-//   double-buffered with cp.async. Head dim 72 is zero-padded to 80 in shared
-//   memory only; 64 needs no padding.
-// * f32: tiles of 32 x 32 in shared memory on odd strides, plain FMAs, the
-//   accumulators in registers (d / 4 outputs per thread and product).
+// * bf16 (namespace bwd16): wgmma on TMA-fed tiles, the design of the forward's
+//   head-dim-64/72 body (flash_attn_fwd.cu, namespace hopper). A warpgroup
+//   owns 64 rows. The block's row operands land once by TMA; the column
+//   operands stream through a ring of kStages 64-column stages that one warp
+//   fills (thread 0 issues the TMA copies, the warp's lanes write the stage's
+//   per-column values beside them: the key flag, or L in the log2 domain and
+//   di), each stage tracked by a full mbarrier (bytes and values landed) and
+//   an empty one (every warp is done with it); no warp is set aside to
+//   produce. Tiles are laid out for TMA's widest rows: head dims 0-63 of a row
+//   are 128 bytes under the 128-byte swizzle, and at d = 72 head dims 64-79 are
+//   a second tile of 32-byte rows under the 32-byte swizzle, 72-79 zero-filled
+//   by TMA past the tensor. S = A C^T and dP = B D^T are m64 n64 k16 with both
+//   operands in shared memory (a fifth k-step in the tails at d = 72), issued
+//   together so the exponentials of P overlap dP's products. P and dS go from
+//   the accumulator registers, rounded to bf16, straight into wgmma A
+//   fragments (the accumulator layout of S is wgmma's register-A layout), and
+//   out1 += dS C, out2 += P D are m64 n64 k16 (plus n16 over the tail at
+//   d = 72) with the same streamed tile read as an MN-major B: each column
+//   tile serves as the K-major B of a score product and the MN-major B of an
+//   output product. The dk/dv pass computes S^T = K Q^T directly, so P^T and
+//   dS^T come out already shaped as their product's A operand. The
+//   accumulators stay in registers until one store at the end.
+// * f32 (namespace bwd32): tiles of 32 x 32 in shared memory on odd strides,
+//   plain FMAs, the accumulators in registers (d / 4 outputs per thread and
+//   product).
 //
 // What bounds it on this card: 10 * BH * Nq * Nk * d useful operations against
-// a few MB of operands, far above the ridge point, so the bf16 form is bound by
-// mma.sync throughput and the exp2 of the recomputed softmax, at a fraction of the
-// wgmma peak; the dk/dv pass at Nk = 300 fills only 5 x BH blocks. wgmma, TMA
-// and a split of the query range for short key counts are left for later work.
+// a few MB of operands, far above the ridge point, so operations bound it. A
+// warpgroup runs a tile's steps in turn (S and dP, then P, then dS and the
+// output products, whose end it waits for), and only the other warpgroups on
+// the SM fill the gaps: two blocks of one at d = 64 (three in the dq pass), one
+// of two at d = 72, as registers allow (164-190 a thread, no spill). On an H100
+// (tools/time_flash_bwd.py with edited copies of this file) the exponentials
+// cost 2-10% of a pass and the output products with their wait a quarter to a
+// half of the dq pass; taking that wait into the next tile, behind its score
+// products, was 7-20% slower. The dk/dv pass at a short key count fills few
+// blocks (Nk = 4: one block per (batch, head), walking every query). A split of
+// the query range, a producer warp and ping-pong between warpgroups are left
+// for later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,41 +91,10 @@ using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kDeadRow = -1e29f;  // L below this: every key of the row was masked (L = -1e30)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), f32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 // Key flag: 1 keep, 0 masked, -1 past Nk.
 __device__ __forceinline__ float key_flag(const uint8_t* mb, int key, int nk) {
@@ -110,139 +102,92 @@ __device__ __forceinline__ float key_flag(const uint8_t* mb, int key, int nk) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 72, tensor cores: one body templated on the head dim.
+// bf16, head dims 64 and 72: wgmma on TMA-fed tiles, one body templated on the head dim and the pass.
 
 namespace bwd16 {
 
-constexpr int kThreads = 128;
-constexpr int BR = 64, BC = 64;  // rows a block owns (16 per warp); columns per streamed tile
-constexpr int kNT = BC / 8;      // n-tiles of the 16 x 64 score tile
+using namespace hopper;
 
-// Per head dim D: DP, its MMA padding, and LDS, the shared row stride in
-// halves; an odd number of 16-byte chunks a row (144 B for 64, 176 B for 72)
-// puts the 8 rows of an ldmatrix on 8 bank groups.
-template <int D> struct Dims;
-template <> struct Dims<64> { static constexpr int DP = 64, LDS = 72; };
-template <> struct Dims<72> { static constexpr int DP = 80, LDS = 88; };
+constexpr int BC = 64;      // columns a streamed tile
+constexpr int kStages = 2;  // the column ring: tiles in flight
 
+// Shared memory, from a 1024-byte aligned base: the row tiles A and B, the C
+// ring, the D ring (head dims 0-63, 128-byte rows under the 128-byte swizzle);
+// at d = 72 the tails (head dims 64-79, 32-byte rows under the 32-byte
+// swizzle) in the same order; the ring's per-column values (2 x BC f32 a
+// stage); the barriers. A main tile starts on 1024 bytes and a tail tile on
+// 256 (their swizzle atoms: 8 rows).
+template <int D, bool KV>
+struct Tile {
+  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  // warpgroups a block, 64 rows each, sharing the column ring: two at d = 72, whose 32-byte tail
+  // rows make the copies dearer; one at d = 64 (chosen by time, tools/time_flash_bwd.py)
+  static constexpr int kWarpgroups = D == 72 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWarpgroups, BR = 64 * kWarpgroups;  // threads, rows a block
+  static constexpr bool kTail = D > 64;
+  static constexpr uint32_t kRowMain = BR * 128, kRowTail = kTail ? BR * 32 : 0;
+  static constexpr uint32_t kColMain = BC * 128, kColTail = kTail ? BC * 32 : 0;
+  static constexpr uint32_t kOffB = kRowMain, kOffC = 2 * kRowMain, kOffD = kOffC + kStages * kColMain;
+  static constexpr uint32_t kOffAt = kOffD + kStages * kColMain, kOffBt = kOffAt + kRowTail;
+  static constexpr uint32_t kOffCt = kOffBt + kRowTail, kOffDt = kOffCt + kStages * kColTail;
+  static constexpr uint32_t kOffVals = kOffDt + kStages * kColTail;
+  static constexpr uint32_t kOffBars = kOffVals + kStages * 2 * BC * 4;
+  static constexpr size_t kSmem = 1024 + kOffBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
+  static constexpr uint32_t kRowBytes = 2 * (kRowMain + kRowTail), kColBytes = 2 * (kColMain + kColTail);
+};
+
+struct Maps {  // the row operands A, B and the column operands C, D: head dims 0-63, and 64-79 at d = 72
+  CUtensorMap a, b, c, d, a_tail, b_tail, c_tail, d_tail;
+};
+
+// Row r (0, 1) of a 64 x 64 (and, at d = 72, 64 x 16 tail) accumulator as bf16 from orow (the row's column 2 t)
+// on; x[4 j + 2 r + e] is column 8 j + 2 t + e. The tail's columns 72-79 are not stored.
 template <int D>
-constexpr size_t smem_bytes() { return sizeof(bf16) * (2 * BR + 4 * BC) * Dims<D>::LDS + sizeof(float) * 4 * BC; }
-
-// Rows [row0, row0 + ROWS) x columns [0, DP) of a row-major (n, D) bf16 matrix
-// into a (ROWS, LDS) shared tile by cp.async, zero-filled past n and past D.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n) {
-  constexpr int LDS = Dims<D>::LDS;
-  constexpr int kChunks = Dims<D>::DP / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < n && col < D;
-    cp_async_16(dst + r * LDS + col, valid ? src + (size_t)(row0 + r) * D + col : src, valid);
-  }
-}
-
-// acc (16 x 64 per warp) = rows (this warp's 16 of a shared tile) x cols^T.
-template <int D>
-__device__ __forceinline__ void rows_times_cols_t(float (&acc)[kNT][4], const bf16* rows, const bf16* cols,
-                                                  int warp, int lane) {
-  constexpr int LDS = Dims<D>::LDS, kKS = Dims<D>::DP / 16;  // k-steps over the head dim
+__device__ __forceinline__ void store_row(bf16* orow, const float (&x)[32], const float (&tail)[8], int r) {
 #pragma unroll
-  for (int i = 0; i < kNT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, rows + (warp * 16 + lane % 16) * LDS + ks * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, cols + (np * 16 + (lane / 16) * 8 + lane % 8) * LDS + ks * 16 + ((lane / 8) % 2) * 8);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x DP per warp) += frag (16 x 64, A fragments) x cols (64 x DP shared tile).
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::DP / 8][4], const uint32_t (&frag)[BC / 16][4],
-                                           const bf16* cols, int lane) {
-  constexpr int LDS = Dims<D>::LDS, kDT = Dims<D>::DP / 8;
-#pragma unroll
-  for (int c = 0; c < BC / 16; ++c) {
-#pragma unroll
-    for (int dp = 0; dp < kDT / 2; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, cols + (c * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDS + dp * 16 + (lane / 16) * 8);
-      mma(acc[2 * dp], frag[c], b[0], b[1]);
-      mma(acc[2 * dp + 1], frag[c], b[2], b[3]);
-    }
-  }
-}
-
-// A 16 x 64 f32 tile in mma accumulator layout, rounded to bf16 A fragments.
-__device__ __forceinline__ void to_fragments(uint32_t (&frag)[BC / 16][4], const float (&x)[kNT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    frag[nt / 2][(nt % 2) * 2] = pack_bf16(x[nt][0], x[nt][1]);
-    frag[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[Dims<D>::DP / 8][4], int row0, int n,
-                                           int g, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
-  }
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+  if (D > 64) *reinterpret_cast<__nv_bfloat162*>(orow + 64) = __floats2bfloat162_rn(tail[2 * r], tail[2 * r + 1]);
 }
 
 // KV = false: the dq pass (out1 = dQ, out2 unused). KV = true: the dk/dv pass
-// (out1 = dK, out2 = dV). ptxas -v (sm_90a, CUDA 12.8), registers per thread:
-// d = 72, 159 (dq) and 216 (dk/dv), no spills; d = 64, 128 (dq, with 24 bytes
-// of spill stores and 8 of loads: ptxas stops at 128 there) and 165 (dk/dv, no
-// spills). chip_smoke.py's build line prints them.
+// (out1 = dK, out2 = dV). The accumulator layout of wgmma's m64 fragments:
+// this thread holds rows g and g + 8 (r = 0, 1) of its warp's 16, and
+// x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
 template <int D, bool KV>
-__global__ void __launch_bounds__(kThreads)
-kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const bf16* __restrict__ dout, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
-       const float* __restrict__ di, bf16* __restrict__ out1, bf16* __restrict__ out2, int heads, int nq,
-       int nk, float scale) {
-  constexpr int LDS = Dims<D>::LDS, kDT = Dims<D>::DP / 8;  // n-tiles of a 16 x DP accumulator
+__global__ void __launch_bounds__(Tile<D, KV>::kThreads)
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+       const float* __restrict__ di, bf16* __restrict__ out1, bf16* __restrict__ out2, int heads, int nq, int nk,
+       float scale) {
+  using T = Tile<D, KV>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + BR * LDS;
-  bf16* sC = sB + BR * LDS;      // two stages
-  bf16* sD = sC + 2 * BC * LDS;  // two stages
-  float* sCol = reinterpret_cast<float*>(sD + 2 * BC * LDS);  // two stages of 2 * BC per-column values
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  float* vals = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + T::kOffVals);
+  const uint32_t sA = base, sB = base + T::kOffB, sC = base + T::kOffC, sD = base + T::kOffD;
+  const uint32_t sAt = base + T::kOffAt, sBt = base + T::kOffBt, sCt = base + T::kOffCt, sDt = base + T::kOffDt;
+  const uint32_t full = base + T::kOffBars;   // per stage: its tiles and values have landed
+  const uint32_t empty = full + 8 * kStages;  // per stage: every warp is done with it
+  const uint32_t rowbar = empty + 8 * kStages;
 
-  const int bh = blockIdx.y, r0 = blockIdx.x * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group and column pair
+  const int bh = blockIdx.y, r0 = blockIdx.x * T::BR;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
   const int nrow = KV ? nk : nq, ncol = KV ? nq : nk;
-  const bf16* rowA = (KV ? k : q) + (size_t)bh * nrow * D;
-  const bf16* rowB = (KV ? v : dout) + (size_t)bh * nrow * D;
-  const bf16* colC = (KV ? q : k) + (size_t)bh * ncol * D;
-  const bf16* colD = (KV ? dout : v) + (size_t)bh * ncol * D;
+  const int n_tiles = (ncol + BC - 1) / BC;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
   const float* lse_b = lse + (size_t)bh * nq;
   const float* di_b = di + (size_t)bh * nq;
-  const float scale_log2 = scale * kLog2e;
-  const float inv_nk = 1.f / (float)nk;
-  const int n_tiles = (ncol + BC - 1) / BC;
+  const float scale_log2 = scale * kLog2e, inv_nk = 1.f / (float)nk;
+  const bool producer = threadIdx.x < 32;  // the warp that fills the ring; no warp is set aside for it
 
-  // Per-column values of a tile: the key flag (dq), or L in the log2 domain and di (dk/dv).
-  auto load_cols = [&](int tile, int stage) {
-    const int c0 = tile * BC;
-    load_rows<D, BC>(sC + stage * BC * LDS, colC, c0, ncol);
-    load_rows<D, BC>(sD + stage * BC * LDS, colD, c0, ncol);
-    float* f = sCol + stage * 2 * BC;
-    for (int j = threadIdx.x; j < BC; j += kThreads) {
+  // Called by the whole producer warp: the lanes write a stage's per-column
+  // values (the key flag for dq; L in the log2 domain, +inf past Nq, and di for
+  // dk/dv), then lane 0 arrives on the stage's full barrier (releasing those
+  // writes) with the bytes its TMA copies will bring.
+  auto load_cols = [&](int tile) {
+    const int s = tile % kStages, c0 = tile * BC;
+    float* f = vals + s * 2 * BC;
+    for (int j = lane; j < BC; j += 32) {
       const int c = c0 + j;
       if (KV) {
         f[j] = c < nq ? lse_b[c] * kLog2e : CUDART_INF_F;
@@ -251,18 +196,45 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
         f[j] = key_flag(mb, c, nk);
       }
     }
+    __syncwarp();
+    if (lane == 0) {
+      const uint32_t bar = full + 8 * s;
+      mbar_expect_tx(bar, T::kColBytes);
+      tma_load(sC + s * T::kColMain, &maps.c, bar, 0, c0, bh);
+      tma_load(sD + s * T::kColMain, &maps.d, bar, 0, c0, bh);
+      if (T::kTail) {
+        tma_load(sCt + s * T::kColTail, &maps.c_tail, bar, 64, c0, bh);
+        tma_load(sDt + s * T::kColTail, &maps.d_tail, bar, 64, c0, bh);
+      }
+    }
   };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, T::kThreads / 32);
+    }
+    mbar_init(rowbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(rowbar, T::kRowBytes);
+    tma_load(sA, &maps.a, rowbar, 0, r0, bh);
+    tma_load(sB, &maps.b, rowbar, 0, r0, bh);
+    if (T::kTail) {
+      tma_load(sAt, &maps.a_tail, rowbar, 64, r0, bh);
+      tma_load(sBt, &maps.b_tail, rowbar, 64, r0, bh);
+    }
+  }
+  if (producer)
+    for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) load_cols(tile);
 
-  load_rows<D, BR>(sA, rowA, r0, nrow);
-  load_rows<D, BR>(sB, rowB, r0, nrow);
-  load_cols(0, 0);
-  cp_async_commit();
-
-  // Per-row values of this thread's rows g and g + 8: L and di (dq), or the key flag (dk/dv).
+  // Per-row values of this thread's rows g and g + 8: L (log2 domain) and di (dq), or the key flag (dk/dv).
+  const int row0 = r0 + wg * 64 + warp * 16 + g;
   float row_x[2], row_y[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + warp * 16 + g + 8 * r;
+    const int row = row0 + 8 * r;
     if (KV) {
       row_x[r] = key_flag(mb, row, nk);
       row_y[r] = 0.f;
@@ -272,79 +244,164 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __res
     }
   }
 
-  float acc1[kDT][4], acc2[kDT][4];
+  // this warpgroup's 64 rows; a k-step of 16 head dims is 32 bytes along a 128-byte row
+  const uint64_t a_desc = smem_desc(sA + wg * 64 * 128, 1024, kSwizzle128);
+  const uint64_t b_desc = smem_desc(sB + wg * 64 * 128, 1024, kSwizzle128);
+  const uint64_t a_tail = smem_desc(sAt + wg * 64 * 32, 256, kSwizzle32);
+  const uint64_t b_tail = smem_desc(sBt + wg * 64 * 32, 256, kSwizzle32);
+  float acc1[32], acc1_tail[8], acc2[32], acc2_tail[8];  // head dims 0-63; 64-79 (72-79 stay 0) at d = 72
 #pragma unroll
-  for (int i = 0; i < kDT; ++i) {
-    acc1[i][0] = acc1[i][1] = acc1[i][2] = acc1[i][3] = 0.f;
-    acc2[i][0] = acc2[i][1] = acc2[i][2] = acc2[i][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc1_tail[i] = acc2_tail[i] = 0.f;
+  mbar_wait(rowbar, 0);
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    if (tile + 1 < n_tiles) load_cols(tile + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();  // this tile (and the row operands) have landed
-    __syncthreads();
-    const bf16* tc = sC + stage * BC * LDS;
-    const bf16* td = sD + stage * BC * LDS;
-    const float* colf = sCol + stage * 2 * BC;
+    const int s = tile % kStages;
+    // refill the stage of the previous tile once every warp is done with it
+    if (producer && tile > 0 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty + 8 * ((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_cols(tile - 1 + kStages);
+    }
+    __syncwarp();
+    mbar_wait(full + 8 * s, (tile / kStages) & 1);
+    const float* colf = vals + s * 2 * BC;
+    // the stage's C and D tiles: the K-major B of the score products (a k-step is 32 bytes along a row),
+    // and the MN-major B of the output products (a k-step of 16 columns is two 8-row swizzle atoms)
+    const uint64_t c_desc = smem_desc(sC + s * T::kColMain, 1024, kSwizzle128);
+    const uint64_t d_desc = smem_desc(sD + s * T::kColMain, 1024, kSwizzle128);
+    const uint64_t c_tail = smem_desc(sCt + s * T::kColTail, 256, kSwizzle32);
+    const uint64_t d_tail = smem_desc(sDt + s * T::kColTail, 256, kSwizzle32);
 
-    // P from the recomputed scores
-    float s[kNT][4];
-    rows_times_cols_t<D>(s, sA, tc, warp, lane);
+    // S = A C^T and dP = B D^T, 64 x BC a warpgroup: four k-steps in the main tiles, one in the tails
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
+    for (int ks = 0; ks < 4; ++ks) Wgmma<64>::ss(sc, a_desc + 2 * ks, c_desc + 2 * ks, ks > 0);
+    if (T::kTail) Wgmma<64>::ss(sc, a_tail, c_tail, 1);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<64>::ss(dp, b_desc + 2 * ks, d_desc + 2 * ks, ks > 0);
+    if (T::kTail) Wgmma<64>::ss(dp, b_tail, d_tail, 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P in f32 (kept for dS), and for dk/dv rounded to bf16 A fragments (n-tile pairs become 16-column
+    // k-steps); dV's product may still read them while dS is formed, so dS has fragments of its own
+    uint32_t pf[BC / 16][4], sf[BC / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+      const float2 col = *reinterpret_cast<const float2*>(colf + nt * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, j = nt * 8 + 2 * t + (e & 1);
-        const float l2 = KV ? colf[j] : row_x[r];
-        const float keep = KV ? row_x[r] : colf[j];
-        s[nt][e] = l2 < kDeadRow ? (keep >= 0.f ? inv_nk : 0.f)
-                                 : (keep > 0.f ? exp2f(s[nt][e] * scale_log2 - l2) : 0.f);
+        const int r = e >> 1;
+        const float cv = (e & 1) ? col.y : col.x;
+        const float l2 = KV ? cv : row_x[r];
+        const float keep = KV ? row_x[r] : cv;
+        float& x = sc[4 * nt + e];
+        x = l2 < kDeadRow ? (keep >= 0.f ? inv_nk : 0.f) : (keep > 0.f ? ex2(fmaf(x, scale_log2, -l2)) : 0.f);
+      }
+      if (KV) {
+        pf[nt / 2][(nt % 2) * 2] = pack_bf16(sc[4 * nt], sc[4 * nt + 1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(sc[4 * nt + 2], sc[4 * nt + 3]);
       }
     }
-    uint32_t frag[BC / 16][4];
-    if (KV) {  // dV += P^T dO
-      to_fragments(frag, s);
-      accumulate<D>(acc2, frag, td, lane);
-    }
-
-    // dS = P (dP - di) scale
-    float dp[kNT][4];
-    rows_times_cols_t<D>(dp, sB, td, warp, lane);
+    if constexpr (KV) {  // dV += P^T dO
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
+      for (int c = 0; c < BC / 16; ++c) {
+        Wgmma<64>::rs(acc2, pf[c], d_desc + c * 128);
+        if (T::kTail) Wgmma<16>::rs(acc2_tail, pf[c], d_tail + c * 32);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // dP has landed; dV may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(dp);
+
+    // dS = P (dP - di) scale, as bf16 A fragments
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+      const float2 col = *reinterpret_cast<const float2*>(colf + nt * 8 + 2 * t);
+      const float2 col_di = *reinterpret_cast<const float2*>(colf + BC + nt * 8 + 2 * t);
+      float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, j = nt * 8 + 2 * t + (e & 1);
-        const float l2 = KV ? colf[j] : row_x[r];
-        const float dii = KV ? colf[BC + j] : row_y[r];
-        s[nt][e] = l2 < kDeadRow ? 0.f : s[nt][e] * (dp[nt][e] - dii) * scale;
+        const int r = e >> 1;
+        const float l2 = KV ? ((e & 1) ? col.y : col.x) : row_x[r];
+        const float dii = KV ? ((e & 1) ? col_di.y : col_di.x) : row_y[r];
+        ds[e] = l2 < kDeadRow ? 0.f : sc[4 * nt + e] * (dp[4 * nt + e] - dii) * scale;
       }
+      sf[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      sf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    to_fragments(frag, s);
-    accumulate<D>(acc1, frag, tc, lane);  // dQ += dS K, or dK += dS^T Q
-    __syncthreads();  // the next iteration's loads overwrite this stage
+    // dQ += dS K, or dK += dS^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BC / 16; ++c) {
+      Wgmma<64>::rs(acc1, sf[c], c_desc + c * 128);
+      if (T::kTail) Wgmma<16>::rs(acc1_tail, sf[c], c_tail + c * 32);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc1);
+    if (T::kTail) fence_regs(acc1_tail);
+    if constexpr (KV) {
+      fence_regs(acc2);
+      if (T::kTail) fence_regs(acc2_tail);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  store_rows<D>(out1 + (size_t)bh * nrow * D, acc1, r0 + warp * 16, nrow, g, t);
-  if (KV) store_rows<D>(out2 + (size_t)bh * nrow * D, acc2, r0 + warp * 16, nrow, g, t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= nrow) continue;
+    const size_t at = ((size_t)bh * nrow + row) * D + 2 * t;
+    store_row<D>(out1 + at, acc1, acc1_tail, r);
+    if (KV) store_row<D>(out2 + at, acc2, acc2_tail, r);
+  }
 }
 
 template <int D, bool KV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
                    const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq,
                    int nk, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D>();
+  using T = Tile<D, KV>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const void *a = KV ? k : q, *b = KV ? v : dout, *c = KV ? q : k, *d = KV ? dout : v;
+  const int nrow = KV ? nk : nq, ncol = KV ? nq : nk;
+  Maps maps = {};
+  bool ok = make_map(&maps.a, a, D, nrow, bh, 64, T::BR, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.b, b, D, nrow, bh, 64, T::BR, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.c, c, D, ncol, bh, 64, BC, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.d, d, D, ncol, bh, 64, BC, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (T::kTail)
+    ok = ok && make_map(&maps.a_tail, a, D, nrow, bh, 16, T::BR, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.b_tail, b, D, nrow, bh, 16, T::BR, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.c_tail, c, D, ncol, bh, 16, BC, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.d_tail, d, D, ncol, bh, 16, BC, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (!ok) return cudaErrorInvalidValue;
   auto fn = kernel<D, KV>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((KV ? nk : nq) + BR - 1) / BR, bh);
-  fn<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(out1), static_cast<bf16*>(out2), heads, nq, nk, scale);
+  const dim3 grid((nrow + T::BR - 1) / T::BR, bh);
+  fn<<<grid, T::kThreads, T::kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+                                           static_cast<const float*>(di), static_cast<bf16*>(out1),
+                                           static_cast<bf16*>(out2), heads, nq, nk, scale);
   return cudaGetLastError();
+}
+
+template <int D, bool KV>
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  using T = Tile<D, KV>;
+  *smem_bytes = (int)T::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel<D, KV>, T::kThreads, T::kSmem);
 }
 
 }  // namespace bwd16
@@ -531,4 +588,14 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
                                   void* stream) {
   return static_cast<int>(dispatch<true>(q, k, v, dout, mask, lse, di, dk, dv, bh, heads, nq, nk, d, scale,
                                          is_bf16, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 form's shared memory a block and blocks an SM for one pass (kv = 0:
+// dq, 1: dk/dv) at head dim d (64 or 72); cudaErrorInvalidValue for another.
+extern "C" int flash_attn_bwd_occupancy(int d, int kv, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 64) return static_cast<int>(kv ? bwd16::occupancy<64, true>(smem_bytes, blocks_per_sm)
+                                          : bwd16::occupancy<64, false>(smem_bytes, blocks_per_sm));
+  if (d == 72) return static_cast<int>(kv ? bwd16::occupancy<72, true>(smem_bytes, blocks_per_sm)
+                                          : bwd16::occupancy<72, false>(smem_bytes, blocks_per_sm));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

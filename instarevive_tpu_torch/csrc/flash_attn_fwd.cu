@@ -143,12 +143,6 @@ struct Tile {
   static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The accumulator layout of wgmma's m64 fragments: this thread holds rows g and g + 8 (r = 0, 1) of
 // its warp's 16, and x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
 
@@ -342,19 +336,6 @@ kernel(const __grid_constant__ Maps<D> maps, const uint8_t* __restrict__ mask, b
                                        ? kMaskedScore
                                        : (m_run[r] + log2f(fmaxf(l_run[r], 1e-30f))) * 0.6931471805599453f;
   }
-}
-
-// A (bh, n, d) bf16 tensor seen as 3-D (d, n, bh), read in boxes of `width`
-// head dims x `rows` rows of one head under the given swizzle (the box's rows
-// are its width, 128 or 32 bytes). Rows past n and head dims past d are
-// zero-filled, so a ragged tail never reads the next head. Cached by
-// hopper::tiled_map: a call on tensors at the same addresses and shapes
-// encodes none.
-bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
-  return tiled_map(map, ptr, 3, dims, strides, box, swizzle);
 }
 
 template <int D>

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
-// flash_attn_fwd.cu (K1 at head dims 64, 72 and 512) and gn_conv.cu (K3, bf16).
+// flash_attn_fwd.cu (K1 at head dims 64, 72 and 512), flash_attn_bwd.cu (K2,
+// bf16) and gn_conv.cu (K3, bf16).
 //
 // * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
 //   phase's parity;
@@ -8,13 +9,14 @@
 // * wgmma: shared-memory descriptors, the fences and commit/wait around
 //   wgmma.mma_async, and the bf16 x bf16 -> f32 forms the kernels use
 //   (Wgmma<N>::ss with both operands in shared memory, Wgmma<N>::rs with A in
-//   registers and B an MN-major shared tile);
+//   registers and B an MN-major shared tile), and ex2 (2^x);
 // * on the host: cuTensorMapEncodeTiled, a libcuda entry point found through
 //   the runtime (the libraries link no libcuda), and a cache of the maps
-//   last made, keyed by address, shape, box and swizzle.
+//   last made, keyed by address, shape, box and swizzle, and make_map, the
+//   map of one head-major (bh, n, d) attention operand.
 //
 // Every library that includes this header hashes it into its build path
-// (ops/cuda_build.py), so an edit here rebuilds both.
+// (ops/cuda_build.py), so an edit here rebuilds all three.
 
 #pragma once
 
@@ -78,6 +80,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// 2^x on the SM's exponential unit (ex2.approx.ftz: results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // A wgmma shared-memory descriptor: start address, leading and stride byte
@@ -264,6 +273,19 @@ inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint6
   }
   *map = slot.map;
   return true;
+}
+
+// A (bh, n, d) bf16 tensor seen as 3-D (d, n, bh), read in boxes of `width`
+// head dims x `rows` rows of one head under the given swizzle (the box's rows
+// are its width, 128 or 32 bytes). Rows past n and head dims past d are
+// zero-filled, so a ragged tail never reads the next head. Cached by
+// hopper::tiled_map: a call on tensors at the same addresses and shapes
+// encodes none.
+inline bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
+  return tiled_map(map, ptr, 3, dims, strides, box, swizzle);
 }
 
 }  // namespace hopper

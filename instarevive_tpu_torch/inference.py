@@ -5,9 +5,10 @@
         [--color_fix_type wavelet|adain|none] [--config configs/instarevive_v1.yaml]
 
 Same flags as the JAX CLI. On CUDA the models compute in bf16 (``--bf16``
-asks for it on the CPU too). Weight files are state dicts in the reference
-key layout (``pipelines.build.load_checkpoint``); ``--random_init`` gives
-seeded random weights.
+asks for it on the CPU too). Weight files are the state dicts the JAX CLI
+loads (``pipelines.build.load_checkpoint`` and ``load_state_dicts``: native
+or diffusers keys, wrapped or prefixed); ``--random_init`` gives seeded
+random weights.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import numpy as np
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """The flags ``load_pipeline`` reads, shared by every entry point."""
     p.add_argument("--config", type=str, default="configs/instarevive_v1.yaml")
-    p.add_argument("--ckpt", type=str, default=None, help="DiT state dict (reference native keys)")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="DiT state dict: reference native keys or the diffusers layout (InstaRevive_v1.ckpt)")
     p.add_argument("--swinir_ckpt", type=str, default=None)
     p.add_argument("--vae_ckpt", type=str, default=None)
     p.add_argument("--null_embed", type=str, default=None, help="cached T5 null-prompt embedding")

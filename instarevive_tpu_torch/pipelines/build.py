@@ -1,19 +1,25 @@
 """Build a RestorationPipeline from a config, and give it weights
 (``instarevive_tpu/pipelines/build.py``).
 
-Weights come from seeded random init (``init_params``) or from state dicts in
-the reference key layout (``load_state_dicts``), such as the ones
-``convert/from_jax.py`` makes from the JAX package's params.
+Weights come from seeded random init (``init_params``) or from state dicts
+(``load_state_dicts``) in the layouts the JAX CLI loads, read from a file by
+``load_checkpoint`` or made from the JAX package's params by
+``convert/from_jax.py``.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import pickle
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from instarevive_tpu_torch.convert.checkpoint_layouts import (
+    is_diffusers_pixart, pixart_keys_from_diffusers, strip_prefixes,
+)
 from instarevive_tpu_torch.diffusion.schedules import make_schedule
 from instarevive_tpu_torch.models.pixart import PixArt
 from instarevive_tpu_torch.models.swinir import SwinIR
@@ -25,8 +31,6 @@ from instarevive_tpu_torch.pipelines.restore import RestorationPipeline
 # bias is added to f32 scores, and the f32 adaLN tables keep the DiT's
 # residual stream in f32.
 KEEP_F32 = ("relative_position_bias_table", "scale_shift_table")
-# Buffers the reference checkpoints store and the port computes.
-COMPUTED_KEYS = ("relative_position_index", "attn_mask", "pos_embed")
 
 
 def set_precision() -> None:
@@ -121,26 +125,64 @@ def init_params(pipe: RestorationPipeline, seed: int = 0,
     return pipe
 
 
+def _tensor(value) -> torch.Tensor:
+    return value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+
+
 def load_state_dicts(pipe: RestorationPipeline, swinir: Optional[Mapping] = None,
                      vae: Optional[Mapping] = None, dit: Optional[Mapping] = None) -> RestorationPipeline:
-    """Load reference-layout state dicts (arrays or tensors) into the
-    models, strictly, after dropping the buffers the port computes. PixArt
-    dicts in the diffusers layout are not mapped yet."""
+    """Load state dicts (arrays or tensors) into the models in every layout
+    the JAX package's CLI loads: the reference's native keys, under a
+    ``module.`` / ``model.`` prefix that every key carries or none, and for the
+    DiT also the diffusers layout (``convert/checkpoint_layouts.py``). Only the
+    keys a model holds are taken, as the JAX importers take only the keys they
+    map: buffers the port computes (relative-position indices, attention
+    masks, ``pos_embed``) and parts the config leaves out (ControlNet-Half's
+    ``controlnet.N.*``) are dropped. A key the model needs that the checkpoint
+    lacks raises and names it, apart from the DiT's caption embedding
+    ``y_embedder.y_embedding``, which keeps the model's own value."""
     for module, sd in ((pipe.swinir, swinir), (pipe.vae, vae), (pipe.dit, dit)):
         if sd is None:
             continue
-        if any(k.startswith("transformer_blocks.") for k in sd):
-            raise NotImplementedError("diffusers-layout PixArt checkpoints are not mapped yet")
-        tensors = {
-            k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
-            for k, v in sd.items() if not k.endswith(COMPUTED_KEYS)
-        }
+        sd = strip_prefixes(sd)
+        sources = None  # native key -> the checkpoint keys joined into it; None: the native layout
+        if module is pipe.dit and is_diffusers_pixart(sd):
+            sd = {k.replace(".base_block.", "."): v for k, v in sd.items()}
+            sources = pixart_keys_from_diffusers(module.depth)
+        tensors = {}
+        for key, own in module.state_dict().items():
+            parts = (key,) if sources is None else sources.get(key, (key,))
+            missing = [p for p in parts if p not in sd]
+            if missing and key == "y_embedder.y_embedding":
+                tensors[key] = own
+            elif missing:
+                raise KeyError(f"the checkpoint has no {missing[0]!r} (for the model's {key!r})")
+            else:
+                values = [_tensor(sd[p]) for p in parts]
+                tensors[key] = values[0] if len(values) == 1 else torch.cat(values)
         module.load_state_dict(tensors, strict=True)
     return pipe
 
 
 def load_checkpoint(path: str) -> Mapping[str, torch.Tensor]:
-    """A state dict saved with ``torch.save`` (tensors only), unwrapped from
-    a top-level ``state_dict`` entry if it has one."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("state_dict", sd)
+    """A state dict saved with ``torch.save``, unwrapped from its container as
+    the JAX CLI unwraps it (``instarevive_tpu/train/checkpoint.py``): the first
+    of ``state_dict``, ``state_dict_ema``, ``model`` and ``module`` that the
+    file holds as a mapping. Tensors only (``weights_only=True``); a file that
+    pickles other objects (a Lightning checkpoint's config) loads in full only
+    under ``IR_UNSAFE_TORCH_LOAD=1``, since that runs code from the file."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        if os.environ.get("IR_UNSAFE_TORCH_LOAD") != "1":
+            raise RuntimeError(
+                f"{path} needs full unpickling (weights_only=True failed: {e}). "
+                "Loading it executes arbitrary code from the file; set "
+                "IR_UNSAFE_TORCH_LOAD=1 only for checkpoints you trust."
+            ) from e
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, Mapping):
+        for key in ("state_dict", "state_dict_ema", "model", "module"):
+            if isinstance(obj.get(key), Mapping):
+                return dict(obj[key])
+    return dict(obj)

@@ -260,6 +260,47 @@ def test_flash_backward_matches_plain_and_repeats_bitwise(cuda, dtype, b, h, nq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,nq,nk,lens,d",
+    [
+        (1, 16, 1000, 77, None, 72),    # ragged Nq and Nk, each one partial tile; the head-dim 64-79 tail
+        (1, 16, 1000, 77, [50], 64),    # the same at 64 with masked keys
+        (2, 5, 4096, 4, None, 64),      # the UNet's 4-key context: one dk/dv block walks 4096 queries
+        (2, 16, 256, 4, None, 72),      # 4 keys under the tail
+        (2, 4, 300, 77, [0, 77], 72),   # a sample whose keys are all masked
+        (2, 4, 130, 300, [300, 0], 64),
+    ],
+)
+def test_flash_backward_bf16_edges(cuda, b, h, nq, nk, lens, d):
+    """The bf16 wgmma body at its edges, against flash_backward_plain (v in
+    [-1, 1], as chip_smoke.py) at chip_smoke.py's bound: 1e-2 of each
+    output's largest magnitude; dq of a sample with no key is exactly 0 (dS =
+    0 there); the same bits twice; and the same call on views of the same
+    storage at a second, shorter Nq (a tensor map cached for the first shape
+    at that address must not serve the second)."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    q, k, v, do, mask = _backward_inputs(cuda, torch.bfloat16, b, h, nq, nk, d, lens, seed=3)
+    v = (v.float().tanh()).to(torch.bfloat16)
+    scale = d**-0.5
+    for n in (nq, nq - 37):
+        qn, don = (t.flatten()[: b * h * n * d].view(b, h, n, d) for t in (q, do))
+        out, lse = A._forward(qn, k, v, mask, scale, want_lse=True)
+        before = (A.flash_dq.launches, A.flash_dkv.launches)
+        got = A.flash_backward(qn, k, v, mask, out, lse, don, scale)
+        torch.cuda.synchronize()
+        assert (A.flash_dq.launches, A.flash_dkv.launches) == (before[0] + 1, before[1] + 1)
+        want = A.flash_backward_plain(qn, k, v, mask, out, lse, don, scale)
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == b_.shape and torch.isfinite(a).all(), name
+            bound = BACKWARD_BOUNDS[torch.bfloat16] * b_.float().abs().max().item()
+            assert (a.float() - b_.float()).abs().max().item() <= bound, (name, n)
+        if lens is not None and 0 in lens:
+            assert not got[0][lens.index(0)].any()
+        assert all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(qn, k, v, mask, out, lse, don, scale)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 72])
 @pytest.mark.parametrize("lens", [None, [0, 120]], ids=["unmasked", "one_sample_fully_masked"])
 def test_flash_attention_autograd_matches_autograd_through_sdpa(cuda, lens, d):

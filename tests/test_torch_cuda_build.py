@@ -18,14 +18,17 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
+WGMMA_LIBRARIES = ("flash_attn_fwd", "flash_attn_bwd", "gn_conv")  # the libraries that include hopper.cuh
+
+
 def _paths():
     return {name: cuda_build.library_path(name, sources) for name, sources in cuda_build.LIBRARIES.items()}
 
 
 def test_the_wgmma_libraries_include_the_hopper_header():
     includes = {name: cuda_build.headers(sources) for name, sources in cuda_build.LIBRARIES.items()}
-    assert includes["flash_attn_fwd"] == ["hopper.cuh"] and includes["gn_conv"] == ["hopper.cuh"]
-    assert all(not found for name, found in includes.items() if name not in ("flash_attn_fwd", "gn_conv"))
+    assert all(includes[name] == ["hopper.cuh"] for name in WGMMA_LIBRARIES)
+    assert all(not found for name, found in includes.items() if name not in WGMMA_LIBRARIES)
 
 
 def test_an_edited_header_moves_the_build_path_of_every_library_that_includes_it(csrc):
@@ -33,7 +36,7 @@ def test_an_edited_header_moves_the_build_path_of_every_library_that_includes_it
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// one more line\n")
     after = _paths()
-    assert {name for name in before if before[name] != after[name]} == {"flash_attn_fwd", "gn_conv"}
+    assert {name for name in before if before[name] != after[name]} == set(WGMMA_LIBRARIES)
     assert all(path.parent == cuda_build.BUILD_DIR for path in after.values())
 
 
@@ -45,7 +48,7 @@ def test_a_header_included_through_another_is_hashed_too(csrc):
     before = _paths()
     (csrc / "inner.cuh").write_text("#pragma once\n// changed\n")
     after = _paths()
-    assert {name for name in before if before[name] != after[name]} == {"flash_attn_fwd", "gn_conv"}
+    assert {name for name in before if before[name] != after[name]} == set(WGMMA_LIBRARIES)
 
 
 @pytest.mark.parametrize("library", sorted(cuda_build.LIBRARIES))

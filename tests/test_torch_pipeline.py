@@ -69,8 +69,8 @@ def test_auto_tile_geometry():
 
 def test_state_dict_files_load(pipes, tmp_path):
     """Saved reference-layout state dicts load back exactly; buffers the
-    reference stores but the port computes are dropped; the diffusers
-    PixArt layout is refused."""
+    reference stores but the port computes are dropped; a diffusers-layout
+    PixArt dict that lacks keys the model needs names the first of them."""
     _, params, tpipe = pipes
     sds = state_dicts_from_jax(params, TINY)
     for name, sd in sds.items():
@@ -80,7 +80,7 @@ def test_state_dict_files_load(pipes, tmp_path):
     fresh = load_state_dicts(build_pipeline(TINY), **{n: load_checkpoint(str(tmp_path / f"{n}.pth")) for n in sds})
     for (k, a), b in zip(tpipe.state_dict().items(), fresh.state_dict().values()):
         torch.testing.assert_close(a, b, atol=0, rtol=0, msg=k)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="pos_embed.proj.weight"):
         load_state_dicts(fresh, dit={"transformer_blocks.0.attn1.to_q.weight": np.zeros((2, 2))})
 
 
