@@ -12,19 +12,22 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
-   for the bf16 forward (head dims 64, 72 and 512), the bf16 backward (both
-   passes at head dims 64 and 72) and the bf16 fused convolution also their
-   shared memory a block, blocks an SM and their count of wgmma (HGMMA) and
-   TMA-load (UTMALDG) instructions, and fails if either count is 0 (for the
-   head-dim-512 kernel too), if the forward library or the backward's or the
-   convolution's bf16 kernels hold an mma.sync (HMMA), or if the
-   head-dim-512 kernel or a bf16 backward kernel spills;
+   for the forward (bf16 at head dims 64, 72 and 512; f32 at 64 and 72 on
+   split-tf32 products), the backward (both passes at head dims 64 and 72,
+   bf16 and f32) and the bf16 fused convolution also their shared memory a
+   block, blocks an SM and their count of wgmma (HGMMA) and TMA-load
+   (UTMALDG) instructions, and fails if either count is 0 (for the
+   head-dim-512 kernel and the f32 forms too), if the forward library or the
+   backward's or the convolution's bf16 kernels hold an mma.sync (HMMA), or if
+   the head-dim-512 kernel, a backward kernel or an f32 form spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
    the same function: flash attention (K1, with ragged and masked shapes
    and its TFLOP/s; head dim 512 at the VAE mid block's three shapes: process,
-   the tiled call's encode and its tile's decode), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
+   the tiled call's encode and its tile's decode, and in f32 at the DMD step's
+   encode), the split prepass of the f32 attention (``tf32_planes``, bit for
+   bit against ``tf32_planes_plain``), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
    cuDNN's convolution alone on the activated input beside the kernel alone,
    and a border case that tells a zero halo from a ``silu(b)`` halo), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
@@ -51,7 +54,7 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    distillation, then 1 more from the checkpoint, with the launches of K1 and
    K2 per step held to what the configuration implies; times warm steps;
    runs ``--lowmem`` at depth 2; and holds one depth-2 f32 train step on the
-   card against the CPU;
+   card against the CPU, counting its f32 attention and prepass launches;
 9. runs both degradation programs (``data/realesrgan.degrade_batch``,
    ``data/codeformer.degrade_batch_codeformer``) on a seeded (2, 512, 512, 3)
    batch on the card: outputs checked, K6's launches held to what the draws
@@ -73,7 +76,7 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    shape held in 11, frozen weights unchanged, one ``train_step`` under
    ``torch.cuda.set_sync_debug_mode("error")``; times warm steps; takes one
    ``--task reflow`` step; and holds one depth-cut f32 step at head dim 64 on
-   the card against the CPU.
+   the card against the CPU, counting its f32 attention and prepass launches.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -96,7 +99,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # |out| <= 1). bf16: both outputs are rounded to bf16 (spacing 2^-8 just
 # below 1) and the kernel rounds P to bf16 before P.V where sdpa keeps it
 # f32, so a few bf16 steps; 1e-2. f32: only the summation order differs
-# (online softmax over key tiles against one softmax); 1e-4.
+# (online softmax over key tiles against one softmax) and, at head dims 64
+# and 72, the split-tf32 products' dropped lo.lo term, about 2^-22 of each
+# product; 1e-4.
 BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
 # |out| <= 1 is loose where many keys share the weight: at head dim 512 over
 # thousands of keys the output is near 0.01 and 1e-2 would pass a kernel that
@@ -110,7 +115,8 @@ REL_BOUND = 2e-2
 # bf16 at the same places; an f32 sum taken in another order can land on the
 # other side of a rounding boundary, which moves an output by one bf16 step
 # (2^-8 = 3.9e-3 of the largest value) and a P or dS term by as much of
-# itself; 1e-2. f32: only the order of the sums and expf differ; 2e-5.
+# itself; 1e-2. f32: the order of the sums, ex2 against exp, and the split-tf32
+# products' dropped lo.lo term (about 2^-22 of each product); 2e-5.
 # The log-sum-exp (about log Nk + 0.5, under 8 here) is f32 in both forms:
 # the bf16 form works in the log2 domain (exp2f, log2f); 1e-3 and 1e-4.
 BACKWARD_BOUNDS = {"bf16": 1e-2, "f32": 2e-5}
@@ -140,8 +146,8 @@ FOLD_REL_BOUND = 1e-5
 SWIN_BOUNDS = {"bf16": 4e-3, "f32": 1e-5}
 SWIN_F32_REF_BOUND = 2.1e-3
 # The card's published peaks (H100 SXM): device memory bytes/s, dense
-# tensor-core bf16 FLOP/s, f32 FLOP/s outside the tensor cores.
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# tensor-core bf16 and TF32 FLOP/s, f32 FLOP/s outside the tensor cores.
+PEAK_BYTES, PEAK_BF16, PEAK_TF32, PEAK_F32 = 3.35e12, 989e12, 495e12, 67e12
 # The small f32 pipeline, card against CPU: convolutions and matmuls sum in
 # other orders (TF32 is off), outputs are in [0, 1].
 PIPELINE_F32_BOUND = 1e-3
@@ -178,12 +184,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float, dt: str):
+def bound(nbytes: float, flops: float, dt: str, split: bool = False):
     """(least ms the card could take, which limit sets it): bytes moved once
-    over the memory rate, or operations over the peak rate of their type."""
+    over the memory rate, or operations over the peak rate of their type;
+    with split (the f32 attention at head dims 64 and 72), three tf32
+    products for each f32 one over the TF32 rate."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / (PEAK_BF16 if dt == "bf16" else PEAK_F32) * 1e3
+    if split:
+        t_ops = 3 * flops / PEAK_TF32 * 1e3
+    else:
+        t_ops = flops / (PEAK_BF16 if dt == "bf16" else PEAK_F32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_form(dt: str, d: int) -> bool:
+    """Whether the attention kernels run split-tf32 products at this type and head dim."""
+    return dt == "f32" and d in (64, 72)
 
 
 DTYPES = {"bf16": "bfloat16", "f32": "float32"}
@@ -456,36 +472,53 @@ def sass_counts(library: str, in_name: str = "") -> dict:
     return {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
-def hopper_build_report(log: str):
-    """The bf16 forward as built: registers and spill stores of each head
-    dim's kernel (ptxas, when this run compiled it), the shared memory a block
-    takes and the blocks an SM holds (the library's own figures), the counts
-    of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's SASS
-    and in the head-dim-512 kernel's alone, and the library's HMMA (mma.sync).
-    Fails if the library or the head-dim-512 kernel has no HGMMA or no
-    UTMALDG, if an HMMA is left, or if the head-dim-512 kernel spills."""
+def occupancy_figures(library: str, entry: str, args, key) -> dict:
+    """Shared memory a block and blocks an SM, from the library's occupancy
+    entry called with each tuple of ``args``, under the prefix ``key(args)``."""
     import ctypes
 
     from instarevive_tpu_torch.ops import cuda_build
 
-    report = ptxas_figures(log, r"hopper6kernelILi(\d+)E|d(512)6kernelE", lambda m: f"d{m.group(1) or m.group(2)}")
-    occupancy = cuda_build.load_library("flash_attn_fwd").flash_attn_fwd_occupancy
-    occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    for d in (64, 72, 512):
+    fn = getattr(cuda_build.load_library(library), entry)
+    fn.argtypes = [ctypes.c_int] * len(args[0]) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    report = {}
+    for a in args:
         smem, blocks = ctypes.c_int(), ctypes.c_int()
-        if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
-            fail(f"flash_attn_fwd_occupancy({d}) failed")
-        report[f"d{d}_smem_bytes"], report[f"d{d}_blocks_per_sm"] = smem.value, blocks.value
+        if fn(*a, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+            fail(f"{entry}{a} failed")
+        report[f"{key(a)}_smem_bytes"], report[f"{key(a)}_blocks_per_sm"] = smem.value, blocks.value
+    return report
+
+
+def hopper_build_report(log: str):
+    """The forward as built: registers and spill stores of each head dim's
+    bf16 kernel and of the f32 (split-tf32) kernels at 64 and 72 (``f32_``;
+    ptxas, when this run compiled it), the shared memory a block takes and
+    the blocks an SM holds (the library's own figures), the counts of HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions in the library's SASS, in the
+    head-dim-512 kernel's alone and in the f32 kernels' alone, and the
+    library's HMMA (mma.sync). Fails if the library, the head-dim-512 kernel
+    or the f32 kernels have no HGMMA or no UTMALDG, if an HMMA is left, or if
+    the head-dim-512 kernel or an f32 kernel spills."""
+    report = ptxas_figures(log, r"hopper6kernelILi(\d+)E|d(512)6kernelE", lambda m: f"d{m.group(1) or m.group(2)}")
+    report.update(ptxas_figures(log, r"fwd_tf326kernelILi(\d+)E", lambda m: f"f32_d{m.group(1)}"))
+    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy", [(64,), (72,), (512,)],
+                                    lambda a: f"d{a[0]}"))
+    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy_f32", [(64,), (72,)],
+                                    lambda a: f"f32_d{a[0]}"))
     report.update(sass_counts("flash_attn_fwd"))
-    d512 = sass_counts("flash_attn_fwd", "d5126kernel")
-    report["d512_HGMMA"], report["d512_UTMALDG"] = d512["HGMMA"], d512["UTMALDG"]
-    print(f"[build] flash_attn_fwd.cu, the bf16 forms: {report}", flush=True)
-    if not (report["HGMMA"] and report["UTMALDG"] and report["d512_HGMMA"] and report["d512_UTMALDG"]):
+    for key, in_name in (("d512", "d5126kernel"), ("f32", "fwd_tf32")):
+        counts = sass_counts("flash_attn_fwd", in_name)
+        report[f"{key}_HGMMA"], report[f"{key}_UTMALDG"] = counts["HGMMA"], counts["UTMALDG"]
+    print(f"[build] flash_attn_fwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
+    if not all(report[k] for k in ("HGMMA", "UTMALDG", "d512_HGMMA", "d512_UTMALDG", "f32_HGMMA", "f32_UTMALDG")):
         fail(f"the forward library has {report['HGMMA']} HGMMA and {report['UTMALDG']} UTMALDG instructions, "
-             f"its head-dim-512 kernel {report['d512_HGMMA']} and {report['d512_UTMALDG']}")
-    if report["HMMA"] or report.get("d512_spill_stores", 0):
-        fail(f"the forward library has {report['HMMA']} HMMA instructions; the head-dim-512 kernel spills "
-             f"{report.get('d512_spill_stores', 0)} bytes")
+             f"its head-dim-512 kernel {report['d512_HGMMA']} and {report['d512_UTMALDG']}, its f32 kernels "
+             f"{report['f32_HGMMA']} and {report['f32_UTMALDG']}")
+    spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v and k.startswith(("d512", "f32"))}
+    if report["HMMA"] or spills:
+        fail(f"the forward library has {report['HMMA']} HMMA instructions; spills {spills}")
     return report
 
 
@@ -518,33 +551,31 @@ def gn_conv_build_report(log: str):
 
 
 def bwd_build_report(log: str):
-    """The bf16 backward as built: registers and spill stores of each pass
-    at each head dim (ptxas, when this run compiled it), the shared memory a
-    block takes and the blocks an SM holds (the library's own figures), and
-    the counts of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
-    instructions in the bf16 kernels' SASS. Fails if either of the first two
-    is 0, if an HMMA is left or if a bf16 kernel spills."""
-    import ctypes
-
-    from instarevive_tpu_torch.ops import cuda_build
-
-    report = ptxas_figures(log, r"bwd166kernelILi(\d+)ELb([01])E",
-                           lambda m: f"{'dkv' if m.group(2) == '1' else 'dq'}_d{m.group(1)}")
-    occupancy = cuda_build.load_library("flash_attn_bwd").flash_attn_bwd_occupancy
-    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    occupancy.restype = ctypes.c_int
-    for kv, pass_name in ((0, "dq"), (1, "dkv")):
-        for d in (64, 72):
-            smem, blocks = ctypes.c_int(), ctypes.c_int()
-            if occupancy(d, kv, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
-                fail(f"flash_attn_bwd_occupancy({d}, {kv}) failed")
-            report[f"{pass_name}_d{d}_smem_bytes"], report[f"{pass_name}_d{d}_blocks_per_sm"] = smem.value, blocks.value
+    """The backward as built: registers and spill stores of each pass at each
+    head dim, bf16 and f32 (split-tf32, ``f32_``; ptxas, when this run
+    compiled it), the shared memory a block takes and the blocks an SM holds
+    (the library's own figures), and the counts of HGMMA (wgmma), UTMALDG
+    (TMA load) and HMMA (mma.sync) instructions in each form's kernels' SASS.
+    Fails if either of the first two is 0 in a form, if an HMMA is left or if
+    a kernel spills."""
+    pass_of = lambda m: f"{'dkv' if m.group(2) == '1' else 'dq'}_d{m.group(1)}"  # noqa: E731
+    report = ptxas_figures(log, r"bwd166kernelILi(\d+)ELb([01])E", pass_of)
+    report.update(ptxas_figures(log, r"bwd_tf326kernelILi(\d+)ELb([01])ELi(\d)E",
+                                lambda m: f"f32_{pass_of(m)}_wg{m.group(3)}"))
+    cases = [(d, kv) for kv in (0, 1) for d in (64, 72)]
+    report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy", cases,
+                                    lambda a: f"{'dkv' if a[1] else 'dq'}_d{a[0]}"))
+    report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy_f32", [(*c, wg) for c in cases for wg in (1, 2)],
+                                    lambda a: f"f32_{'dkv' if a[1] else 'dq'}_d{a[0]}_wg{a[2]}"))
     report.update(sass_counts("flash_attn_bwd", "bwd16"))
-    print(f"[build] flash_attn_bwd.cu, the bf16 form: {report}", flush=True)
+    report.update({f"f32_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd_tf32").items()})
+    print(f"[build] flash_attn_bwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
     spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
-    if not (report["HGMMA"] and report["UTMALDG"]) or report["HMMA"] or spills:
-        fail(f"the backward's bf16 kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
-             f"{report['HMMA']} HMMA instructions; spills {spills}")
+    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG")) or report["HMMA"] \
+            or report["f32_HMMA"] or spills:
+        fail(f"the backward's kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
+             f"{report['HMMA']} HMMA instructions (f32: {report['f32_HGMMA']}, {report['f32_UTMALDG']}, "
+             f"{report['f32_HMMA']}); spills {spills}")
     return report
 
 
@@ -561,11 +592,12 @@ def kernel_phase():
         ("dit_cross_masked", (4, 16, 1024, 300, 72), (300, 180, 0, 61), ("bf16", "f32")),  # one row with no key
         ("vae_mid", (4, 1, 4096, 4096, 512), None, ("bf16",)),                  # process at 4 x 512^2
         ("dit_self_tile576", (4, 16, 1296, 1296, 72), None, ("bf16",)),
-        ("ragged_q1000_k77_masked", (1, 16, 1000, 77, 72), (51,), ("bf16",)),
+        ("ragged_q1000_k77_masked", (1, 16, 1000, 77, 72), (51,), ("bf16", "f32")),
         ("ragged_q1000_k333", (1, 16, 1000, 333, 72), None, ("bf16",)),
         ("vae_mid_tiled_encode", (1, 1, 16384, 16384, 512), None, ("bf16",)),   # the tiled 1024^2 call's encode
         ("vae_mid_tile576_decode", (1, 1, 5184, 5184, 512), None, ("bf16",)),   # its decode, one 72^2 latent tile
         ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0), ("bf16",)),
+        ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None, ("f32",)),        # an f32 DMD step's frozen-VAE encode
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -592,7 +624,7 @@ def kernel_phase():
             # the work this run's data needs: masked keys take no product
             keys = b * nk if mask is None else int(mask.sum().item())
             flops = 4.0 * h * nq * keys * d
-            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), flops, dt)
+            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), flops, dt, split_form(dt, d))
             rec = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=masked,
                        max_abs_err=err, bound=BOUNDS[dt], ref_max_abs=ref_max, rel_bound=REL_BOUND, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
@@ -667,11 +699,11 @@ def backward_phase():
             del lib_out, leaves
             # the work this run's data needs: masked keys take no product
             pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))
-            es = q.element_size()
-            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt)
-            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt)
-            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt)
-            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt)
+            es, split = q.element_size(), split_form(dt, d)
+            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt, split)
+            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt, split)
+            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt, split)
+            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt, split)
             common = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=mask is not None,
                           bound=BACKWARD_BOUNDS[dt], bitwise_repeat=same, plain_ms=plain_ms, library_ms=lib_ms,
                           together_ms=ms_both, together_bound_ms=b_both[0])
@@ -712,6 +744,54 @@ def backward_phase():
     if not err <= BACKWARD_BOUNDS["f32"]:
         fail(f"flash backward, fully masked sample: differs from autograd through sdpa by {err}")
     return dq_records, dkv_records, lse_records
+
+
+# The shapes the f32 attention's split prepass takes on the main f32 paths: a DMD step's DiT operands at batch 2 (q
+# and dO as queries, k and v as keys, 1024 self and 300 cross), the UNet's ds-1 and the 77-key context, and a ragged
+# Nq = 1000: (name, (B, H, N, D), natural, transposed)
+PLANES_CASES = [
+    ("dit_q_b2", (2, 16, 1024, 72), True, True),
+    ("dit_cross_k_b2", (2, 16, 300, 72), True, True),
+    ("dit_cross_v_b2", (2, 16, 300, 72), False, True),
+    ("unet_ds1_q", (2, 5, 4096, 64), True, True),
+    ("unet_k77", (2, 5, 77, 64), True, True),
+    ("ragged_q1000", (1, 16, 1000, 72), True, True),
+]
+
+
+def planes_phase():
+    """The split prepass (``tf32_planes``) against ``tf32_planes_plain`` by
+    ``torch.equal`` (every plane asked for, bit for bit) on values over many
+    binades, ties included, at the shapes of PLANES_CASES; timed beside the
+    plain version, no library call computing it. Returns per-shape records."""
+    import torch
+
+    from instarevive_tpu_torch.ops.attention import pad8, tf32_planes, tf32_planes_plain
+
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, shape, natural, transposed in PLANES_CASES:
+        x = torch.randn(shape, device="cuda", generator=gen) * torch.exp(4 * torch.randn(shape, device="cuda", generator=gen))
+        x.view(-1)[:3] = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 3 * 2.0**-11], device="cuda")
+        got = tf32_planes(x, natural, transposed)
+        torch.cuda.synchronize()
+        want = tf32_planes_plain(x, natural, transposed)
+        same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: tf32_planes(x, natural, transposed))
+        plain_ms = cuda_ms(lambda: tf32_planes_plain(x, natural, transposed), iters=5, warmup=1)
+        *lead, n, d = shape
+        written = (2 * x.numel() if natural else 0) + (2 * x.numel() // n * pad8(n) if transposed else 0)
+        b_ms, b_by = bound(4 * (x.numel() + written), 0.0, "f32")
+        records.append(dict(name=name, dtype="f32", shape=list(shape), natural=natural, transposed=transposed,
+                            bitwise_equal=same, max_abs_err=0.0 if same else float("inf"), ms=ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by, gbytes_per_s=4 * (x.numel() + written) / ms / 1e6))
+        print(f"[planes] {name:15s} {tuple(shape)} natural={natural!s:5s} transposed={transposed!s:5s} "
+              f"bit for bit={same} ms={ms:.4f} ({records[-1]['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not same:
+            fail(f"tf32_planes {name}: the prepass differs from tf32_planes_plain")
+        del x, got, want
+    return records
 
 
 def swin_phase():
@@ -829,8 +909,28 @@ TRAIN_ONLY_KERNELS = BACKWARD_KERNELS + ("filter2d",)
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
+    from instarevive_tpu_torch.ops.attention import tf32_planes
+
+    for fn in (*counters().values(), tf32_planes):  # the prepass counts apart: f32 runs alone launch it
         fn.launches = 0
+
+
+def f32_launches(fwd_split: int, fwd_d512: int, what: str) -> dict:
+    """The launches of an f32 run on the card since the last reset: the f32
+    attention forms (the forward at head dims 64/72, fwd_split of them, and
+    at 512, fwd_d512; both backward passes) and the split prepass, three a
+    forward and four a backward (q, k, v, dO). Fails if the prepass ran
+    another number of times or the run launched no split-tf32 kernel."""
+    from instarevive_tpu_torch.ops.attention import tf32_planes
+
+    got = read_counts()
+    out = {"flash_attn_fwd_f32": fwd_split, "flash_attn_fwd_f32_d512": fwd_d512,
+           "flash_attn_bwd_dq_f32": got["flash_attn_bwd_dq"], "flash_attn_bwd_dkv_f32": got["flash_attn_bwd_dkv"],
+           "tf32_planes": tf32_planes.launches}
+    if fwd_split + fwd_d512 != got["flash_attn_fwd"] or got["flash_attn_bwd_dq"] != got["flash_attn_bwd_dkv"] \
+            or out["tf32_planes"] != 3 * fwd_split + 4 * got["flash_attn_bwd_dq"] or not fwd_split:
+        fail(f"{what}: f32 launches {out} against the counts {got}")
+    return out
 
 
 def read_counts():
@@ -1314,6 +1414,7 @@ def train_step_card_against_cpu(cfg_full, data, null):
     got = {k: v for k, v in read_counts().items() if k in T.expected_launches(2)}
     if got != T.expected_launches(2, encodes=0):
         fail(f"train step, card against CPU: launches {got}")
+    launches = f32_launches(got["flash_attn_fwd"], 0, "train step, card against CPU")  # the DiT's, all at 72
     (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
     errs = {f"metric {k}": abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu}
     for which in ("generator", "fake"):
@@ -1326,7 +1427,7 @@ def train_step_card_against_cpu(cfg_full, data, null):
         fail("train step, card against CPU: the distribution-matching term is not exercised")
     if not max(errs.values()) <= TRAIN_F32_BOUND:
         fail(f"train step: the card differs from the CPU by {errs}")
-    return errs
+    return dict(errs, f32_launches=launches)
 
 
 # Both degradation programs, the card against the CPU under one set of
@@ -1584,7 +1685,7 @@ def d64_phase():
             if kept is not None:
                 mask = torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
             scale = d**-0.5
-            iters = 20 if dt == "bf16" else 5
+            iters = 20
             with torch.no_grad():
                 o, lse = A._forward(q, k, v, mask, scale, want_lse=True)
                 o_plain_path = A._forward(q, k, v, mask, scale, want_lse=False)[0]
@@ -1624,12 +1725,12 @@ def d64_phase():
             lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=iters)
             del lib_out, leaves
             pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))  # masked keys take no product
-            es = q.element_size()
-            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()), 4.0 * pairs * d, dt)
-            b_lse = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt)
-            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt)
-            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt)
-            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt)
+            es, split = q.element_size(), split_form(dt, d)
+            b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()), 4.0 * pairs * d, dt, split)
+            b_lse = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt, split)
+            b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt, split)
+            b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt, split)
+            b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt, split)
             bnd = BACKWARD_BOUNDS[dt]
             common = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=mask is not None, bound=bnd)
             fwd_records.append(dict(common, max_abs_err=o_err, max_rel_err=o_rel, lse_max_abs_err=lse_err,
@@ -1868,6 +1969,7 @@ def cldm_step_card_against_cpu(cfg_full, merge):
     if (counts["flash_attn_fwd"], counts["flash_attn_bwd_dq"], counts["flash_attn_bwd_dkv"]) != \
             (want["flash_attn_fwd"], want["flash_attn_bwd_dq"], want["flash_attn_bwd_dkv"]):
         fail(f"cldm step, card against CPU: attention launches {counts}, expected {want}")
+    launches = f32_launches(want["d64"], want["d512"], "cldm step, card against CPU")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
     top = max(g.abs().max().item() for g in g_cpu)
     errs = {"loss": abs(l_gpu - l_cpu) / l_cpu, "grad": max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) / top}
@@ -1877,14 +1979,15 @@ def cldm_step_card_against_cpu(cfg_full, merge):
           + f" (bound {CLDM_F32_BOUND:.0e}); attention launches on the card {want}", flush=True)
     if not max(errs.values()) <= CLDM_F32_BOUND:
         fail(f"cldm step: the card differs from the CPU by {errs}")
-    return errs
+    return dict(errs, f32_launches=launches)
 
 
-def bwd_pass(build, pass_name):
+def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
-    spills, shared memory and blocks an SM at each head dim, and the bf16
-    form's instruction counts, which both passes share."""
-    return {k: v for k, v in build.items() if k.startswith(pass_name + "_") or k in ("HGMMA", "UTMALDG", "HMMA")}
+    spills, shared memory and blocks an SM at each head dim, and the form's
+    instruction counts, which both passes share (form "": bf16; "f32_")."""
+    return {k: v for k, v in build.items()
+            if k.startswith(form + pass_name + "_") or k in (form + "HGMMA", form + "UTMALDG", form + "HMMA")}
 
 
 def d64_entries(fwd_records, dq_records, dkv_records, by_dim, bwd_build):
@@ -1929,6 +2032,44 @@ def d512_entry(records, build):
         "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"], "main_shape": main_rec["shape"],
         "shapes": recs, "build": {k: v for k, v in build.items() if k.startswith("d512")},
     }
+
+
+def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_build, bwd_build, f32_steps):
+    """The f32 forms' entries of the ``kernels`` line: K1 and K2 on split-tf32
+    products at head dims 64 and 72 (the DiT's self-attention at a DMD step's
+    batch at top level, every f32 shape at 64 and 72 below), K1's f32 form at
+    head dim 512 (the DMD step's VAE encode) and the split prepass.
+    ``launches`` is the sum over the two f32 card-against-CPU train steps
+    (``f32_steps``: the DMD step at depth 2 and the cldm step), each beside."""
+    d64_fwd, d64_dq, d64_dkv = d64
+
+    def entry(name, source, replaces, records, main_name, **extra):
+        main_rec = next(r for r in records if r["name"] == main_name)
+        launches = {step: counts[name] for step, counts in f32_steps.items()}
+        return {"name": name, "route": "cuda", "source": f"instarevive_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": sum(launches.values()), **{f"launches_{k}": v for k, v in launches.items()},
+                "max_abs_err": max(r["max_abs_err"] for r in records), "ms": main_rec["ms"],
+                "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+                "library_ms": main_rec["library_ms"], "main_shape": main_rec["shape"], "shapes": records, **extra}
+
+    split = lambda recs: [r for r in recs if r["dtype"] == "f32" and r["shape"][4] in (64, 72)]  # noqa: E731
+    rel = lambda recs: {"max_rel_err": max(r["max_rel_err"] for r in recs)}  # noqa: E731
+    fwd = split(attn_records) + split(d64_fwd)
+    dq, dkv = split(dq_records) + split(d64_dq), split(dkv_records) + split(d64_dkv)
+    fwd_f32_build = {k: v for k, v in fwd_build.items() if k.startswith("f32")}
+    return [
+        entry("flash_attn_fwd_f32", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63", fwd, "dit_self",
+              build=fwd_f32_build),
+        entry("flash_attn_fwd_f32_d512", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
+              [r for r in attn_records if r["dtype"] == "f32" and r["shape"][4] == 512], "vae_mid_dmd_encode"),
+        entry("flash_attn_bwd_dq_f32", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127", dq, "dit_self",
+              build=bwd_pass(bwd_build, "dq", "f32_"), **rel(dq)),
+        entry("flash_attn_bwd_dkv_f32", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166", dkv, "dit_self",
+              build=bwd_pass(bwd_build, "dkv", "f32_"), **rel(dkv)),
+        entry("tf32_planes", "tf32_planes.cu", "instarevive_tpu/ops/attention.py:63", planes_records, "dit_q_b2",
+              note="no TPU kernel of its own: the split of the f32 operands that the f32 forms of K1 "
+                   "(attention.py:63) and K2 (:127, :166) read"),
+    ]
 
 
 def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
@@ -2010,6 +2151,7 @@ def main() -> None:
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
     d64_fwd, d64_dq, d64_dkv, held64 = d64_phase()
+    planes_records = planes_phase()
     conv_records = conv_phase()
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
@@ -2057,6 +2199,9 @@ def main() -> None:
         swin,
         filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
         *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3], bwd_build),
+        *f32_entries(attn_records, dq_records, dkv_records, (d64_fwd, d64_dq, d64_dkv), planes_records, fwd_build,
+                     bwd_build, {"dmd_f32_step": timing["card_vs_cpu"]["f32_launches"],
+                                 "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]}),
     ], "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2], "degrade": degrade_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,12 +59,36 @@
 //   output product. The dk/dv pass computes S^T = K Q^T directly, so P^T and
 //   dS^T come out already shaped as their product's A operand. The
 //   accumulators stay in registers until one store at the end.
-// * f32 (namespace bwd32): tiles of 32 x 32 in shared memory on odd strides,
-//   plain FMAs, the accumulators in registers (d / 4 outputs per thread and
-//   product).
+// * f32 (namespace bwd_tf32; every f32 trainer): the same body and
+//   structure on the tensor cores' TF32 path, f32-accurate by splitting, as
+//   the forward's f32 form (flash_attn_fwd.cu, fwd_tf32): each operand comes
+//   as hi and lo planes from the prepass (tf32_planes.cu), every product is
+//   lo.hi + hi.lo + hi.hi with f32 sums, each tf32 product exact, lo.lo
+//   (about 2^-22 of a product) dropped; torch's own TF32 stays off. A tf32 B
+//   is K-major only, so the output products' B operands, whose K runs along
+//   the streamed columns, come from transposed planes: K^T for dQ = dS K, Q^T
+//   and dO^T for dK = dS^T Q and dV = P^T dO, each with the columns in the
+//   order 0 2 4 6 1 3 5 7 within each group of 8, which puts a thread's
+//   accumulator columns (2t, 2t + 1) at the tf32 A fragment's k = (t, t + 4):
+//   P and dS go from the accumulators to the output products with no
+//   shuffle. A streamed stage holds 32 columns of C, D (hi, lo) and the
+//   transposed planes: 55 KB (dq) or 74 KB (dk/dv) at d = 72. Score products
+//   are m64 n32 k8 (ss), output products m64 n64/n72 k8 (rs) into fresh
+//   accumulators added into the running sums once a tile: the tensor cores'
+//   f32 sums truncate, and chained over 4096 queries straight into the
+//   running sums they came to 3.7e-5 of the largest gradient (the f32 bound
+//   is 2e-5; tools/time_flash_bwd.py with that copy of the file).
 //
 // What bounds it on this card: 10 * BH * Nq * Nk * d useful operations against
-// a few MB of operands, far above the ridge point, so operations bound it. A
+// a few MB of operands, far above the ridge point, so operations bound it (the
+// f32 form: three tf32 products each at half the bf16 rate). The f32 form's
+// shared memory (a 64-row warpgroup's four row planes are 74 KB at d = 72)
+// allows one block an SM, and each 32-column tile's planes come from L2
+// again for every block: with one warpgroup a block, the stage's bytes took
+// longer than its products, so where a pass has 128 rows or more a block is
+// two warpgroups sharing one stage (dk/dv 0.61 -> 0.37 ms at DiT self, one
+// stage's copy waiting for both), and below that one warpgroup with two
+// stages (a dk/dv pass over 4 or 77 keys, where two warpgroups were slower). A
 // warpgroup runs a tile's steps in turn (S and dP, then P, then dS and the
 // output products, whose end it waits for), and only the other warpgroups on
 // the SM fill the gaps: two blocks of one at d = 64 (three in the dq pass), one
@@ -407,187 +431,413 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace bwd16
 
 // ---------------------------------------------------------------------------
-// f32, head dims 64 and 72: shared-memory tiles and FMAs.
+// f32, head dims 64 and 72: split-tf32 wgmma on TMA-fed tiles, the same body.
 
-namespace bwd32 {
+namespace bwd_tf32 {
 
-constexpr int kThreads = 128;
-constexpr int BR = 32, BC = 32;  // rows a block owns; columns per streamed tile
-constexpr int LP = BC + 1;       // odd row stride of the P and dS tiles
+using namespace hopper;
 
-// The operand tiles' row stride is D + 1, odd (65, 73): no bank conflicts.
+constexpr int BC = 32;      // columns a streamed tile
+
+// Shared memory, from a 1024-byte aligned base: the row planes (A hi, A lo, B hi, B lo: BR rows each), then
+// per stage the column planes C hi, C lo, D hi, D lo (BC rows each, the K-major B of the score products),
+// C^T hi, C^T lo and, for dk/dv, D^T hi, D^T lo (D rows of BC columns each, from the transposed planes:
+// the K-major B of the output products), then the ring's per-column values (2 x BC f32 a stage) and the
+// barriers. A row-major plane tile is D / 32 boxes of rows x 32 f32 (128-byte rows, 128-byte swizzle)
+// and, at d = 72, a tail box of rows x 8 f32 (32-byte rows, 32-byte swizzle); a transposed one is one box
+// of D rows x 32 columns. Every box starts on 1024 bytes.
+//
+// A block is WG warpgroups of 64 rows: two sharing a single stage where a pass has at least 128 rows (a
+// column tile's bytes then serve 128 rows; its copy waits for both warpgroups), one with two stages
+// below that (a pass over a few keys: 4 or 77 for the dk/dv pass), as the launcher picks.
+template <int D, bool KV, int WG>
+struct Tile {
+  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  static_assert(WG == 1 || WG == 2, "one or two warpgroups");
+  static constexpr int kWarpgroups = WG, kStages = WG == 2 ? 1 : 2;  // the column ring's stages
+  static constexpr int kThreads = 128 * kWarpgroups, BR = 64 * kWarpgroups;
+  static constexpr uint32_t kRowPlane = BR * D * 4, kColPlane = BC * D * 4;
+  static constexpr int kColPlanes = KV ? 8 : 6;
+  static constexpr uint32_t kStage = kColPlanes * kColPlane;
+  static constexpr uint32_t kOffStages = 4 * kRowPlane, kOffVals = kOffStages + kStages * kStage;
+  static constexpr uint32_t kOffBars = kOffVals + kStages * 2 * BC * 4;
+  static constexpr size_t kSmem = 1024 + kOffBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
+  static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+};
+
+struct Maps {  // hi ([0]) and lo ([1]): A, B, C, D in 32-wide boxes and 8-wide tails; C^T, D^T in 32-column boxes
+  CUtensorMap a[2], b[2], c[2], d[2], a_tail[2], b_tail[2], c_tail[2], d_tail[2], ct[2], dt[2];
+};
+
+// A row-major plane tile of `rows` rows from row row0 of head bh.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * BR * (D + 1) + 2 * BC * (D + 1) + 2 * BR * LP + 2 * BR + 2 * BC);
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* main, const CUtensorMap* tail, int rows,
+                                          int row0, int bh, uint32_t bar) {
+#pragma unroll
+  for (int b = 0; b < D / 32; ++b) tma_load(dst + b * rows * 128, main, bar, 32 * b, row0, bh);
+  if (D % 32 != 0) tma_load(dst + (D / 32) * rows * 128, tail, bar, 32 * (D / 32), row0, bh);
 }
 
-// Rows [row0, row0 + ROWS) of a row-major (n, D) matrix into a (ROWS, D + 1) tile, zero past n.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n) {
-  for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
-    const int r = e / D, col = e % D;
-    dst[r * (D + 1) + col] = row0 + r < n ? src[(size_t)(row0 + r) * D + col] : 0.f;
+// acc (64 x BC a warpgroup) [+]= X Y^T over the head dims, X rows x0.. x0 + 63 of a row-major plane tile
+// of xrows rows (hi at x, lo at x + xplane), Y a BC-row one (hi at y, lo at y + yplane): each k-step of 8
+// head dims as lo.hi + hi.lo + hi.hi, the small terms first.
+template <int D>
+__device__ __forceinline__ void score_product(float (&acc)[BC / 2], uint32_t x, uint32_t xplane, int xrows, int x0,
+                                              uint32_t y, uint32_t yplane) {
+#pragma unroll
+  for (int b = 0; b < D / 32; ++b) {
+    const uint64_t xh = smem_desc(x + b * xrows * 128 + x0 * 128, 1024, kSwizzle128);
+    const uint64_t xl = smem_desc(x + xplane + b * xrows * 128 + x0 * 128, 1024, kSwizzle128);
+    const uint64_t yh = smem_desc(y + b * BC * 128, 1024, kSwizzle128);
+    const uint64_t yl = smem_desc(y + yplane + b * BC * 128, 1024, kSwizzle128);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma32<BC>::ss(acc, xl + 2 * ks, yh + 2 * ks, b > 0 || ks > 0);
+      Wgmma32<BC>::ss(acc, xh + 2 * ks, yl + 2 * ks, 1);
+      Wgmma32<BC>::ss(acc, xh + 2 * ks, yh + 2 * ks, 1);
+    }
+  }
+  if (D % 32 != 0) {
+    const uint32_t tx = (D / 32) * xrows * 128 + x0 * 32, ty = (D / 32) * BC * 128;
+    const uint64_t xh = smem_desc(x + tx, 256, kSwizzle32), xl = smem_desc(x + xplane + tx, 256, kSwizzle32);
+    const uint64_t yh = smem_desc(y + ty, 256, kSwizzle32), yl = smem_desc(y + yplane + ty, 256, kSwizzle32);
+    Wgmma32<BC>::ss(acc, xl, yh, 1);
+    Wgmma32<BC>::ss(acc, xh, yl, 1);
+    Wgmma32<BC>::ss(acc, xh, yh, 1);
   }
 }
 
-template <int D, bool KV>
-__global__ void __launch_bounds__(kThreads)
-kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const float* __restrict__ dout, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
-       const float* __restrict__ di, float* __restrict__ out1, float* __restrict__ out2, int heads, int nq,
-       int nk, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int kPer = BR * D / kThreads;  // outputs per thread and product
-  static_assert(BR * D % kThreads == 0, "the outputs split evenly over the threads");
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sA = reinterpret_cast<float*>(smem);
-  float* sB = sA + BR * LD;
-  float* sC = sB + BR * LD;
-  float* sD = sC + BC * LD;
-  float* sP = sD + BC * LD;
-  float* sS = sP + BR * LP;
-  float* sRow = sS + BR * LP;  // 2 * BR per-row values
-  float* sCol = sRow + 2 * BR; // 2 * BC per-column values
+// acc (64 x D) = F Y over this tile's BC columns, F the split A fragments (k-step j: columns 8 j..), Y
+// a transposed plane tile (D rows x BC columns; hi at y, lo at y + plane). acc starts at 0: the caller adds
+// it into the running sums, so the tensor cores' truncating sums run over one tile only.
+template <int D>
+__device__ __forceinline__ void output_product(float (&acc)[D / 2], const uint32_t (&fh)[BC / 8][4],
+                                               const uint32_t (&fl)[BC / 8][4], uint32_t y, uint32_t plane) {
+#pragma unroll
+  for (int j = 0; j < BC / 8; ++j) {
+    const uint64_t yh = smem_desc(y, 1024, kSwizzle128) + 2 * j, yl = smem_desc(y + plane, 1024, kSwizzle128) + 2 * j;
+    Wgmma32<D>::rs(acc, fl[j], yh, j > 0);
+    Wgmma32<D>::rs(acc, fh[j], yl, 1);
+    Wgmma32<D>::rs(acc, fh[j], yh, 1);
+  }
+}
 
-  const int bh = blockIdx.y, r0 = blockIdx.x * BR;
+// KV = false: the dq pass (out1 = dQ). KV = true: the dk/dv pass (out1 = dK, out2 = dV). The
+// accumulator layout of wgmma's m64 fragments: this thread holds rows g and g + 8 (r = 0, 1) of its
+// warp's 16, and x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
+template <int D, bool KV, int WG>
+__global__ void __launch_bounds__(Tile<D, KV, WG>::kThreads, 1)
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+       const float* __restrict__ di, float* __restrict__ out1, float* __restrict__ out2, int heads, int nq, int nk,
+       float scale) {
+  using T = Tile<D, KV, WG>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  float* vals = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + T::kOffVals);
+  const uint32_t sA = base, sB = base + 2 * T::kRowPlane;  // hi, then lo one plane on
+  const uint32_t full = base + T::kOffBars;   // per stage: its tiles and values have landed
+  const uint32_t empty = full + 8 * kStages;  // per stage: every warp is done with it
+  const uint32_t rowbar = empty + 8 * kStages;
+
+  const int bh = blockIdx.y, r0 = blockIdx.x * T::BR;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
   const int nrow = KV ? nk : nq, ncol = KV ? nq : nk;
-  const float* rowA = (KV ? k : q) + (size_t)bh * nrow * D;
-  const float* rowB = (KV ? v : dout) + (size_t)bh * nrow * D;
-  const float* colC = (KV ? q : k) + (size_t)bh * ncol * D;
-  const float* colD = (KV ? dout : v) + (size_t)bh * ncol * D;
+  const int n_tiles = (ncol + BC - 1) / BC;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
   const float* lse_b = lse + (size_t)bh * nq;
   const float* di_b = di + (size_t)bh * nq;
-  const float inv_nk = 1.f / (float)nk;
+  const float scale_log2 = scale * kLog2e, inv_nk = 1.f / (float)nk;
+  const bool producer = threadIdx.x < 32;  // the warp that fills the ring; no warp is set aside for it
+  // a stage's planes: C hi, C lo, D hi, D lo, C^T hi, C^T lo, [D^T hi, D^T lo]
+  auto col_plane = [&](int s, int i) { return base + T::kOffStages + s * T::kStage + i * T::kColPlane; };
 
-  // Values that follow the queries (L, di) or the keys (the flag), for rows or columns.
-  auto side_values = [&](float* dst, int n, int first, bool keys) {
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const int idx = first + j;
-      if (keys) {
-        dst[j] = key_flag(mb, idx, nk);
-        dst[n + j] = 0.f;
+  // Called by the whole producer warp: the lanes write a stage's per-column values (the key flag for
+  // dq; L in the log2 domain, +inf past Nq, and di for dk/dv), then lane 0 arrives on the stage's full
+  // barrier (releasing those writes) with the bytes its TMA copies will bring.
+  auto load_cols = [&](int tile) {
+    const int s = tile % kStages, c0 = tile * BC;
+    float* f = vals + s * 2 * BC;
+    for (int j = lane; j < BC; j += 32) {
+      const int c = c0 + j;
+      if (KV) {
+        f[j] = c < nq ? lse_b[c] * kLog2e : CUDART_INF_F;
+        f[BC + j] = c < nq ? di_b[c] : 0.f;
       } else {
-        dst[j] = idx < nq ? lse_b[idx] : CUDART_INF_F;
-        dst[n + j] = idx < nq ? di_b[idx] : 0.f;
+        f[j] = key_flag(mb, c, nk);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const uint32_t bar = full + 8 * s;
+      mbar_expect_tx(bar, T::kStage);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        load_rows<D>(col_plane(s, p), &maps.c[p], &maps.c_tail[p], BC, c0, bh, bar);
+        load_rows<D>(col_plane(s, 2 + p), &maps.d[p], &maps.d_tail[p], BC, c0, bh, bar);
+        tma_load(col_plane(s, 4 + p), &maps.ct[p], bar, c0, 0, bh);
+        if (KV) tma_load(col_plane(s, 6 + p), &maps.dt[p], bar, c0, 0, bh);
       }
     }
   };
-
-  load_tile<D, BR>(sA, rowA, r0, nrow);
-  load_tile<D, BR>(sB, rowB, r0, nrow);
-  side_values(sRow, BR, r0, KV);
-
-  float acc1[kPer], acc2[kPer];
-#pragma unroll
-  for (int n = 0; n < kPer; ++n) acc1[n] = acc2[n] = 0.f;
-
-  for (int c0 = 0; c0 < ncol; c0 += BC) {
-    __syncthreads();  // the previous tile's products are done with sC, sD, sP, sS
-    load_tile<D, BC>(sC, colC, c0, ncol);
-    load_tile<D, BC>(sD, colD, c0, ncol);
-    side_values(sCol, BC, c0, !KV);
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < BR * BC; e += kThreads) {
-      const int i = e / BC, j = e % BC;
-      const float* a = sA + i * LD;
-      const float* b = sB + i * LD;
-      const float* c = sC + j * LD;
-      const float* d = sD + j * LD;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int x = 0; x < D; ++x) {
-        s = fmaf(a[x], c[x], s);
-        dp = fmaf(b[x], d[x], dp);
-      }
-      const float l = KV ? sCol[j] : sRow[i];
-      const float dii = KV ? sCol[BC + j] : sRow[BR + i];
-      const float keep = KV ? sRow[i] : sCol[j];
-      const bool dead = l < kDeadRow;
-      const float p = dead ? (keep >= 0.f ? inv_nk : 0.f) : (keep > 0.f ? expf(s * scale - l) : 0.f);
-      sP[i * LP + j] = p;
-      sS[i * LP + j] = dead ? 0.f : p * (dp - dii) * scale;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, T::kThreads / 32);
     }
-    __syncthreads();
+    mbar_init(rowbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(rowbar, 4 * T::kRowPlane);
+    for (int p = 0; p < 2; ++p) {
+      load_rows<D>(sA + p * T::kRowPlane, &maps.a[p], &maps.a_tail[p], T::BR, r0, bh, rowbar);
+      load_rows<D>(sB + p * T::kRowPlane, &maps.b[p], &maps.b_tail[p], T::BR, r0, bh, rowbar);
+    }
+  }
+  if (producer)
+    for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) load_cols(tile);
 
+  // Per-row values of this thread's rows g and g + 8: L (log2 domain) and di (dq), or the key flag (dk/dv).
+  const int row0 = r0 + wg * 64 + warp * 16 + g;
+  float row_x[2], row_y[2];
 #pragma unroll
-    for (int n = 0; n < kPer; ++n) {
-      const int e = threadIdx.x + n * kThreads;
-      const int i = e / D, c = e % D;
-      float a1 = acc1[n], a2 = acc2[n];
-#pragma unroll 8
-      for (int j = 0; j < BC; ++j) {
-        a1 = fmaf(sS[i * LP + j], sC[j * LD + c], a1);
-        if (KV) a2 = fmaf(sP[i * LP + j], sD[j * LD + c], a2);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (KV) {
+      row_x[r] = key_flag(mb, row, nk);
+      row_y[r] = 0.f;
+    } else {
+      row_x[r] = row < nq ? lse_b[row] * kLog2e : CUDART_INF_F;
+      row_y[r] = row < nq ? di_b[row] : 0.f;
+    }
+  }
+
+  // the running outputs and one tile's contributions to them (out2: dk/dv only)
+  constexpr int N2 = KV ? D / 2 : 1;
+  float acc1[D / 2], acc2[N2], t1[D / 2], t2[N2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc1[i] = t1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N2; ++i) acc2[i] = t2[i] = 0.f;
+  mbar_wait(rowbar, 0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s = tile % kStages;
+    // refill the stage of the previous tile once every warp is done with it
+    if (producer && tile > 0 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty + 8 * ((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_cols(tile - 1 + kStages);
+    }
+    __syncwarp();
+    mbar_wait(full + 8 * s, (tile / kStages) & 1);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+    const float* colf = vals + s * 2 * BC;
+
+    // S = A C^T and dP = B D^T, 64 x BC, issued together
+    float sc[BC / 2], dp[BC / 2];
+    wgmma_fence();
+    score_product<D>(sc, sA, T::kRowPlane, T::BR, wg * 64, col_plane(s, 0), T::kColPlane);
+    wgmma_commit();
+    score_product<D>(dp, sB, T::kRowPlane, T::BR, wg * 64, col_plane(s, 2), T::kColPlane);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P in f32 (kept for dS); for dk/dv split into A fragments for dV += P^T dO
+    uint32_t ph[BC / 8][4], pl[BC / 8][4], sh[BC / 8][4], sl[BC / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+      const float2 col = *reinterpret_cast<const float2*>(colf + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float cv = (e & 1) ? col.y : col.x;
+        const float l2 = KV ? cv : row_x[r];
+        const float keep = KV ? row_x[r] : cv;
+        float& x = sc[4 * nt + e];
+        x = l2 < kDeadRow ? (keep >= 0.f ? inv_nk : 0.f) : (keep > 0.f ? ex2(fmaf(x, scale_log2, -l2)) : 0.f);
       }
-      acc1[n] = a1;
-      acc2[n] = a2;
+      if (KV) split_fragment(sc + 4 * nt, ph[nt], pl[nt]);
+    }
+    if constexpr (KV) {  // dV's tile: P^T dO
+      fence_regs(t2);
+      wgmma_fence();
+      output_product<D>(t2, ph, pl, col_plane(s, 6), T::kColPlane);
+      wgmma_commit();
+      wgmma_wait<1>();  // dP has landed; dV may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(dp);
+
+    // dS = P (dP - di) scale, split into A fragments
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+      const float2 col = *reinterpret_cast<const float2*>(colf + nt * 8 + 2 * t);
+      const float2 col_di = *reinterpret_cast<const float2*>(colf + BC + nt * 8 + 2 * t);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float l2 = KV ? ((e & 1) ? col.y : col.x) : row_x[r];
+        const float dii = KV ? ((e & 1) ? col_di.y : col_di.x) : row_y[r];
+        ds[e] = l2 < kDeadRow ? 0.f : sc[4 * nt + e] * (dp[4 * nt + e] - dii) * scale;
+      }
+      split_fragment(ds, sh[nt], sl[nt]);
+    }
+    // dQ's tile dS K, or dK's tile dS^T Q
+    fence_regs(t1);
+    wgmma_fence();
+    output_product<D>(t1, sh, sl, col_plane(s, 4), T::kColPlane);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(t1);
+    if constexpr (KV) fence_regs(t2);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc1[i] += t1[i];
+    if constexpr (KV) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc2[i] += t2[i];
     }
   }
 
 #pragma unroll
-  for (int n = 0; n < kPer; ++n) {
-    const int e = threadIdx.x + n * kThreads;
-    const int i = e / D, c = e % D;
-    if (r0 + i >= nrow) continue;
-    const size_t at = ((size_t)bh * nrow + r0 + i) * D + c;
-    out1[at] = acc1[n];
-    if (KV) out2[at] = acc2[n];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= nrow) continue;
+    const size_t at = ((size_t)bh * nrow + row) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(out1 + at + 8 * j) = make_float2(acc1[4 * j + 2 * r], acc1[4 * j + 2 * r + 1]);
+      if (KV) *reinterpret_cast<float2*>(out2 + at + 8 * j) = make_float2(acc2[4 * j + 2 * r], acc2[4 * j + 2 * r + 1]);
+    }
   }
 }
 
-template <int D, bool KV>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
-                   const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq,
-                   int nk, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D>();
-  auto fn = kernel<D, KV>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+// planes: Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, D) f32), then the transposed planes
+// (tf32_planes.cu) K^T hi, K^T lo (the dq pass) or Q^T hi, Q^T lo, dO^T hi, dO^T lo (the dk/dv pass).
+template <int D, bool KV, int WG>
+cudaError_t run(const void* const* planes, const void* mask, const void* lse, const void* di, void* out1,
+                void* out2, int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
+  using T = Tile<D, KV, WG>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const void* const* q = planes;
+  const void* const* k = planes + 2;
+  const void* const* v = planes + 4;
+  const void* const* dout = planes + 6;
+  const void* const* a = KV ? k : q;
+  const void* const* b = KV ? v : dout;
+  const void* const* c = KV ? q : k;
+  const void* const* d = KV ? dout : v;
+  const int nrow = KV ? nk : nq, ncol = KV ? nq : nk, ncol_pad = (ncol + 7) / 8 * 8;
+  constexpr auto kW128 = CU_TENSOR_MAP_SWIZZLE_128B, kW32 = CU_TENSOR_MAP_SWIZZLE_32B;
+  Maps maps = {};
+  bool ok = true;
+  for (int p = 0; p < 2; ++p) {
+    ok = ok && make_map(&maps.a[p], a[p], D, nrow, bh, 32, T::BR, kW128, true) &&
+         make_map(&maps.b[p], b[p], D, nrow, bh, 32, T::BR, kW128, true) &&
+         make_map(&maps.c[p], c[p], D, ncol, bh, 32, BC, kW128, true) &&
+         make_map(&maps.d[p], d[p], D, ncol, bh, 32, BC, kW128, true) &&
+         make_map(&maps.ct[p], planes[8 + p], ncol_pad, D, bh, 32, D, kW128, true);
+    if (KV) ok = ok && make_map(&maps.dt[p], planes[10 + p], ncol_pad, D, bh, 32, D, kW128, true);
+    if (D % 32 != 0)
+      ok = ok && make_map(&maps.a_tail[p], a[p], D, nrow, bh, 8, T::BR, kW32, true) &&
+           make_map(&maps.b_tail[p], b[p], D, nrow, bh, 8, T::BR, kW32, true) &&
+           make_map(&maps.c_tail[p], c[p], D, ncol, bh, 8, BC, kW32, true) &&
+           make_map(&maps.d_tail[p], d[p], D, ncol, bh, 8, BC, kW32, true);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  auto fn = kernel<D, KV, WG>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((KV ? nk : nq) + BR - 1) / BR, bh);
-  fn<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<float*>(out1), static_cast<float*>(out2), heads, nq, nk, scale);
+  const dim3 grid((nrow + T::BR - 1) / T::BR, bh);
+  fn<<<grid, T::kThreads, T::kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+                                           static_cast<const float*>(di), static_cast<float*>(out1),
+                                           static_cast<float*>(out2), heads, nq, nk, scale);
   return cudaGetLastError();
 }
 
-}  // namespace bwd32
+// Two warpgroups a block where the pass has 128 rows or more, else one (Tile).
+template <int D, bool KV>
+cudaError_t launch(const void* const* planes, const void* mask, const void* lse, const void* di, void* out1,
+                   void* out2, int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
+  return (KV ? nk : nq) >= 128 ? run<D, KV, 2>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, stream)
+                               : run<D, KV, 1>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, stream);
+}
 
-// Both forms at one head dim; cudaErrorInvalidValue for any other.
+template <int D, bool KV, int WG>
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  using T = Tile<D, KV, WG>;
+  *smem_bytes = (int)T::kSmem;
+  auto fn = kernel<D, KV, WG>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, T::kThreads, T::kSmem);
+}
+
+template <int D>
+cudaError_t occupancy(int kv, int wg, int* smem_bytes, int* blocks_per_sm) {
+  if (wg == 2) return kv ? occupancy<D, true, 2>(smem_bytes, blocks_per_sm) : occupancy<D, false, 2>(smem_bytes, blocks_per_sm);
+  if (wg == 1) return kv ? occupancy<D, true, 1>(smem_bytes, blocks_per_sm) : occupancy<D, false, 1>(smem_bytes, blocks_per_sm);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd_tf32
+
+// The bf16 form at one head dim; cudaErrorInvalidValue for any other.
 template <bool KV>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
                      const void* lse, const void* di, void* out1, void* out2, int bh, int heads, int nq, int nk,
-                     int d, float scale, int is_bf16, cudaStream_t s) {
-  if (d == 64)
-    return is_bf16 ? bwd16::launch<64, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
-                   : bwd32::launch<64, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
-  if (d == 72)
-    return is_bf16 ? bwd16::launch<72, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
-                   : bwd32::launch<72, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
+                     int d, float scale, cudaStream_t s) {
+  if (d == 64) return bwd16::launch<64, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
+  if (d == 72) return bwd16::launch<72, KV>(q, k, v, dout, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, dout, dq: (bh, nq, d); k, v, dk, dv: (bh, nk, d), contiguous and of one type
-// (bf16 when is_bf16, else f32); lse, di: (bh, nq) f32; mask: (bh / heads, nk)
-// bytes, or null for no mask. d = 64 or 72. Each returns a cudaError_t; 0
-// means the launch was accepted.
+// q, dout, dq: (bh, nq, d); k, v, dk, dv: (bh, nk, d), contiguous bf16 (is_bf16
+// must be 1: the f32 form is flash_attn_bwd_f32); lse, di: (bh, nq) f32; mask:
+// (bh / heads, nk) bytes, or null for no mask. d = 64 or 72. Each returns a
+// cudaError_t; 0 means the launch was accepted.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* mask, const void* lse, const void* di, void* dq, int bh,
                                  int heads, int nq, int nk, int d, float scale, int is_bf16, void* stream) {
+  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<false>(q, k, v, dout, mask, lse, di, dq, nullptr, bh, heads, nq, nk, d, scale,
-                                          is_bf16, static_cast<cudaStream_t>(stream)));
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* mask, const void* lse, const void* di, void* dk, void* dv,
                                   int bh, int heads, int nq, int nk, int d, float scale, int is_bf16,
                                   void* stream) {
+  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<true>(q, k, v, dout, mask, lse, di, dk, dv, bh, heads, nq, nk, d, scale,
-                                         is_bf16, static_cast<cudaStream_t>(stream)));
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The f32 form of one pass (kv = 0: dq into out1; kv = 1: dk into out1, dv into
+// out2) at head dim d (64 or 72) on the split planes of tf32_planes.cu: planes
+// holds Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, d) f32), then
+// K^T hi, K^T lo for dq, or Q^T hi, Q^T lo, dO^T hi, dO^T lo for dk/dv ((bh, d,
+// n rounded up to a multiple of 8) f32). Returns a cudaError_t.
+extern "C" int flash_attn_bwd_f32(const void* const* planes, const void* mask, const void* lse, const void* di,
+                                  void* out1, void* out2, int kv, int bh, int heads, int nq, int nk, int d,
+                                  float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return static_cast<int>(kv ? bwd_tf32::launch<64, true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                               : bwd_tf32::launch<64, false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
+  if (d == 72)
+    return static_cast<int>(kv ? bwd_tf32::launch<72, true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                               : bwd_tf32::launch<72, false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 form's shared memory a block and blocks an SM for one pass (kv = 0:
@@ -597,5 +847,12 @@ extern "C" int flash_attn_bwd_occupancy(int d, int kv, int* smem_bytes, int* blo
                                           : bwd16::occupancy<64, false>(smem_bytes, blocks_per_sm));
   if (d == 72) return static_cast<int>(kv ? bwd16::occupancy<72, true>(smem_bytes, blocks_per_sm)
                                           : bwd16::occupancy<72, false>(smem_bytes, blocks_per_sm));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same for the f32 form's block of wg (1 or 2) warpgroups.
+extern "C" int flash_attn_bwd_occupancy_f32(int d, int kv, int wg, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 64) return static_cast<int>(bwd_tf32::occupancy<64>(kv, wg, smem_bytes, blocks_per_sm));
+  if (d == 72) return static_cast<int>(bwd_tf32::occupancy<72>(kv, wg, smem_bytes, blocks_per_sm));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,7 +19,7 @@
 // V rows. The key mask is read per key tile from the (B, Nk) array and shared
 // by all heads of a batch row.
 //
-// Three forms:
+// Four forms:
 // * bf16, head dims 64 and 72 (the UNet and ControlNet of the LDM trainer at
 //   64; the DiT at 72: 56 of the 58 launches of one restoration call) runs on
 //   Hopper's tensor-core path, one body templated on the head dim. A block is
@@ -53,8 +53,35 @@
 //   the other's, so both hold the same S and run the same online softmax.
 //   O += P.V is m64 n256 k16 with P from registers and the warpgroup's four
 //   V boxes read as one MN-major operand.
-// * f32, every head dim, keeps the scores and the accumulator in shared
-//   memory and runs plain FMAs on odd-strided tiles (no bank conflicts).
+// * f32, head dims 64 and 72 (namespace fwd_tf32; every f32 trainer's DiT,
+//   UNet and ControlNet): the bf16 form's design on the tensor cores' TF32
+//   path, with f32 accuracy kept by splitting. The launcher is handed each
+//   operand as two planes made by the prepass (tf32_planes.cu), hi =
+//   tf32(x) and lo = tf32(x - hi), and every product is hi.hi + hi.lo +
+//   lo.hi (the small terms first), f32-accumulated, each tf32 product exact:
+//   what is lost is lo.lo, about 2^-22 of a product, and the sums' order.
+//   Torch's own TF32 stays off; these products are f32-accurate by
+//   construction. A block is two warpgroups of 64 query rows sharing a ring
+//   of two 64-key stages; Q's planes are resident, each stage holds K's two
+//   planes and V's two transposed planes (a tf32 operand of wgmma is read
+//   from shared memory K-major only, so V, the B of P.V whose K is the key,
+//   comes transposed, (bh, d, nk rounded up to 8)). Head dims run in 32-f32
+//   boxes of 128-byte rows under the 128-byte swizzle, at d = 72 plus an
+//   8-f32 tail box of 32-byte rows under the 32-byte swizzle; a k-step of
+//   tf32 is 8 values, 32 bytes, as a bf16 k-step, so the descriptors step as
+//   the bf16 form's. S = Q.K^T is three m64 n64 k8 ss products a k-step; the
+//   online softmax stays f32 in registers; P is split in registers into
+//   tf32 A fragments, which want columns (t, t + 4) of each 8-key group where
+//   the accumulator holds (2t, 2t + 1): the prepass writes the transposed
+//   planes with keys in the order 0 2 4 6 1 3 5 7 within each group of 8, so
+//   the fragments need no shuffle. O's tile P.V (m64 n64/n72 k8, rs) runs
+//   into a fresh accumulator that one FFMA folds into the running output with
+//   the softmax's rescale: the tensor cores' f32 sums truncate, and chained
+//   over thousands of keys that bias alone would pass the f32 bounds (the
+//   backward measured it: 3.7e-5 against 2e-5 at 4096 queries).
+// * f32, head dim 512 (the VAE mid block of an f32 run), keeps the scores and
+//   the accumulator in shared memory and runs plain FMAs on odd-strided tiles
+//   (no bank conflicts).
 // Other head dims are refused.
 //
 // What bounds it on this card: at the DiT and UNet shapes the work is far
@@ -89,7 +116,12 @@
 // multicast (twice as slow with the copying thread waiting on the other
 // block, and as slow without the multicast: the wait, not the copies,
 // costs). 225 KB of shared memory allow one block per SM; at batch 1 a
-// 5184-token tile gives 81 blocks for 132 SMs. The f32 form is bound by
+// 5184-token tile gives 81 blocks for 132 SMs. The f32 form at head dims 64
+// and 72 does three times the bf16 form's products at half the bf16 rate
+// (495 TFLOP/s TF32), so operations bound it at 6x the bf16 bound; 221 KB of
+// shared memory at d = 72 (197 KB at 64) allow one block of two warpgroups
+// an SM, whose 64-key stage (74 KB) arrives from L2 in about the time the two
+// warpgroups take for its products. The f32 form at head dim 512 is bound by
 // shared-memory traffic and the barriers between its phases.
 
 #include <cuda_runtime.h>
@@ -147,15 +179,14 @@ struct Tile {
 // its warp's 16, and x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
 
 // One key tile of the online softmax in the log2 domain over the scores sc of keys kv0.. of this
-// thread's two rows. A tile of real, unmasked keys is scaled inside the exponent (one FFMA a score,
-// the max taken on the raw scores); any other tile is scaled first and its absent keys (past nk:
-// weight exactly 0) and masked keys (kMaskedScore) set. Updates the running max and sum, and gives
-// each row's rescale of the accumulator (alpha) and P, rounded to bf16, as wgmma A fragments (pf:
-// n-tile pairs become 16-key k-steps).
+// thread's two rows, turned in place into the tile's unnormalised weights P. A tile of real, unmasked
+// keys is scaled inside the exponent (one FFMA a score, the max taken on the raw scores); any other
+// tile is scaled first and its absent keys (past nk: weight exactly 0) and masked keys (kMaskedScore)
+// set. Updates the running max and sum, and gives each row's rescale of the accumulator (alpha).
 template <int BK>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int kv0, int nk, const uint8_t* mb,
-                                             float scale_log2, int t, float (&m_run)[2], float (&l_run)[2],
-                                             float (&alpha)[2], uint32_t (&pf)[BK / 16][4]) {
+__device__ __forceinline__ void softmax_probs(float (&sc)[BK / 2], int kv0, int nk, const uint8_t* mb,
+                                              float scale_log2, int t, float (&m_run)[2], float (&l_run)[2],
+                                              float (&alpha)[2]) {
   float mul = scale_log2;
   if (mb != nullptr || kv0 + BK > nk || scale_log2 <= 0.f) {
 #pragma unroll
@@ -178,18 +209,31 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int kv0, int n
   }
 #pragma unroll
   for (int nt = 0; nt < BK / 8; ++nt) {
-    const float p0 = ex2(fmaf(sc[4 * nt], mul, -m_run[0])), p1 = ex2(fmaf(sc[4 * nt + 1], mul, -m_run[0]));
-    const float p2 = ex2(fmaf(sc[4 * nt + 2], mul, -m_run[1])), p3 = ex2(fmaf(sc[4 * nt + 3], mul, -m_run[1]));
-    sum[0] += p0 + p1;
-    sum[1] += p2 + p3;
-    pf[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
-    pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+    sc[4 * nt] = ex2(fmaf(sc[4 * nt], mul, -m_run[0]));
+    sc[4 * nt + 1] = ex2(fmaf(sc[4 * nt + 1], mul, -m_run[0]));
+    sc[4 * nt + 2] = ex2(fmaf(sc[4 * nt + 2], mul, -m_run[1]));
+    sc[4 * nt + 3] = ex2(fmaf(sc[4 * nt + 3], mul, -m_run[1]));
+    sum[0] += sc[4 * nt] + sc[4 * nt + 1];
+    sum[1] += sc[4 * nt + 2] + sc[4 * nt + 3];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
     sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
     l_run[r] = l_run[r] * alpha[r] + sum[r];
+  }
+}
+
+// softmax_probs, then P rounded to bf16 as wgmma A fragments (pf: n-tile pairs become 16-key k-steps).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int kv0, int nk, const uint8_t* mb,
+                                             float scale_log2, int t, float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], uint32_t (&pf)[BK / 16][4]) {
+  softmax_probs<BK>(sc, kv0, nk, mb, scale_log2, t, m_run, l_run, alpha);
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    pf[nt / 2][(nt % 2) * 2] = pack_bf16(sc[4 * nt], sc[4 * nt + 1]);
+    pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(sc[4 * nt + 2], sc[4 * nt + 3]);
   }
 }
 
@@ -556,7 +600,225 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace d512
 
 // ---------------------------------------------------------------------------
-// f32, head dims 72 and 512: scores and accumulator in shared memory, FMAs.
+// f32, head dims 64 and 72: split-tf32 wgmma on TMA-fed tiles.
+
+namespace fwd_tf32 {
+
+using namespace hopper;
+
+constexpr int BK = 64;       // keys a tile
+constexpr int kStages = 2;   // the K/V ring: tiles in flight
+
+// Shared tiles, from a 1024-byte aligned base: Q's hi and lo planes (BQ rows, resident), then per stage
+// K's hi and lo planes (BK rows) and V's transposed hi and lo planes (D rows of BK keys), then the
+// barriers. A row-major plane tile (Q, K) is kBoxes boxes of rows x 32 f32 (128-byte rows under the
+// 128-byte swizzle) and, at d = 72, a tail box of rows x 8 f32 (head dims 64-71: 32-byte rows under the
+// 32-byte swizzle); a transposed V tile is BK / 32 boxes of D rows x 32 keys. Every box starts on 1024
+// bytes (the 128-byte swizzle's atom is 8 rows; the 32-byte one's 256 bytes).
+template <int D>
+struct Tile {
+  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  static constexpr int kWarpgroups = 2, kThreads = 128 * kWarpgroups, BQ = 64 * kWarpgroups;
+  static constexpr int kBoxes = D / 32;       // 128-byte-row boxes of a row
+  static constexpr bool kTail = D % 32 != 0;  // head dims 64-71 in a box of their own
+  static constexpr uint32_t kQPlane = BQ * D * 4, kKPlane = BK * D * 4, kVPlane = D * BK * 4;
+  static constexpr uint32_t kStage = 2 * kKPlane + 2 * kVPlane;
+  static constexpr uint32_t kOffStages = 2 * kQPlane, kBars = kOffStages + kStages * kStage;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);  // 1024 bytes of slack to align the base
+  static_assert(kSmem <= 232448, "shared memory over the per-block limit");
+};
+
+struct Maps {  // the hi ([0]) and lo ([1]) planes: Q and K in 32-wide boxes and 8-wide tails, V^T in 32-key boxes
+  CUtensorMap q[2], k[2], q_tail[2], k_tail[2], vt[2];
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, float* __restrict__ out,
+       float* __restrict__ lse, int heads, int nq, int nk, float scale_log2) {
+  using T = Tile<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t full = sQ + T::kBars;        // per stage: its K and V tiles have landed
+  const uint32_t empty = full + 8 * kStages;  // per stage: every warp is done with it
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
+  const int n_tiles = (nk + BK - 1) / BK;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const bool producer = threadIdx.x == 0;  // issues every copy; no warp is set aside for it
+
+  // a row-major plane tile of `rows` rows, from row row0 of this head
+  auto load_rows = [&](uint32_t dst, const CUtensorMap* main, const CUtensorMap* tail, int rows, int row0,
+                       uint32_t bar) {
+#pragma unroll
+    for (int b = 0; b < T::kBoxes; ++b) tma_load(dst + b * rows * 128, main, bar, 32 * b, row0, bh);
+    if (T::kTail) tma_load(dst + T::kBoxes * rows * 128, tail, bar, 32 * T::kBoxes, row0, bh);
+  };
+  auto load_kv = [&](int tile) {
+    const int s = tile % kStages;
+    const uint32_t bar = full + 8 * s, base = sQ + T::kOffStages + s * T::kStage;
+    mbar_expect_tx(bar, T::kStage);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      load_rows(base + p * T::kKPlane, &maps.k[p], &maps.k_tail[p], BK, tile * BK, bar);
+#pragma unroll
+      for (int kb = 0; kb < BK / 32; ++kb)
+        tma_load(base + 2 * T::kKPlane + p * T::kVPlane + kb * D * 128, &maps.vt[p], bar, tile * BK + 32 * kb, 0, bh);
+    }
+  };
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, T::kThreads / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (producer) {
+    mbar_expect_tx(qbar, 2 * T::kQPlane);
+    for (int p = 0; p < 2; ++p) load_rows(sQ + p * T::kQPlane, &maps.q[p], &maps.q_tail[p], T::BQ, q0, qbar);
+    for (int tile = 0; tile < kStages && tile < n_tiles; ++tile) load_kv(tile);
+  }
+
+  float o[D / 2], ot[D / 2];  // the running output; one tile's P.V
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = ot[i] = 0.f;
+  float m_run[2] = {kMaskedScore, kMaskedScore}, l_run[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s = tile % kStages;
+    // refill the stage of the previous tile once every warp is done with it
+    if (producer && tile > 0 && tile - 1 + kStages < n_tiles) {
+      mbar_wait(empty + 8 * ((tile - 1) % kStages), ((tile - 1) / kStages) & 1);
+      load_kv(tile - 1 + kStages);
+    }
+    __syncwarp();
+    mbar_wait(full + 8 * s, (tile / kStages) & 1);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+    const uint32_t k_hi = sQ + T::kOffStages + s * T::kStage, k_lo = k_hi + T::kKPlane;
+    const uint32_t v_hi = k_hi + 2 * T::kKPlane, v_lo = v_hi + T::kVPlane;
+
+    // S = Q K^T, 64 x BK a warpgroup: each k-step of 8 head dims (32 bytes along a row) as
+    // lo.hi + hi.lo + hi.hi, the small terms first
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < T::kBoxes; ++b) {
+      const uint64_t qh = smem_desc(sQ + b * T::BQ * 128 + wg * 64 * 128, 1024, kSwizzle128);
+      const uint64_t ql = smem_desc(sQ + T::kQPlane + b * T::BQ * 128 + wg * 64 * 128, 1024, kSwizzle128);
+      const uint64_t kh = smem_desc(k_hi + b * BK * 128, 1024, kSwizzle128);
+      const uint64_t kl = smem_desc(k_lo + b * BK * 128, 1024, kSwizzle128);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        Wgmma32<BK>::ss(sc, ql + 2 * ks, kh + 2 * ks, b > 0 || ks > 0);
+        Wgmma32<BK>::ss(sc, qh + 2 * ks, kl + 2 * ks, 1);
+        Wgmma32<BK>::ss(sc, qh + 2 * ks, kh + 2 * ks, 1);
+      }
+    }
+    if (T::kTail) {
+      const uint32_t tq = T::kBoxes * T::BQ * 128 + wg * 64 * 32, tk = T::kBoxes * BK * 128;
+      const uint64_t qh = smem_desc(sQ + tq, 256, kSwizzle32), ql = smem_desc(sQ + T::kQPlane + tq, 256, kSwizzle32);
+      const uint64_t kh = smem_desc(k_hi + tk, 256, kSwizzle32), kl = smem_desc(k_lo + tk, 256, kSwizzle32);
+      Wgmma32<BK>::ss(sc, ql, kh, 1);
+      Wgmma32<BK>::ss(sc, qh, kl, 1);
+      Wgmma32<BK>::ss(sc, qh, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax in the log2 domain; P in f32, split into hi and lo A fragments
+    float alpha[2];
+    softmax_probs<BK>(sc, tile * BK, nk, mb, scale_log2, t, m_run, l_run, alpha);
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) split_fragment(sc + 4 * j, ph[j], pl[j]);
+
+    // this tile's P V into a fresh accumulator (the tensor cores' sums then run over one tile only), V^T
+    // planes as K-major B operands: a k-step of 8 keys is 32 bytes along a 128-byte row of 32 keys
+    fence_regs(ot);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t at = (j / 4) * D * 128;
+      const uint64_t vh = smem_desc(v_hi + at, 1024, kSwizzle128) + 2 * (j % 4);
+      const uint64_t vl = smem_desc(v_lo + at, 1024, kSwizzle128) + 2 * (j % 4);
+      Wgmma32<D>::rs(ot, pl[j], vh, j > 0);
+      Wgmma32<D>::rs(ot, ph[j], vl, 1);
+      Wgmma32<D>::rs(ot, ph[j], vh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(ot);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);
+  }
+
+  float* ob = out + (size_t)bh * nq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (row >= nq) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    float* orow = ob + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // the running max is in the log2 domain; a row with no real key keeps the mask's score
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * nq + row] = m_run[r] <= kMaskedScore
+                                       ? kMaskedScore
+                                       : (m_run[r] + log2f(fmaxf(l_run[r], 1e-30f))) * 0.6931471805599453f;
+  }
+}
+
+// planes: Q hi, Q lo, K hi, K lo ((bh, n, D) f32), V^T hi, V^T lo ((bh, D, nk rounded up to 8) f32, keys in
+// the order of tf32_planes.cu).
+template <int D>
+cudaError_t launch(const void* const* planes, const void* mask, void* out, void* lse, int bh, int heads, int nq,
+                   int nk, float scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const int nk_pad = (nk + 7) / 8 * 8;
+  Maps maps = {};
+  bool ok = true;
+  for (int p = 0; p < 2; ++p) {
+    ok = ok && make_map(&maps.q[p], planes[p], D, nq, bh, 32, T::BQ, CU_TENSOR_MAP_SWIZZLE_128B, true) &&
+         make_map(&maps.k[p], planes[2 + p], D, nk, bh, 32, BK, CU_TENSOR_MAP_SWIZZLE_128B, true) &&
+         make_map(&maps.vt[p], planes[4 + p], nk_pad, D, bh, 32, D, CU_TENSOR_MAP_SWIZZLE_128B, true);
+    if (T::kTail)
+      ok = ok && make_map(&maps.q_tail[p], planes[p], D, nq, bh, 8, T::BQ, CU_TENSOR_MAP_SWIZZLE_32B, true) &&
+           make_map(&maps.k_tail[p], planes[2 + p], D, nk, bh, 8, BK, CU_TENSOR_MAP_SWIZZLE_32B, true);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  auto fn = kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + T::BQ - 1) / T::BQ, bh);
+  fn<<<grid, T::kThreads, T::kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<float*>(out),
+                                           static_cast<float*>(lse), heads, nq, nk, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = (int)Tile<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel<D>, Tile<D>::kThreads, Tile<D>::kSmem);
+}
+
+}  // namespace fwd_tf32
+
+// ---------------------------------------------------------------------------
+// f32, head dim 512: scores and accumulator in shared memory, FMAs.
 
 namespace fp32 {
 
@@ -736,25 +998,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 }  // namespace
 
 // q: (bh, nq, d), k and v: (bh, nk, d), out: (bh, nq, d), all contiguous and of
-// one type (bf16 when is_bf16, else f32); mask: (bh / heads, nk) bytes, or
-// null for no mask; lse: (bh, nq) f32 to receive the row log-sum-exp, or null
-// (head dims 64 and 72 only). Returns a cudaError_t; 0 means the launch was accepted.
+// one type (bf16 when is_bf16, else f32, which this entry takes at head dim
+// 512 only: flash_attn_fwd_f32 takes f32 at 64 and 72); mask: (bh / heads, nk)
+// bytes, or null for no mask; lse: (bh, nq) f32 to receive the row
+// log-sum-exp, or null (head dims 64 and 72 only). Returns a cudaError_t; 0
+// means the launch was accepted.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* out, void* lse, int bh, int heads, int nq, int nk, int d,
                               float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    return is_bf16 ? hopper::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
-                   : fp32::launch<64, 64, 64, 65>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
-  }
-  if (d == 72) {
-    return is_bf16 ? hopper::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s)
-                   : fp32::launch<64, 64, 80, 81>(q, k, v, mask, out, lse, bh, heads, nq, nk, d, scale, s);
-  }
+  if (d == 64 && is_bf16) return hopper::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
+  if (d == 72 && is_bf16) return hopper::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 512 && lse == nullptr) {
     return is_bf16 ? d512::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
                    : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, nullptr, bh, heads, nq, nk, d, scale, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 form at head dims 64 and 72 on its split planes (tf32_planes.cu):
+// planes holds the pointers Q hi, Q lo, K hi, K lo ((bh, n, d) f32) and V^T hi,
+// V^T lo ((bh, d, nk rounded up to a multiple of 8) f32); mask, out (f32), lse
+// and the rest as flash_attn_fwd. Returns a cudaError_t.
+extern "C" int flash_attn_fwd_f32(const void* const* planes, const void* mask, void* out, void* lse, int bh,
+                                  int heads, int nq, int nk, int d, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return fwd_tf32::launch<64>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
+  if (d == 72) return fwd_tf32::launch<72>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -765,5 +1035,12 @@ extern "C" int flash_attn_fwd_occupancy(int d, int* smem_bytes, int* blocks_per_
   if (d == 64) return hopper::occupancy<64>(smem_bytes, blocks_per_sm);
   if (d == 72) return hopper::occupancy<72>(smem_bytes, blocks_per_sm);
   if (d == 512) return d512::occupancy(smem_bytes, blocks_per_sm);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same for the f32 form at head dim 64 or 72.
+extern "C" int flash_attn_fwd_occupancy_f32(int d, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 64) return fwd_tf32::occupancy<64>(smem_bytes, blocks_per_sm);
+  if (d == 72) return fwd_tf32::occupancy<72>(smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

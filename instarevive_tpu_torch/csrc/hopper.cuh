@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
-// flash_attn_fwd.cu (K1 at head dims 64, 72 and 512), flash_attn_bwd.cu (K2,
-// bf16) and gn_conv.cu (K3, bf16).
+// flash_attn_fwd.cu (K1 at head dims 64, 72 and 512), flash_attn_bwd.cu (K2),
+// gn_conv.cu (K3, bf16) and tf32_planes.cu (the f32 attention's split prepass).
 //
 // * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
 //   phase's parity;
@@ -9,11 +9,15 @@
 // * wgmma: shared-memory descriptors, the fences and commit/wait around
 //   wgmma.mma_async, and the bf16 x bf16 -> f32 forms the kernels use
 //   (Wgmma<N>::ss with both operands in shared memory, Wgmma<N>::rs with A in
-//   registers and B an MN-major shared tile), and ex2 (2^x);
+//   registers and B an MN-major shared tile), the tf32 x tf32 -> f32 forms of
+//   the f32 attention kernels (Wgmma32<N>::ss, Wgmma32<N>::rs; a tf32 B is
+//   K-major only), and ex2 (2^x);
+// * tf32_rna: an f32 value rounded to tf32 (its low 13 bits zero), the split
+//   of an f32 operand into hi + lo planes;
 // * on the host: cuTensorMapEncodeTiled, a libcuda entry point found through
 //   the runtime (the libraries link no libcuda), and a cache of the maps
-//   last made, keyed by address, shape, box and swizzle, and make_map, the
-//   map of one head-major (bh, n, d) attention operand.
+//   last made, keyed by address, element type, shape, box and swizzle, and
+//   make_map, the map of one head-major (bh, n, d) attention operand.
 //
 // Every library that includes this header hashes it into its build path
 // (ops/cuda_build.py), so an edit here rebuilds all three.
@@ -82,6 +86,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// x rounded to tf32, to nearest with ties away from zero, as f32 bits whose
+// low 13 bits are zero (cleared again in case the conversion leaves them).
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+
+// Columns 8 j + 2 t and 8 j + 2 t + 1 of rows g and g + 8 of a wgmma
+// accumulator (x = &acc[4 j]) as the tf32 A fragment of one k-step, split
+// into hi and lo planes: k = t takes column 2 t and k = t + 4 column 2 t + 1,
+// the order of the transposed planes along K (tf32_planes.cu), so the product
+// pairs each value with its own B row.
+__device__ __forceinline__ void split_fragment(const float* x, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float v[4] = {x[0], x[2], x[1], x[3]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float h = tf32_rna(v[e]);
+    hi[e] = __float_as_uint(h);
+    lo[e] = __float_as_uint(tf32_rna(v[e] - h));
+  }
+}
+
 // 2^x on the SM's exponential unit (ex2.approx.ftz: results below 2^-126 flush to 0).
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -91,7 +118,9 @@ __device__ __forceinline__ float ex2(float x) {
 
 // A wgmma shared-memory descriptor: start address, leading and stride byte
 // offsets, swizzle (1: 128 bytes, 3: 32 bytes). K-major under a swizzle: the
-// stride offset is between 8-row groups and the leading one unused. MN-major:
+// stride offset is between 8-row groups and the leading one unused; a k-step
+// is 32 bytes along a row whatever the type (16 bf16 or 8 tf32 values), so a
+// step's descriptor is the previous one plus 2 (the address is in 16 bytes). MN-major:
 // the stride offset is between groups of 8 along K; the leading one is between
 // swizzle-wide groups along M or N (64 bf16 under the 128-byte swizzle), and
 // unused when the tile is one group wide.
@@ -202,6 +231,62 @@ template <> struct Wgmma<256> {
   }
 };
 
+// tf32 x tf32 -> f32, for the f32 attention kernels. A .tf32 operand in
+// shared memory is K-major only (no transpose bit), so a B whose K is the
+// tile's row index comes from a transposed plane. The register A fragment of
+// a warp is a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4)
+// (row, k) of its 16 rows, g = lane / 4, t = lane % 4.
+template <int N> struct Wgmma32;
+
+template <> struct Wgmma32<32> {
+  // D (64 x 32, f32) = [D +] A (64 x 8, shared, K-major) . B (32 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+                 "}, %16, %17, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma32<64> {
+  // D (64 x 64, f32) = [D +] A (64 x 8, shared, K-major) . B (64 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, %32, %33, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // D (64 x 64, f32) = [D +] A (64 x 8, registers) . B (64 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma32<72> {
+  // D (64 x 72, f32) = [D +] A (64 x 8, registers) . B (72 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void rs(float (&d)[36], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35"
+                 "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC4(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
 #undef WGMMA_ACC16
 #undef WGMMA_ACC4
 
@@ -220,9 +305,10 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (at most 5) dimensions, innermost first: dims,
-// the byte strides of dimensions 1.. (rank - 1 of them), the box and the
-// swizzle; elements outside the tensor read as zero. A map holds only the
+// A tensor map of `rank` (at most 5) dimensions, innermost first, of elements
+// of `dtype` (bf16 unless given): dims, the byte strides of dimensions 1..
+// (rank - 1 of them), the box and the swizzle; elements outside the tensor
+// read as zero. A map holds only the
 // address, the shape and the box, never the data, so the maps made last are
 // kept in a table of kMapSlots slots indexed by a hash of those, and a call on
 // tensors at the same addresses and shapes encodes none. Returns false when
@@ -231,13 +317,14 @@ constexpr int kMapSlots = 256;
 
 struct MapKey {
   const void* ptr;
-  int rank, swizzle;
+  int rank, swizzle, dtype, unused;  // an f32 and a bf16 map of one address differ
   cuuint64_t dims[5], strides[4];
   cuuint32_t box[5];
 };
 
 inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                      CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   struct Slot {
     MapKey key;
     CUtensorMap map;
@@ -249,6 +336,7 @@ inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint6
   key.ptr = ptr;
   key.rank = rank;
   key.swizzle = (int)swizzle;
+  key.dtype = (int)dtype;
   memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
   memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
   memcpy(key.box, box, rank * sizeof(cuuint32_t));
@@ -265,7 +353,7 @@ inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint6
   if (memcmp(&slot.key, &key, sizeof(key)) != 0) {
     const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
     slot.key.ptr = nullptr;
-    if (encode_tiled()(&slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+    if (encode_tiled()(&slot.map, dtype, rank, const_cast<void*>(ptr), dims, strides, box,
                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return false;
@@ -275,17 +363,20 @@ inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank, const cuuint6
   return true;
 }
 
-// A (bh, n, d) bf16 tensor seen as 3-D (d, n, bh), read in boxes of `width`
-// head dims x `rows` rows of one head under the given swizzle (the box's rows
-// are its width, 128 or 32 bytes). Rows past n and head dims past d are
-// zero-filled, so a ragged tail never reads the next head. Cached by
-// hopper::tiled_map: a call on tensors at the same addresses and shapes
-// encodes none.
-inline bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows, CUtensorMapSwizzle swizzle) {
+// A (bh, n, d) bf16 (or, with f32 set, f32) tensor seen as 3-D (d, n, bh),
+// read in boxes of `width` elements x `rows` rows of one head under the given
+// swizzle (the box's rows are its width in bytes, 128 or 32). Rows past n and
+// elements past d are zero-filled, so a ragged tail never reads the next head.
+// Cached by hopper::tiled_map: a call on tensors at the same addresses, types
+// and shapes encodes none.
+inline bool make_map(CUtensorMap* map, const void* ptr, int d, int n, int bh, int width, int rows,
+                     CUtensorMapSwizzle swizzle, bool f32 = false) {
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * esize, (cuuint64_t)n * d * esize};
   const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
-  return tiled_map(map, ptr, 3, dims, strides, box, swizzle);
+  return tiled_map(map, ptr, 3, dims, strides, box, swizzle,
+                   f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 }  // namespace hopper

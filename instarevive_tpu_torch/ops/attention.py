@@ -22,6 +22,15 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
 * ``flash_lse_plain`` and ``flash_backward_plain`` repeat the kernels'
   arithmetic from the saved log-sum-exp in plain torch; the tests and the
   smoke run hold the kernels against them.
+* f32 at head dims 64 and 72: both kernels run every product on the tensor
+  cores as three tf32 products (hi.hi + hi.lo + lo.hi) of operands split
+  into hi = tf32(x) and lo = tf32(x - hi), which keeps about 21 bits of each
+  product. ``tf32_planes`` (``csrc/tf32_planes.cu``, a prepass with its own
+  launch count) writes those planes before each launch, also transposed for a
+  B operand whose K runs along the sequence (a tf32 operand of wgmma is read
+  K-major only); ``tf32_planes_plain`` is its bit-exact plain version. The
+  kernels' sums are f32 and torch's own TF32 stays off, so the f32 bounds are
+  those of an f32 kernel.
 * ``attention``: the dispatch. Every unbiased attention on a CUDA tensor goes
   to the kernels, at every size; biased attention and all CPU work go to
   ``sdpa``. (SwinIR's biased window attention does not come here: it has its
@@ -44,8 +53,11 @@ from instarevive_tpu_torch.ops.cuda_build import load_library
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 72, 512)  # the forward kernel's instantiations: UNet/ControlNet heads, DiT heads, the VAE mid-block
-GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations
+GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations, and the f32 forms on split-tf32 planes
 DEAD_ROW = -1e29        # a log-sum-exp below this flags a row whose keys were all masked
+# The transposed planes' order along the sequence within each group of 8: position j holds entry
+# PERM8[j], the order in which a thread's accumulator columns (2t, 2t+1) become tf32 A-fragment k (t, t+4).
+PERM8 = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def sdpa(
@@ -75,6 +87,81 @@ def _bind(library: str, name: str, pointers: int):
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def pad8(n: int) -> int:
+    """The transposed planes' row length: n rounded up to a multiple of 8."""
+    return (n + 7) // 8 * 8
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: f32 values whose low 13 bits are
+    zero."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000  # the magnitude's bits: adding half a tf32 step rounds ties away from 0
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def tf32_planes_plain(x: torch.Tensor, natural: bool = True, transposed: bool = False):
+    """The split of an f32 operand ``x`` (..., n, d) into hi = tf32(x) and
+    lo = tf32(x - hi), bit for bit as ``csrc/tf32_planes.cu``: (hi, lo, t_hi,
+    t_lo), the planes in x's layout (or None unless ``natural``) and
+    transposed to (..., d, pad8(n)) with zeros past n and the sequence in the
+    order ``PERM8`` within each group of 8 (or None unless ``transposed``)."""
+    x = x.float().contiguous()
+    hi = tf32_round(x)
+    lo = tf32_round(x - hi)
+    if not transposed:
+        return (hi, lo, None, None) if natural else (None, None, None, None)
+    n, n_pad = x.shape[-2], pad8(x.shape[-2])
+
+    def transpose(p):
+        p = torch.nn.functional.pad(p.transpose(-1, -2), (0, n_pad - n))
+        return p.reshape(*p.shape[:-1], n_pad // 8, 8)[..., list(PERM8)].reshape(p.shape).contiguous()
+
+    return (hi if natural else None, lo if natural else None, transpose(hi), transpose(lo))
+
+
+def tf32_planes(x: torch.Tensor, natural: bool = True, transposed: bool = False):
+    """``tf32_planes_plain`` by the prepass kernel on a CUDA tensor (f32,
+    contiguous, head dim at most 128); the plain version on a CPU one."""
+    if not x.is_cuda:
+        return tf32_planes_plain(x, natural, transposed)
+    if x.dtype != torch.float32 or x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"tf32_planes takes a contiguous, 16-byte aligned f32 tensor, got {x.dtype} {tuple(x.shape)}")
+    *lead, n, d = x.shape
+    bh = x.numel() // max(n * d, 1)
+    if not (1 <= d <= 128 and n >= 1 and 1 <= bh <= 65535):
+        raise ValueError(f"tf32_planes: unsupported shape {tuple(x.shape)}")
+    hi = lo = t_hi = t_lo = None
+    if natural:
+        hi, lo = torch.empty_like(x), torch.empty_like(x)
+    if transposed:
+        t_hi = x.new_empty((*lead, d, pad8(n)))
+        t_lo = torch.empty_like(t_hi)
+    fn = load_library("tf32_planes").tf32_planes
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), *(None if p is None else p.data_ptr() for p in (hi, lo, t_hi, t_lo)), bh, n, d,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32_planes launch failed with CUDA error {err}")
+    tf32_planes.launches += 1
+    return hi, lo, t_hi, t_lo
+
+
+tf32_planes.launches = 0  # prepass launches since the last reset
+
+
+def _pointers(planes) -> ctypes.Array:
+    return (ctypes.c_void_p * len(planes))(*(p.data_ptr() for p in planes))
+
+
+def _is_split(q: torch.Tensor) -> bool:
+    """Whether the f32 form on split-tf32 planes takes these operands."""
+    return q.dtype == torch.float32 and q.shape[-1] in GRAD_HEAD_DIMS
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -109,13 +196,22 @@ def _forward(q, k, v, kv_mask, scale, want_lse: bool):
     nk = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if want_lse else None
-    with torch.cuda.device(q.device):
-        err = _bind("flash_attn_fwd", "flash_attn_fwd", 6)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b * h, h, nq, nk, d, scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    mask_ptr, lse_ptr = None if kv_mask is None else kv_mask.data_ptr(), None if lse is None else lse.data_ptr()
+    if _is_split(q):
+        planes = [*tf32_planes(q)[:2], *tf32_planes(k)[:2], *tf32_planes(v, natural=False, transposed=True)[2:]]
+        fn = load_library("flash_attn_fwd").flash_attn_fwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(q.device):
+            err = fn(_pointers(planes), mask_ptr, out.data_ptr(), lse_ptr, b * h, h, nq, nk, d, scale,
+                     torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = _bind("flash_attn_fwd", "flash_attn_fwd", 6)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), lse_ptr,
+                b * h, h, nq, nk, d, scale, int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
     flash_attention.launches += 1
@@ -141,16 +237,41 @@ def _backward_args(q, k, v, kv_mask, lse, di, do):
             None if kv_mask is None else kv_mask.data_ptr(), lse.data_ptr(), di.data_ptr()]
 
 
-def flash_dq(q, k, v, kv_mask, lse, di, do, scale: float) -> torch.Tensor:
+def backward_planes(q, k, v, do, kv: Optional[bool] = None):
+    """The split planes the f32 backward kernels read, ``tf32_planes`` of q,
+    k, v and dO: for the dq pass (kv False) K also transposed, for the dk/dv
+    pass (kv True) Q and dO also transposed, for both (None) all three."""
+    return (tf32_planes(q, transposed=kv is not False), tf32_planes(k, transposed=kv is not True),
+            tf32_planes(v), tf32_planes(do, transposed=kv is not False))
+
+
+def _backward_f32(kv: bool, planes, ptrs, outs, b, h, nq, nk, d, scale) -> int:
+    """Launch one f32 backward pass on its planes; returns the CUDA error."""
+    (qn, kn, vn, don) = planes
+    split = [*qn[:2], *kn[:2], *vn[:2], *don[:2], *((*qn[2:], *don[2:]) if kv else kn[2:])]
+    fn = load_library("flash_attn_bwd").flash_attn_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(outs[0].device):
+        return fn(_pointers(split), ptrs[4], ptrs[5], ptrs[6], outs[0].data_ptr(),
+                  outs[1].data_ptr() if kv else None, int(kv), b * h, h, nq, nk, d, scale,
+                  torch.cuda.current_stream().cuda_stream)
+
+
+def flash_dq(q, k, v, kv_mask, lse, di, do, scale: float, planes=None) -> torch.Tensor:
     """dQ by the dq kernel. All tensors contiguous, 16-byte aligned, on the
-    card; lse and di are (B, H, Nq) f32."""
+    card; lse and di are (B, H, Nq) f32. In f32 the kernel reads the split
+    planes of ``backward_planes``, made here unless ``planes`` holds them."""
     b, h, nq, nk, d = _check(q, k, v, kv_mask)
     ptrs = _backward_args(q, k, v, kv_mask, lse, di, do)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _bind("flash_attn_bwd", "flash_attn_bwd_dq", 8)(
-            *ptrs, dq.data_ptr(), b * h, h, nq, nk, d, scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+    if _is_split(q):
+        planes = backward_planes(q, k, v, do, kv=False) if planes is None else planes
+        err = _backward_f32(False, planes, ptrs, (dq,), b, h, nq, nk, d, scale)
+    else:
+        with torch.cuda.device(q.device):
+            err = _bind("flash_attn_bwd", "flash_attn_bwd_dq", 8)(
+                *ptrs, dq.data_ptr(), b * h, h, nq, nk, d, scale, 1, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dq launch failed with CUDA error {err}")
     flash_dq.launches += 1
@@ -158,15 +279,19 @@ def flash_dq(q, k, v, kv_mask, lse, di, do, scale: float) -> torch.Tensor:
     return dq
 
 
-def flash_dkv(q, k, v, kv_mask, lse, di, do, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_dkv(q, k, v, kv_mask, lse, di, do, scale: float, planes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) by the dk/dv kernel; arguments as ``flash_dq``."""
     b, h, nq, nk, d = _check(q, k, v, kv_mask)
     ptrs = _backward_args(q, k, v, kv_mask, lse, di, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _bind("flash_attn_bwd", "flash_attn_bwd_dkv", 9)(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, h, nq, nk, d, scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+    if _is_split(q):
+        planes = backward_planes(q, k, v, do, kv=True) if planes is None else planes
+        err = _backward_f32(True, planes, ptrs, (dk, dv), b, h, nq, nk, d, scale)
+    else:
+        with torch.cuda.device(q.device):
+            err = _bind("flash_attn_bwd", "flash_attn_bwd_dkv", 9)(
+                *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, h, nq, nk, d, scale, 1,
+                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dkv launch failed with CUDA error {err}")
     flash_dkv.launches += 1
@@ -186,7 +311,9 @@ def flash_backward(q, k, v, kv_mask, o, lse, do, scale: float):
         return flash_backward_plain(q, k, v, kv_mask, o, lse, do, scale)
     do = _aligned(do)
     di = (do.float() * o.float()).sum(-1)
-    return (flash_dq(q, k, v, kv_mask, lse, di, do, scale), *flash_dkv(q, k, v, kv_mask, lse, di, do, scale))
+    planes = backward_planes(q, k, v, do) if _is_split(q) else None  # made once for both passes
+    return (flash_dq(q, k, v, kv_mask, lse, di, do, scale, planes),
+            *flash_dkv(q, k, v, kv_mask, lse, di, do, scale, planes))
 
 
 def flash_lse_plain(q, k, kv_mask=None, scale: Optional[float] = None) -> torch.Tensor:

@@ -36,6 +36,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "gn_conv": ("gn_conv.cu",),
     "swin_attention": ("swin_attention.cu",),
     "filter2d": ("filter2d.cu",),
+    "tf32_planes": ("tf32_planes.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,8 @@
-"""Hold and time the bf16 flash-attention backward (the dq and dk/dv kernels)
-alone on one CUDA card, beside other files of the same kernels.
+"""Hold and time the flash-attention backward (the dq and dk/dv kernels)
+alone on one CUDA card, bf16 or f32, beside other files of the same kernels.
 
     python -m instarevive_tpu_torch.tools.time_flash_bwd [--source NAME=PATH] [--unchecked NAME=PATH]
-        [--dims 72,64] [--rounds 2] [--iters 50]
+        [--dims 72,64] [--dtype bf16|f32] [--rounds 2] [--iters 50]
 
 Builds ``csrc/flash_attn_bwd.cu`` as committed ("main") and each ``--source``
 (another file with the same C interface, such as an older tree's, unpacked
@@ -19,6 +19,15 @@ backward of ``F.scaled_dot_product_attention`` (dq, dk and dv together,
 through autograd) is timed beside them as the yardstick, and each shape's
 bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever is
 larger) is printed. Ends with the card line.
+
+With ``--dtype f32`` the inputs are f32 and the bound 2e-5 (chip_smoke.py's
+f32 bound). A build with the split-tf32 entry ``flash_attn_bwd_f32`` is timed
+on planes the prepass (``ops/attention.backward_planes``) made once
+beforehand, so its figures are the kernels'; the prepass is timed on its own
+beside them (``prepass``), and so is the plain version. A build without that
+entry (an older tree's) takes f32 through ``flash_attn_bwd_dq`` and
+``flash_attn_bwd_dkv``. The bound counts 4-byte elements and three products
+for each one at 495 TFLOP/s (TF32).
 """
 
 from __future__ import annotations
@@ -60,8 +69,8 @@ D64_CASES = [
     ("mid_cross77", (2, 20, 64, 77), None),
     ("ragged_q1000_k40_masked", (1, 5, 1000, 40), (33,)),  # ragged Nq, Nk under one key tile
 ]
-REL_BOUND = 1e-2  # as chip_smoke.py's BACKWARD_BOUNDS["bf16"], of each output's largest magnitude
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+REL_BOUNDS = {"bf16": 1e-2, "f32": 2e-5}  # as chip_smoke.py's BACKWARD_BOUNDS, of each output's largest magnitude
+PEAK_BYTES, PEAK_BF16, PEAK_TF32 = 3.35e12, 989e12, 495e12
 
 
 def cases(dims):
@@ -70,13 +79,15 @@ def cases(dims):
     return [case for case in every if case[1][4] in dims]
 
 
-def bounds_ms(b, h, nq, nk, d, keys):
+def bounds_ms(b, h, nq, nk, d, keys, f32=False):
     """The least time of the dq and the dk/dv kernel for these inputs: bf16
-    operands and outputs, f32 L and di read once, 6 (dq: S, dP, dQ) and 8
-    (dk/dv: S, dP, dV, dK) operations a (query, real key) pair and head dim."""
+    (or f32) operands and outputs, f32 L and di read once, 6 (dq: S, dP, dQ)
+    and 8 (dk/dv: S, dP, dV, dK) operations a (query, real key) pair and head
+    dim, each three tf32 products in f32."""
     pairs, q_el, k_el, rows = float(h * nq * keys), b * h * nq * d, b * h * nk * d, b * h * nq
-    dq = (2 * (3 * q_el + 2 * k_el) + 8 * rows) / PEAK_BYTES, 6.0 * pairs * d / PEAK_BF16
-    dkv = (2 * (2 * q_el + 4 * k_el) + 8 * rows) / PEAK_BYTES, 8.0 * pairs * d / PEAK_BF16
+    es, rate = (4, PEAK_TF32 / 3) if f32 else (2, PEAK_BF16)
+    dq = (es * (3 * q_el + 2 * k_el) + 8 * rows) / PEAK_BYTES, 6.0 * pairs * d / rate
+    dkv = (es * (2 * q_el + 4 * k_el) + 8 * rows) / PEAK_BYTES, 8.0 * pairs * d / rate
     return max(dq) * 1e3, max(dkv) * 1e3
 
 
@@ -116,6 +127,7 @@ def main(argv=None) -> None:
     ap.add_argument("--source", action="append", default=[], help="NAME=PATH of another flash_attn_bwd.cu")
     ap.add_argument("--unchecked", action="append", default=[], help="NAME=PATH of an ablation, timed only")
     ap.add_argument("--dims", default="72,64", help="head dims of the cases to hold and time")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
@@ -129,31 +141,43 @@ def main(argv=None) -> None:
 
     unchecked = dict(s.split("=", 1) for s in args.unchecked)
     libs = build({**dict(s.split("=", 1) for s in args.source), **unchecked})
-    launchers = {}
+    f32 = args.dtype == "f32"
+    rel_bound, dtype = REL_BOUNDS[args.dtype], torch.float32 if f32 else torch.bfloat16
+    launchers, split = {}, {}
     for name, so in libs.items():
         lib = ctypes.CDLL(str(so))
+        if f32 and hasattr(lib, "flash_attn_bwd_f32"):
+            fn = lib.flash_attn_bwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            split[name] = fn
         for entry, pointers in (("flash_attn_bwd_dq", 8), ("flash_attn_bwd_dkv", 9)):
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                                                                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
             launchers[name, entry] = fn
-        if hasattr(lib, "flash_attn_bwd_occupancy"):
-            occ = lib.flash_attn_bwd_occupancy
-            occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        # the f32 form's blocks of one and of two warpgroups (its launcher takes two where a pass has 128 rows)
+        occupancy, forms = ("flash_attn_bwd_occupancy_f32", [(1,), (2,)]) if name in split else \
+            ("flash_attn_bwd_occupancy", [()])
+        if hasattr(lib, occupancy) and (name in split or not f32):
+            occ = getattr(lib, occupancy)
+            occ.argtypes = [ctypes.c_int] * (2 + len(forms[0])) + [ctypes.POINTER(ctypes.c_int)] * 2
             occ.restype = ctypes.c_int
             for d in (64, 72):
                 for kv in (0, 1):
-                    smem, blocks = ctypes.c_int(), ctypes.c_int()
-                    if occ(d, kv, ctypes.byref(smem), ctypes.byref(blocks)) == 0:
-                        print(f"[build] {name}: d={d} {'dk/dv' if kv else 'dq'} {smem.value} B of shared memory a "
-                              f"block, {blocks.value} blocks an SM", flush=True)
+                    for form in forms:
+                        smem, blocks = ctypes.c_int(), ctypes.c_int()
+                        if occ(d, kv, *form, ctypes.byref(smem), ctypes.byref(blocks)) == 0:
+                            print(f"[build] {name}: d={d} {'dk/dv' if kv else 'dq'}"
+                                  f"{f' {form[0]} warpgroup(s)' if form else ''} {smem.value} B of shared memory a "
+                                  f"block, {blocks.value} blocks an SM", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(11)
     held = []
     for label, (b, h, nq, nk, d), kept in cases({int(x) for x in args.dims.split(",")}):
-        q, k, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16() for n in (nq, nk, nq))
-        v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).bfloat16()
+        q, k, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype) for n in (nq, nk, nq))
+        v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
         mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
         scale = d**-0.5
         with torch.no_grad():
@@ -162,20 +186,34 @@ def main(argv=None) -> None:
             ref = A.flash_backward_plain(q, k, v, mask, o, lse, do, scale)
         keys = b * nk if mask is None else int(mask.sum().item())
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-        held.append((label, (b, h, nq, nk, d), q, k, v, do, mask, lse, di, ref, outs, bounds_ms(b, h, nq, nk, d, keys)))
+        planes = None
+        if f32:  # made once: the kernels' figures leave the prepass out
+            qn, kn, vn, don = A.backward_planes(q, k, v, do)
+            natural = [*qn[:2], *kn[:2], *vn[:2], *don[:2]]
+            planes = {"keep": (qn, kn, vn, don)}  # the tensors the pointers below point into
+            for kv, transposed in ((False, [*kn[2:]]), (True, [*qn[2:], *don[2:]])):
+                planes[kv] = (ctypes.c_void_p * (8 + len(transposed)))(*(p.data_ptr() for p in natural + transposed))
+        held.append((label, (b, h, nq, nk, d), q, k, v, do, mask, lse, di, ref, outs,
+                     bounds_ms(b, h, nq, nk, d, keys, f32), planes))
 
     def launch(name, case, which):
-        _, (b, h, nq, nk, d), q, k, v, do, mask, lse, di, _, (dq, dk, dv), _ = case
+        _, (b, h, nq, nk, d), q, k, v, do, mask, lse, di, _, (dq, dk, dv), _, planes = case
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), None if mask is None else mask.data_ptr(),
                 lse.data_ptr(), di.data_ptr()]
         outs = [dq.data_ptr()] if which == "dq" else [dk.data_ptr(), dv.data_ptr()]
-        err = launchers[name, f"flash_attn_bwd_{which}"](*ptrs, *outs, b * h, h, nq, nk, d, d**-0.5, 1, stream)
+        if name in split:
+            kv = which == "dkv"
+            err = split[name](planes[kv], ptrs[4], ptrs[5], ptrs[6], outs[0], outs[1] if kv else None, int(kv),
+                              b * h, h, nq, nk, d, d**-0.5, stream)
+        else:
+            err = launchers[name, f"flash_attn_bwd_{which}"](*ptrs, *outs, b * h, h, nq, nk, d, d**-0.5, int(not f32),
+                                                              stream)
         if err:
             sys.exit(f"{name}: flash_attn_bwd_{which} launch failed with CUDA error {err}")
 
     failed = False
     for case in held:
-        label, shape, *_, ref, outs, _ = case
+        label, shape, *_, ref, outs, _, _ = case
         for name in (name for name in libs if name not in unchecked):
             first = []
             for rep in range(2):
@@ -186,7 +224,7 @@ def main(argv=None) -> None:
             same = all(torch.equal(x, y) for x, y in zip(*first))
             errs = {key: ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
                     for key, got, want in zip(("dq", "dk", "dv"), outs, ref)}
-            ok = same and max(errs.values()) <= REL_BOUND and all(bool(torch.isfinite(t).all()) for t in outs)
+            ok = same and max(errs.values()) <= rel_bound and all(bool(torch.isfinite(t).all()) for t in outs)
             failed |= not ok
             print(f"[check] {name:10s} {label:24s} {shape} rel_err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
                   + f" same bits twice={same} {'ok' if ok else 'OVER THE BOUND'}", flush=True)
@@ -207,7 +245,7 @@ def main(argv=None) -> None:
     names = list(libs)
     for r in range(args.rounds):
         for case in held:
-            label, shape, q, k, v, do, mask, *_, (b_dq, b_dkv) = case
+            label, shape, q, k, v, do, mask, lse, di, _, _, (b_dq, b_dkv), planes = case
             row = []
             for name in (names if r % 2 == 0 else names[::-1]):
                 t_dq, t_dkv = ms(lambda: launch(name, case, "dq")), ms(lambda: launch(name, case, "dkv"))
@@ -217,8 +255,14 @@ def main(argv=None) -> None:
             out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
             lib = ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
             del out, leaves
+            extra = ""
+            if f32:
+                o = A._forward(q, k, v, mask, shape[4]**-0.5, want_lse=False)[0]
+                prepass = ms(lambda: A.backward_planes(q, k, v, do))
+                plain = ms(lambda: A.flash_backward_plain(q, k, v, mask, o, lse, do, shape[4]**-0.5))
+                extra = f" | prepass={prepass:.4f} plain={plain:.4f}"
             print(f"[time r{r}] {label:24s} {shape} ms " + " | ".join(row) + f" | torch_sdpa_backward={lib:.4f} | "
-                  f"bound dq={b_dq:.4f} dkv={b_dkv:.4f}", flush=True)
+                  f"bound dq={b_dq:.4f} dkv={b_dkv:.4f}" + extra, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
 

@@ -1,8 +1,8 @@
-"""Hold and time the bf16 flash-attention forward alone on one CUDA card,
-beside another file of the same kernel.
+"""Hold and time the flash-attention forward alone on one CUDA card, bf16 or
+f32, beside another file of the same kernel.
 
     python -m instarevive_tpu_torch.tools.time_flash_fwd [--source NAME=PATH] [--unchecked NAME=PATH] [--dims 72,64,512]
-        [--rounds 2] [--iters 50]
+        [--dtype bf16|f32] [--rounds 2] [--iters 50]
 
 Builds ``csrc/flash_attn_fwd.cu`` as committed ("main") and each ``--source``
 (another file with the same C interface, such as an older tree's, unpacked
@@ -15,11 +15,21 @@ directly (no wrapper, so the figures are the kernel's), in turns: round r
 runs the builds in order, then reversed. An ``--unchecked`` source is timed
 but not held: an ablation that leaves out part of the work, to see what
 bounds the kernel. ``F.scaled_dot_product_attention``
-is timed beside them as the yardstick. Then the host time of one launcher
+is timed beside them as the yardstick. Then (bf16) the host time of one launcher
 call at two small shapes (d = 64 and 72), on the same tensors every call and
 on views at a new address every call (so no tensor map made earlier can be
 reused), the builds and the two cases in turns. Prints each build's
 registers and spills, one line per check and per timing, and the card line.
+
+With ``--dtype f32`` the inputs are f32 and the bounds chip_smoke.py's f32
+ones (1e-4 absolute, 1e-4 on the log-sum-exp). At head dims 64 and 72 a build
+with the split-tf32 entry ``flash_attn_fwd_f32`` is timed on planes the
+prepass (``ops/attention.tf32_planes``) made once beforehand, so its figure is
+the kernel's; the prepass is timed on its own beside it (``prepass``). A
+build without that entry (an older tree's) takes f32 through
+``flash_attn_fwd``. The bound of an f32 row is the larger of its bytes over
+3.35 TB/s and three times its operations over 495 TFLOP/s (TF32), at head
+dim 512 its operations over 67 TFLOP/s (the f32 form there runs FMAs).
 """
 
 from __future__ import annotations
@@ -51,8 +61,29 @@ SHAPES = [
     ("vae_mid_tile576_decode", (1, 1, 5184, 5184, 512), None),
     ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0)),
 ]
+# --dtype f32: the f32 trainers' shapes (the DiT at a DMD step's batch 2, the UNet's) and the DMD step's
+# frozen-VAE encode at batch 2
+F32_SHAPES = [
+    ("dit_self_b2", (2, 16, 1024, 1024, 72), None),
+    ("dit_self", (4, 16, 1024, 1024, 72), None),
+    ("dit_cross_masked", (4, 16, 1024, 300, 72), (300, 180, 0, 61)),
+    ("ragged_q1000_k77", (1, 16, 1000, 77, 72), None),
+    ("unet_ds1_self", (2, 5, 4096, 4096, 64), None),
+    ("unet_ds2_self", (2, 10, 1024, 1024, 64), None),
+    ("unet_mid_cross4", (2, 20, 64, 4, 64), None),
+    ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None),
+]
 HOST_SHAPES = [("unet_mid_cross4", (2, 20, 64, 4, 64)), ("d72_q64_k77", (2, 16, 64, 77, 72))]
-BOUND, REL_BOUND, LSE_BOUND = 1e-2, 2e-2, 1e-3  # as chip_smoke.py: absolute, of max|ref|, of the lse
+BOUNDS = {"bf16": (1e-2, 2e-2, 1e-3), "f32": (1e-4, 2e-2, 1e-4)}  # as chip_smoke.py: absolute, of max|ref|, of the lse
+PEAK_BYTES, PEAK_TF32, PEAK_F32 = 3.35e12, 495e12, 67e12
+
+
+def f32_bound_ms(nbytes, flops, d):
+    """The least time of an f32 forward: bytes over the memory rate, or the
+    split-tf32 products (three a product) over the TF32 rate at head dims 64
+    and 72, the operations over the FMA rate at 512."""
+    ops = 3 * flops / PEAK_TF32 if d in (64, 72) else flops / PEAK_F32
+    return max(nbytes / PEAK_BYTES, ops) * 1e3
 
 
 def build(sources):
@@ -85,6 +116,7 @@ def main(argv=None) -> None:
     ap.add_argument("--source", action="append", default=[], help="NAME=PATH of another flash_attn_fwd.cu")
     ap.add_argument("--unchecked", action="append", default=[], help="NAME=PATH of an ablation, timed only")
     ap.add_argument("--dims", default="72,64,512", help="head dims of SHAPES to hold and time")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
@@ -98,36 +130,52 @@ def main(argv=None) -> None:
 
     unchecked = dict(s.split("=", 1) for s in args.unchecked)
     libs = build({**dict(s.split("=", 1) for s in args.source), **unchecked})
-    launchers = {}
+    f32 = args.dtype == "f32"
+    bound, rel_bound, lse_bound = BOUNDS[args.dtype]
+    launchers, split = {}, {}
     for name, so in libs.items():
-        fn = ctypes.CDLL(str(so)).flash_attn_fwd
+        lib = ctypes.CDLL(str(so))
+        fn = lib.flash_attn_fwd
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         launchers[name] = fn
+        if f32 and hasattr(lib, "flash_attn_fwd_f32"):  # the split-tf32 form at head dims 64 and 72
+            fn = lib.flash_attn_fwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            split[name] = fn
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     dims = {int(d) for d in args.dims.split(",")}
-    for label, (b, h, nq, nk, d), kept in (case for case in SHAPES if case[1][4] in dims):
-        q = torch.randn(b, h, nq, d, device="cuda", generator=gen).bfloat16()
-        k = torch.randn(b, h, nk, d, device="cuda", generator=gen).bfloat16()
-        v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).bfloat16()
+    dtype = torch.float32 if f32 else torch.bfloat16
+    for label, (b, h, nq, nk, d), kept in (case for case in (F32_SHAPES if f32 else SHAPES) if case[1][4] in dims):
+        q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtype)
+        v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
         mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
         out = torch.empty_like(q)
         lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS else None  # none at 512
         keys = b * nk if mask is None else int(mask.sum().item())
-        cases.append((label, (b, h, nq, nk, d), q, k, v, mask, out, lse, 4.0 * h * nq * keys * d))
+        planes = None
+        if f32 and d in A.GRAD_HEAD_DIMS:  # made once: the kernels' figures leave the prepass out
+            planes = [*A.tf32_planes(q)[:2], *A.tf32_planes(k)[:2], *A.tf32_planes(v, natural=False, transposed=True)[2:]]
+        cases.append((label, (b, h, nq, nk, d), q, k, v, mask, out, lse, 4.0 * h * nq * keys * d, planes))
 
     def launch(name, case):
-        _, (b, h, nq, nk, d), q, k, v, mask, out, lse, _ = case
-        err = launchers[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-                              out.data_ptr(), None if lse is None else lse.data_ptr(), b * h, h, nq, nk, d, d**-0.5, 1,
-                              stream)
+        _, (b, h, nq, nk, d), q, k, v, mask, out, lse, _, planes = case
+        mask_ptr, lse_ptr = None if mask is None else mask.data_ptr(), None if lse is None else lse.data_ptr()
+        if planes is not None and name in split:
+            err = split[name]((ctypes.c_void_p * 6)(*(p.data_ptr() for p in planes)), mask_ptr, out.data_ptr(),
+                              lse_ptr, b * h, h, nq, nk, d, d**-0.5, stream)
+        else:
+            err = launchers[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), lse_ptr,
+                                  b * h, h, nq, nk, d, d**-0.5, int(not f32), stream)
         if err:
             sys.exit(f"{name}: launch failed with CUDA error {err}")
 
     for case in cases:
-        label, shape, q, k, v, mask, out, lse, _ = case
+        label, shape, q, k, v, mask, out, lse, *_ = case
         ref = A.sdpa(q, k, v, kv_mask=mask)
         ref_lse = None if lse is None else A.flash_lse_plain(q, k, mask)
         for name in (name for name in libs if name not in unchecked):
@@ -135,7 +183,7 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             lse_err = 0.0 if lse is None else (lse - ref_lse).abs().max().item()
-            ok = (err <= min(BOUND, REL_BOUND * ref.float().abs().max().item()) and lse_err <= LSE_BOUND
+            ok = (err <= min(bound, rel_bound * ref.float().abs().max().item()) and lse_err <= lse_bound
                   and bool(torch.isfinite(out).all()))
             print(f"[check] {name:10s} {label:18s} {shape} max_abs_err={err:.3e} lse_err={lse_err:.3e} "
                   f"{'ok' if ok else 'OVER THE BOUND'}", flush=True)
@@ -156,18 +204,27 @@ def main(argv=None) -> None:
     names = list(libs)
     for r in range(args.rounds):
         for case in cases:
-            label, shape, q, k, v, mask, out, lse, flops = case
+            label, shape, q, k, v, mask, out, lse, flops, planes = case
             row = []
             for name in (names if r % 2 == 0 else names[::-1]):
                 t = ms(lambda: launch(name, case))
                 row.append(f"{name}={t:.4f} ms ({flops / t / 1e9:.0f} TFLOP/s)")
             attn_mask = None if mask is None else mask[:, None, None, :]
             lib = ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
-            print(f"[time r{r}] {label:18s} {shape} " + " ".join(row) + f" torch_sdpa={lib:.4f} ms", flush=True)
+            extra = ""
+            if f32:
+                b, h, nq, nk, d = shape
+                if planes is not None:
+                    prepass = ms(lambda: (A.tf32_planes(q), A.tf32_planes(k), A.tf32_planes(v, False, True)))
+                    extra += f" prepass={prepass:.4f} ms"
+                plain = ms(lambda: A.sdpa(q, k, v, kv_mask=mask))
+                nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+                extra += f" plain_sdpa={plain:.4f} ms bound={f32_bound_ms(nbytes, flops, d):.4f} ms"
+            print(f"[time r{r}] {label:18s} {shape} " + " ".join(row) + f" torch_sdpa={lib:.4f} ms" + extra, flush=True)
     # host time of one launcher call, in turns: on the same tensors every call,
     # and on views at a new address every call (the launcher keeps 256 maps)
     calls, reps, addresses = 200, 10, 4096
-    for label, (b, h, nq, nk, d) in (case for case in HOST_SHAPES if case[1][4] in dims):
+    for label, (b, h, nq, nk, d) in (case for case in HOST_SHAPES if case[1][4] in dims and not f32):
         bufs = [torch.randn(b * h * n * d + 8 * addresses, device="cuda", generator=gen).bfloat16()
                 for n in (nq, nk, nk)]
         bases = [buf.data_ptr() for buf in bufs]

@@ -2,11 +2,12 @@
 goes.
 
     python -m instarevive_tpu_torch.tools.time_train [--task dmd|swinir|cldm|reflow] [--steps 5] [--depth N]
-        [--lowmem] [--profile]
+        [--lowmem] [--profile] [--f32]
 
 Writes seeded PNGs to a temporary folder, builds the trainer's task
 (``train.launcher.DMDTask``, ``SwinIRTask`` or ``CLDMTask``) with the
-launcher's own flags (bf16 compute from f32 masters, batch 2 at 512x512) at
+launcher's own flags (bf16 compute from f32 masters, or with ``--f32`` f32
+throughout as the trainers default to; batch 2 at 512x512) at
 ``configs/instarevive_v1.yaml`` (PixArt-XL-2 with every block checkpointed, or
 the SwinIR cleaner) or, for cldm and reflow, ``configs/cldm.yaml`` (the SD-2.1
 UNet and its ControlNet), takes two warm-up steps and prints one JSON line
@@ -58,9 +59,10 @@ def write_images(folder: str, n: int = 8, size: int = 640, seed: int = 0) -> str
 
 
 def train_argv(config: str, data: str, out: str, steps: int, extra: Optional[List[str]] = None,
-               task: str = "dmd") -> List[str]:
-    """The launcher's argument list of the full-width run every timing uses."""
-    return ["--config", config, "--task", task, "--data", data, "--out", out, "--bf16",
+               task: str = "dmd", bf16: bool = True) -> List[str]:
+    """The launcher's argument list of the full-width run every timing uses
+    (bf16 compute from f32 masters; with bf16 False, f32 throughout)."""
+    return ["--config", config, "--task", task, "--data", data, "--out", out, *(["--bf16"] if bf16 else []),
             "--batch_size", str(BATCH), "--crop_size", str(CROP), "--steps", str(steps), "--warmup", "1",
             "--log_every", "1", *(extra or [])]
 
@@ -183,11 +185,13 @@ def time_steps(task, batches, phases=PHASES) -> Dict[str, object]:
 
 
 GROUPS = {  # first match wins, in this order
-    "K1 flash forward (flash_attn_fwd.cu)": ("hopper::kernel", "d512::kernel", "fp32::kernel"),
-    "K2a flash dq (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)
-                                             for kv in ("false", "(bool)0")),
-    "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"bwd{f}::kernel<{d}, {kv}" for f in (16, 32) for d in (64, 72)
-                                               for kv in ("true", "(bool)1")),
+    "K1 flash forward (flash_attn_fwd.cu)": ("hopper::kernel", "d512::kernel", "fp32::kernel", "fwd_tf32::kernel"),
+    # bwd32: the f32 form's namespace before the split-tf32 one, for a profile of an older tree
+    "K2a flash dq (flash_attn_bwd.cu)": tuple(f"{ns}::kernel<{d}, {kv}" for ns in ("bwd16", "bwd32", "bwd_tf32")
+                                             for d in (64, 72) for kv in ("false", "(bool)0")),
+    "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"{ns}::kernel<{d}, {kv}" for ns in ("bwd16", "bwd32", "bwd_tf32")
+                                               for d in (64, 72) for kv in ("true", "(bool)1")),
+    "f32 attention's split prepass (tf32_planes.cu)": ("tf32_split::kernel",),
     "K4 window attention (swin_attention.cu)": ("swin_tc::", "swin_f32::"),
     "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
     "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
@@ -240,6 +244,7 @@ def main(argv=None) -> None:
     ap.add_argument("--depth", type=int, default=None, help="cut the DiT's depth (default: the config's 28)")
     ap.add_argument("--lowmem", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--f32", action="store_true", help="f32 compute (the trainers' default) instead of bf16")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo))
     import instarevive_tpu_torch
@@ -261,7 +266,7 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         data = write_images(os.path.join(tmp, "hq"))
         extra = ["--degradation", args.degradation] + (["--lowmem"] if args.lowmem else [])
-        targs = parse_args(train_argv(config, data, os.path.join(tmp, "run"), 0, extra, task=args.task))
+        targs = parse_args(train_argv(config, data, os.path.join(tmp, "run"), 0, extra, task=args.task, bf16=not args.f32))
         cfg = load_config(config)
         if args.depth is not None:
             cfg = merge(cfg, {"dit": {"depth": args.depth}})
@@ -274,7 +279,7 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     record = {"card": card, "config": "cldm" if ldm else "instarevive_v1", "task": args.task, "degradation": args.degradation,
-              "batch": BATCH, "crop": CROP, "bf16": True, "lowmem": args.lowmem, **result}
+              "batch": BATCH, "crop": CROP, "bf16": not args.f32, "lowmem": args.lowmem, **result}
     if args.task == "dmd":
         record.update(depth=task.gen.depth, launches_expected=expected_launches(task.gen.depth, task.gen.grad_checkpoint))
     if ldm:

@@ -10,7 +10,9 @@ Without a card every test here skips.
 import pytest
 import torch
 
-from instarevive_tpu_torch.ops.attention import NEG_INF, _forward, flash_attention, flash_lse_plain, sdpa
+from instarevive_tpu_torch.ops.attention import (
+    NEG_INF, _forward, flash_attention, flash_lse_plain, sdpa, tf32_planes, tf32_planes_plain,
+)
 from instarevive_tpu_torch.ops.filters import filter2d, filter2d_plain
 from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from instarevive_tpu_torch.ops.norm_kernels import (
@@ -22,7 +24,9 @@ from instarevive_tpu_torch.ops.swin_attention import swin_window_attention, swin
 from instarevive_tpu_torch.pipelines.build import set_precision
 
 # bf16: both outputs rounded to bf16 and P rounded to bf16 before P.V in the
-# kernel; f32: summation order only (V in [-1, 1], so |out| <= 1).
+# kernel; f32: summation order, and at head dims 64 and 72 the split-tf32
+# products' dropped lo.lo term, about 2^-22 of each product (V in [-1, 1],
+# so |out| <= 1).
 BOUNDS = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # and 2e-2 of the reference's largest magnitude (one bf16 step of the largest
 # value is 3.9e-3 of it): over thousands of keys |out| is near 0.01, where the
@@ -203,7 +207,8 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
 # lse, dO, per output relative to its largest magnitude. bf16: both round P,
 # dS and the output to bf16 at the same places, and a sum taken in another
 # order can cross a rounding boundary (one bf16 step, 2^-8, of the largest
-# value); f32: the order of the sums and expf.
+# value); f32: the order of the sums, ex2 against exp, and the split-tf32
+# products' dropped lo.lo term, about 2^-22 of each product.
 BACKWARD_BOUNDS = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 
 
@@ -298,6 +303,93 @@ def test_flash_backward_bf16_edges(cuda, b, h, nq, nk, lens, d):
         if lens is not None and 0 in lens:
             assert not got[0][lens.index(0)].any()
         assert all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(qn, k, v, mask, out, lse, don, scale)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 1024, 72), (1, 16, 77, 72), (2, 5, 4096, 64), (1, 3, 5, 64), (3, 1, 300, 72)])
+def test_tf32_planes_match_plain_bit_for_bit(cuda, shape):
+    """The prepass against tf32_planes_plain by torch.equal, natural and
+    transposed planes (ragged n: the padding and the order within groups of
+    8), on values over many binades, ties included."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, device=cuda, generator=gen) * torch.exp(torch.randn(shape, device=cuda, generator=gen) * 8)
+    x.view(-1)[:64] = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 3 * 2.0**-11] * 21 + [0.0], device=cuda)
+    before = tf32_planes.launches
+    for natural, transposed in ((True, False), (False, True), (True, True)):
+        got = tf32_planes(x, natural, transposed)
+        want = tf32_planes_plain(x, natural, transposed)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+    assert tf32_planes.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,nq,nk,lens,d",
+    [
+        (1, 16, 1000, 77, None, 72),    # ragged Nq and Nk, each one partial tile; head dims 64-71 in their own box
+        (1, 16, 1000, 77, [50], 64),    # the same at 64 with masked keys
+        (2, 5, 4096, 4, None, 64),      # the UNet's 4-key context: one dk/dv block walks 4096 queries
+        (2, 16, 256, 4, None, 72),      # 4 keys: half of one 8-key group of the transposed planes
+        (2, 4, 300, 77, [0, 77], 72),   # a sample whose keys are all masked
+        (2, 4, 130, 300, [300, 0], 64),
+    ],
+)
+def test_flash_f32_edges(cuda, b, h, nq, nk, lens, d):
+    """The split-tf32 forms of K1 and K2 at their edges: the output against
+    sdpa (1e-4), the log-sum-exp against flash_lse_plain (1e-4; exactly -1e30
+    for a sample with no key), the same output bits with and without it, the
+    gradients against flash_backward_plain (2e-5 of each one's largest
+    magnitude; dq of a sample with no key exactly 0), the same bits twice,
+    one forward launch and three prepass launches a forward, and the same
+    calls on views of the same storage at a second, shorter Nq (a tensor map
+    cached for the first shape at that address must not serve the second)."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    q, k, v, do, mask = _backward_inputs(cuda, torch.float32, b, h, nq, nk, d, lens, seed=4)
+    v = v.tanh()
+    scale = d**-0.5
+    for n in (nq, nq - 37):
+        qn, don = (t.flatten()[: b * h * n * d].view(b, h, n, d) for t in (q, do))
+        fwd, planes = A.flash_attention.launches, A.tf32_planes.launches
+        out, lse = A._forward(qn, k, v, mask, scale, want_lse=True)
+        assert (A.flash_attention.launches, A.tf32_planes.launches) == (fwd + 1, planes + 3)
+        torch.cuda.synchronize()
+        assert torch.equal(out, A._forward(qn, k, v, mask, scale, want_lse=False)[0])
+        assert (out - sdpa(qn, k, v, kv_mask=mask, scale=scale)).abs().max().item() <= BOUNDS[torch.float32]
+        assert (lse - flash_lse_plain(qn, k, mask, scale)).abs().max().item() <= 1e-4
+        if lens is not None and 0 in lens:
+            assert torch.all(lse[lens.index(0)] == NEG_INF)
+        before = (A.flash_dq.launches, A.flash_dkv.launches)
+        got = A.flash_backward(qn, k, v, mask, out, lse, don, scale)
+        torch.cuda.synchronize()
+        assert (A.flash_dq.launches, A.flash_dkv.launches) == (before[0] + 1, before[1] + 1)
+        want = A.flash_backward_plain(qn, k, v, mask, out, lse, don, scale)
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == torch.float32 and a.shape == b_.shape and torch.isfinite(a).all(), name
+            bound = BACKWARD_BOUNDS[torch.float32] * b_.abs().max().item()
+            assert (a - b_).abs().max().item() <= bound, (name, n)
+        if lens is not None and 0 in lens:
+            assert not got[0][lens.index(0)].any()
+        assert all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(qn, k, v, mask, out, lse, don, scale)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72])
+def test_flash_attention_f32_and_bf16_at_one_address(cuda, d):
+    """One storage read as f32 and as bf16 q, k, v in turns: each call gets
+    tensor maps of its own element type (the map cache keys the type too)."""
+    b, h, n = 1, 2, 256
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    buf = torch.empty(3 * b * h * n * d, device=cuda)
+    for _ in range(2):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = buf.view(dtype)[: 3 * b * h * n * d].view(3, b, h, n, d)
+            x.copy_(torch.rand(3, b, h, n, d, device=cuda, generator=gen) * 2 - 1)
+            q, k, v = x.unbind(0)
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert q.data_ptr() == buf.data_ptr()
+            assert (out.float() - sdpa(q, k, v).float()).abs().max().item() <= BOUNDS[dtype]
 
 
 @pytest.mark.cuda
