@@ -12,8 +12,8 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
-   for the forward (bf16 at head dims 64, 72 and 512; f32 at 64 and 72 on
-   split-tf32 products), the backward (both passes at head dims 64 and 72,
+   for the forward (bf16 at head dims 64, 72 and 512; f32 at 64, 72 and 512
+   on split-tf32 products), the backward (both passes at head dims 64 and 72,
    bf16 and f32) and the bf16 fused convolution also their shared memory a
    block, blocks an SM and their count of wgmma (HGMMA) and TMA-load
    (UTMALDG) instructions, and fails if either count is 0 (for the
@@ -26,8 +26,10 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    the same function: flash attention (K1, with ragged and masked shapes
    and its TFLOP/s; head dim 512 at the VAE mid block's three shapes: process,
    the tiled call's encode and its tile's decode, and in f32 at the DMD step's
-   encode), the split prepass of the f32 attention (``tf32_planes``, bit for
-   bit against ``tf32_planes_plain``), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
+   encode and a ragged masked shape, where ``sdpa`` with TF32 matmuls is shown
+   outside the f32 bound), the split prepass of the f32 attention
+   (``tf32_planes``, bit for bit against ``tf32_planes_plain``, head dims 64,
+   72 and 512), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
    cuDNN's convolution alone on the activated input beside the kernel alone,
    and a border case that tells a zero halo from a ``silu(b)`` halo), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
@@ -99,16 +101,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # |out| <= 1). bf16: both outputs are rounded to bf16 (spacing 2^-8 just
 # below 1) and the kernel rounds P to bf16 before P.V where sdpa keeps it
 # f32, so a few bf16 steps; 1e-2. f32: only the summation order differs
-# (online softmax over key tiles against one softmax) and, at head dims 64
-# and 72, the split-tf32 products' dropped lo.lo term, about 2^-22 of each
-# product; 1e-4.
+# (online softmax over key tiles against one softmax) and the split-tf32
+# products' dropped lo.lo term, about 2^-22 of each product; 1e-4.
 BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
 # |out| <= 1 is loose where many keys share the weight: at head dim 512 over
 # thousands of keys the output is near 0.01 and 1e-2 would pass a kernel that
-# dropped a key tile. So each output is also held to 2e-2 of its reference's
-# largest magnitude: the bf16 rounding of either output is 2^-8 = 3.9e-3 of
-# the largest value, and P's bf16 rounding a few such steps more.
-REL_BOUND = 2e-2
+# dropped a key tile. So each output is also held to a share of its
+# reference's largest magnitude. bf16: 2e-2, the bf16 rounding of either
+# output is 2^-8 = 3.9e-3 of the largest value, and P's bf16 rounding a few
+# such steps more. f32: 1e-4, where products in plain TF32 (10 mantissa
+# bits, as ``sdpa`` with ``allow_tf32``) land near 5e-4 of it and the split's
+# about 2^-21 of a product keeps a few 1e-6.
+REL_BOUNDS = {"bf16": 2e-2, "f32": 1e-4}
 # The backward kernels against flash_backward_plain on the same q, k, v, o, lse
 # and dO (randn q, k, dO; v in [-1, 1]), per output (dq, dk, dv), relative to
 # that output's largest magnitude. bf16: both round P, dS and the output to
@@ -187,8 +191,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound(nbytes: float, flops: float, dt: str, split: bool = False):
     """(least ms the card could take, which limit sets it): bytes moved once
     over the memory rate, or operations over the peak rate of their type;
-    with split (the f32 attention at head dims 64 and 72), three tf32
-    products for each f32 one over the TF32 rate."""
+    with split (the f32 attention), three tf32 products for each f32 one over
+    the TF32 rate."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     if split:
         t_ops = 3 * flops / PEAK_TF32 * 1e3
@@ -197,9 +201,9 @@ def bound(nbytes: float, flops: float, dt: str, split: bool = False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def split_form(dt: str, d: int) -> bool:
-    """Whether the attention kernels run split-tf32 products at this type and head dim."""
-    return dt == "f32" and d in (64, 72)
+def split_form(dt: str) -> bool:
+    """Whether the attention kernels run split-tf32 products at this type (f32, every head dim)."""
+    return dt == "f32"
 
 
 DTYPES = {"bf16": "bfloat16", "f32": "float32"}
@@ -493,29 +497,31 @@ def occupancy_figures(library: str, entry: str, args, key) -> dict:
 
 def hopper_build_report(log: str):
     """The forward as built: registers and spill stores of each head dim's
-    bf16 kernel and of the f32 (split-tf32) kernels at 64 and 72 (``f32_``;
-    ptxas, when this run compiled it), the shared memory a block takes and
-    the blocks an SM holds (the library's own figures), the counts of HGMMA
-    (wgmma) and UTMALDG (TMA load) instructions in the library's SASS, in the
-    head-dim-512 kernel's alone and in the f32 kernels' alone, and the
-    library's HMMA (mma.sync). Fails if the library, the head-dim-512 kernel
-    or the f32 kernels have no HGMMA or no UTMALDG, if an HMMA is left, or if
-    the head-dim-512 kernel or an f32 kernel spills."""
+    bf16 kernel and of the f32 (split-tf32) kernels at 64, 72 and 512
+    (``f32_``; ptxas, when this run compiled it), the shared memory a block
+    takes and the blocks an SM holds (the library's own figures), the counts
+    of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's
+    SASS, in the bf16 head-dim-512 kernel's alone, in the f32 kernels' at 64
+    and 72 alone and in the f32 head-dim-512 kernel's alone, and the
+    library's HMMA (mma.sync). Fails if the library or any of those kernels
+    has no HGMMA or no UTMALDG, if an HMMA is left, or if a head-dim-512
+    kernel or an f32 kernel spills."""
     report = ptxas_figures(log, r"hopper6kernelILi(\d+)E|d(512)6kernelE", lambda m: f"d{m.group(1) or m.group(2)}")
-    report.update(ptxas_figures(log, r"fwd_tf326kernelILi(\d+)E", lambda m: f"f32_d{m.group(1)}"))
+    report.update(ptxas_figures(log, r"fwd_tf326kernelILi(\d+)E|d(512)_tf326kernelE",
+                                lambda m: f"f32_d{m.group(1) or m.group(2)}"))
     report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy", [(64,), (72,), (512,)],
                                     lambda a: f"d{a[0]}"))
-    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy_f32", [(64,), (72,)],
+    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy_f32", [(64,), (72,), (512,)],
                                     lambda a: f"f32_d{a[0]}"))
     report.update(sass_counts("flash_attn_fwd"))
-    for key, in_name in (("d512", "d5126kernel"), ("f32", "fwd_tf32")):
+    for key, in_name in (("d512", "d5126kernel"), ("f32", "fwd_tf32"), ("f32_d512", "d512_tf326kernel")):
         counts = sass_counts("flash_attn_fwd", in_name)
         report[f"{key}_HGMMA"], report[f"{key}_UTMALDG"] = counts["HGMMA"], counts["UTMALDG"]
     print(f"[build] flash_attn_fwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
-    if not all(report[k] for k in ("HGMMA", "UTMALDG", "d512_HGMMA", "d512_UTMALDG", "f32_HGMMA", "f32_UTMALDG")):
-        fail(f"the forward library has {report['HGMMA']} HGMMA and {report['UTMALDG']} UTMALDG instructions, "
-             f"its head-dim-512 kernel {report['d512_HGMMA']} and {report['d512_UTMALDG']}, its f32 kernels "
-             f"{report['f32_HGMMA']} and {report['f32_UTMALDG']}")
+    counted = ("HGMMA", "UTMALDG", "d512_HGMMA", "d512_UTMALDG", "f32_HGMMA", "f32_UTMALDG", "f32_d512_HGMMA",
+               "f32_d512_UTMALDG")
+    if not all(report[k] for k in counted):
+        fail(f"the forward library's HGMMA and UTMALDG counts, all and by kernel: {({k: report[k] for k in counted})}")
     spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v and k.startswith(("d512", "f32"))}
     if report["HMMA"] or spills:
         fail(f"the forward library has {report['HMMA']} HMMA instructions; spills {spills}")
@@ -580,7 +586,10 @@ def bwd_build_report(log: str):
 
 
 def kernel_phase():
-    """K1 against sdpa at the main-path shapes; returns per-shape records."""
+    """K1 against sdpa at the main-path shapes; returns per-shape records.
+    At the f32 DMD encode's shape ``sdpa`` with TF32 matmuls is held too and
+    must land outside the f32 bound, so the bound tells split-tf32 products
+    from plain TF32 ones."""
     import torch
     import torch.nn.functional as F
 
@@ -596,7 +605,7 @@ def kernel_phase():
         ("ragged_q1000_k333", (1, 16, 1000, 333, 72), None, ("bf16",)),
         ("vae_mid_tiled_encode", (1, 1, 16384, 16384, 512), None, ("bf16",)),   # the tiled 1024^2 call's encode
         ("vae_mid_tile576_decode", (1, 1, 5184, 5184, 512), None, ("bf16",)),   # its decode, one 72^2 latent tile
-        ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0), ("bf16",)),
+        ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0), ("bf16", "f32")),
         ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None, ("f32",)),        # an f32 DMD step's frozen-VAE encode
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -624,17 +633,29 @@ def kernel_phase():
             # the work this run's data needs: masked keys take no product
             keys = b * nk if mask is None else int(mask.sum().item())
             flops = 4.0 * h * nq * keys * d
-            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), flops, dt, split_form(dt, d))
+            b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), flops, dt, split_form(dt))
+            limit = min(BOUNDS[dt], REL_BOUNDS[dt] * ref_max)
             rec = dict(name=name, dtype=dt, shape=[b, h, nq, nk, d], masked=masked,
-                       max_abs_err=err, bound=BOUNDS[dt], ref_max_abs=ref_max, rel_bound=REL_BOUND, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
+                       max_abs_err=err, bound=BOUNDS[dt], ref_max_abs=ref_max, rel_bound=REL_BOUNDS[dt], ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
             print(f"[kernel] {name:23s} {dt:4s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} "
-                  f"mask={masked!s:5s} max_abs_err={err:.3e} (bound {BOUNDS[dt]:.0e} and {REL_BOUND:.0e} of "
+                  f"mask={masked!s:5s} max_abs_err={err:.3e} (bound {BOUNDS[dt]:.0e} and {REL_BOUNDS[dt]:.0e} of "
                   f"max|ref| {ref_max:.3e}) "
                   f"ms={ms:.4f} ({flops / ms / 1e9:.0f} TFLOP/s) sdpa_ms={plain_ms:.4f} "
                   f"torch_sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
-            if not err <= min(BOUNDS[dt], REL_BOUND * ref_max):
-                fail(f"{name} {dt}: kernel differs from sdpa by {err} > min({BOUNDS[dt]}, {REL_BOUND} * {ref_max})")
+            if not err <= limit:
+                fail(f"{name} {dt}: kernel differs from sdpa by {err} > min({BOUNDS[dt]}, {REL_BOUNDS[dt]} * {ref_max})")
+            if name == "vae_mid_dmd_encode":  # sdpa in plain TF32 must fail the bound the kernel passes
+                kept_tf32, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
+                try:
+                    with torch.no_grad():
+                        rec["tf32_sdpa_max_abs_err"] = max_err(sdpa(q, k, v, kv_mask=mask), ref)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = kept_tf32
+                print(f"[kernel] {name:23s} {dt:4s} sdpa with TF32 matmuls: max_abs_err={rec['tf32_sdpa_max_abs_err']:.3e}, "
+                      f"the kernel's {err:.3e}, the bound {limit:.3e}", flush=True)
+                if not rec["tf32_sdpa_max_abs_err"] > limit:
+                    fail(f"{name}: sdpa with TF32 matmuls is within the f32 bound ({rec['tf32_sdpa_max_abs_err']} <= {limit})")
             records.append(rec)
             del q, k, v, out, ref
     return records
@@ -699,7 +720,7 @@ def backward_phase():
             del lib_out, leaves
             # the work this run's data needs: masked keys take no product
             pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))
-            es, split = q.element_size(), split_form(dt, d)
+            es, split = q.element_size(), split_form(dt)
             b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt, split)
             b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, dt, split)
             b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, dt, split)
@@ -747,8 +768,9 @@ def backward_phase():
 
 
 # The shapes the f32 attention's split prepass takes on the main f32 paths: a DMD step's DiT operands at batch 2 (q
-# and dO as queries, k and v as keys, 1024 self and 300 cross), the UNet's ds-1 and the 77-key context, and a ragged
-# Nq = 1000: (name, (B, H, N, D), natural, transposed)
+# and dO as queries, k and v as keys, 1024 self and 300 cross), the UNet's ds-1 and the 77-key context, a ragged
+# Nq = 1000, the VAE mid block's K (natural) and V (transposed) at the f32 DMD encode's head dim 512, and a ragged
+# head-dim-512 operand: (name, (B, H, N, D), natural, transposed)
 PLANES_CASES = [
     ("dit_q_b2", (2, 16, 1024, 72), True, True),
     ("dit_cross_k_b2", (2, 16, 300, 72), True, True),
@@ -756,6 +778,9 @@ PLANES_CASES = [
     ("unet_ds1_q", (2, 5, 4096, 64), True, True),
     ("unet_k77", (2, 5, 77, 64), True, True),
     ("ragged_q1000", (1, 16, 1000, 72), True, True),
+    ("vae_k_dmd_encode", (2, 1, 4096, 512), True, False),
+    ("vae_v_dmd_encode", (2, 1, 4096, 512), False, True),
+    ("ragged_d512_k333", (2, 1, 333, 512), True, True),
 ]
 
 
@@ -919,8 +944,9 @@ def f32_launches(fwd_split: int, fwd_d512: int, what: str) -> dict:
     """The launches of an f32 run on the card since the last reset: the f32
     attention forms (the forward at head dims 64/72, fwd_split of them, and
     at 512, fwd_d512; both backward passes) and the split prepass, three a
-    forward and four a backward (q, k, v, dO). Fails if the prepass ran
-    another number of times or the run launched no split-tf32 kernel."""
+    forward at 64/72 (q, k, v), two at 512 (k, v: q goes raw) and four a
+    backward (q, k, v, dO). Fails if the prepass ran another number of times
+    or the run launched no split-tf32 kernel at 64/72."""
     from instarevive_tpu_torch.ops.attention import tf32_planes
 
     got = read_counts()
@@ -928,7 +954,7 @@ def f32_launches(fwd_split: int, fwd_d512: int, what: str) -> dict:
            "flash_attn_bwd_dq_f32": got["flash_attn_bwd_dq"], "flash_attn_bwd_dkv_f32": got["flash_attn_bwd_dkv"],
            "tf32_planes": tf32_planes.launches}
     if fwd_split + fwd_d512 != got["flash_attn_fwd"] or got["flash_attn_bwd_dq"] != got["flash_attn_bwd_dkv"] \
-            or out["tf32_planes"] != 3 * fwd_split + 4 * got["flash_attn_bwd_dq"] or not fwd_split:
+            or out["tf32_planes"] != 3 * fwd_split + 2 * fwd_d512 + 4 * got["flash_attn_bwd_dq"] or not fwd_split:
         fail(f"{what}: f32 launches {out} against the counts {got}")
     return out
 
@@ -1725,7 +1751,7 @@ def d64_phase():
             lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=iters)
             del lib_out, leaves
             pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))  # masked keys take no product
-            es, split = q.element_size(), split_form(dt, d)
+            es, split = q.element_size(), split_form(dt)
             b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()), 4.0 * pairs * d, dt, split)
             b_lse = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, dt, split)
             b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, dt, split)
@@ -2038,7 +2064,9 @@ def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_
     """The f32 forms' entries of the ``kernels`` line: K1 and K2 on split-tf32
     products at head dims 64 and 72 (the DiT's self-attention at a DMD step's
     batch at top level, every f32 shape at 64 and 72 below), K1's f32 form at
-    head dim 512 (the DMD step's VAE encode) and the split prepass.
+    head dim 512 (the DMD step's VAE encode at top level, with sdpa's error
+    in plain TF32 beside, and the ragged masked shape below) and the split
+    prepass. Each K1 entry carries its kernels' build figures.
     ``launches`` is the sum over the two f32 card-against-CPU train steps
     (``f32_steps``: the DMD step at depth 2 and the cldm step), each beside."""
     d64_fwd, d64_dq, d64_dkv = d64
@@ -2056,12 +2084,16 @@ def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_
     rel = lambda recs: {"max_rel_err": max(r["max_rel_err"] for r in recs)}  # noqa: E731
     fwd = split(attn_records) + split(d64_fwd)
     dq, dkv = split(dq_records) + split(d64_dq), split(dkv_records) + split(d64_dkv)
-    fwd_f32_build = {k: v for k, v in fwd_build.items() if k.startswith("f32")}
+    d512 = [r for r in attn_records if r["dtype"] == "f32" and r["shape"][4] == 512]
+    d512_main = next(r for r in d512 if r["name"] == "vae_mid_dmd_encode")
     return [
         entry("flash_attn_fwd_f32", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63", fwd, "dit_self",
-              build=fwd_f32_build),
-        entry("flash_attn_fwd_f32_d512", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
-              [r for r in attn_records if r["dtype"] == "f32" and r["shape"][4] == 512], "vae_mid_dmd_encode"),
+              build={k: v for k, v in fwd_build.items() if k.startswith("f32") and not k.startswith("f32_d512")}),
+        entry("flash_attn_fwd_f32_d512", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63", d512,
+              "vae_mid_dmd_encode", build={k: v for k, v in fwd_build.items() if k.startswith("f32_d512")},
+              max_rel_err=max(r["max_abs_err"] / r["ref_max_abs"] for r in d512),
+              tf32_sdpa_max_abs_err=d512_main["tf32_sdpa_max_abs_err"],
+              bound_used=min(BOUNDS["f32"], REL_BOUNDS["f32"] * d512_main["ref_max_abs"])),
         entry("flash_attn_bwd_dq_f32", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127", dq, "dit_self",
               build=bwd_pass(bwd_build, "dq", "f32_"), **rel(dq)),
         entry("flash_attn_bwd_dkv_f32", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166", dkv, "dit_self",

@@ -79,9 +79,21 @@
 //   the softmax's rescale: the tensor cores' f32 sums truncate, and chained
 //   over thousands of keys that bias alone would pass the f32 bounds (the
 //   backward measured it: 3.7e-5 against 2e-5 at 4096 queries).
-// * f32, head dim 512 (the VAE mid block of an f32 run), keeps the scores and
-//   the accumulator in shared memory and runs plain FMAs on odd-strided tiles
-//   (no bank conflicts).
+// * f32, head dim 512 (namespace d512_tf32; the VAE mid block of every f32
+//   run): the bf16 head-dim-512 form's block (64 query rows, the head dim
+//   split between two warpgroups whose partial scores meet in shared memory,
+//   256 output columns a warpgroup) on split-tf32 products. The planes are
+//   four times the bf16 bytes, so Q stays resident as raw f32 (128 KB in 16
+//   boxes of 32 f32; its hi and lo planes would take 256 KB), and each Q.K^T
+//   k-step reads the thread's four A values from it, splits them in
+//   registers and takes them from there (rs); their order is K's natural
+//   one. K's natural planes and V's transposed planes (the prepass's, as at
+//   64 and 72) arrive in chunks of 64 head dims of a 32-key tile, 16 KB with
+//   both planes, each warpgroup through two slots of its own that one of its
+//   threads refills as soon as its four warps are done with one. P.V runs
+//   one chunk of 64 output columns at a time into a fresh accumulator folded
+//   into the running output by one FFMA, as at 64 and 72. It writes no
+//   log-sum-exp (head dim 512 has no backward).
 // Other head dims are refused.
 //
 // What bounds it on this card: at the DiT and UNet shapes the work is far
@@ -121,8 +133,17 @@
 // (495 TFLOP/s TF32), so operations bound it at 6x the bf16 bound; 221 KB of
 // shared memory at d = 72 (197 KB at 64) allow one block of two warpgroups
 // an SM, whose 64-key stage (74 KB) arrives from L2 in about the time the two
-// warpgroups take for its products. The f32 form at head dim 512 is bound by
-// shared-memory traffic and the barriers between its phases.
+// warpgroups take for its products. The f32 form at head dim 512 does three
+// tf32 products a product too, and each of its blocks streams all of K's and
+// V^T's planes through L2 (33.5 MB at 4096 keys). On an H100 (700 W,
+// tools/time_flash_fwd.py with edited copies of this file) it took 1.08-1.10
+// ms at (2,1,4096,4096,512), its bound 0.42; a copy without its products took
+// 0.55 (about 61 GB/s an SM from L2), one without the split of Q 0.87-0.89,
+// so copies and products run nearly one after the other: one chunk in flight
+// a warpgroup while it works on the other. Chunks of 32 head dims in four
+// slots a warpgroup were 10-14% slower, with or without two P.V accumulators
+// in turn (both spill); each chunk's Q.K^T products into a fresh
+// accumulator took the error at 4096 keys from 4.0e-7 to 2.6e-7 and spilled.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -818,188 +839,259 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace fwd_tf32
 
 // ---------------------------------------------------------------------------
-// f32, head dim 512: scores and accumulator in shared memory, FMAs.
+// f32, head dim 512: split-tf32 wgmma, Q resident as raw f32, K's and V^T's planes streamed in chunks.
 
-namespace fp32 {
+namespace d512_tf32 {
 
-constexpr int kThreads = 128;
+using namespace hopper;
 
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+constexpr int D = 512, BQ = 64, BK = 32;      // head dims, query rows a block, keys a tile
+constexpr int kWarpgroups = 2, kThreads = 128 * kWarpgroups;
+constexpr int kHalf = D / kWarpgroups;        // a warpgroup's head dims: its half of Q.K^T, its output columns
+constexpr int kChunkDims = 64;                // head dims a chunk
+constexpr int kChunks = kHalf / kChunkDims;   // a warpgroup's K chunks a tile, and as many V^T chunks
+constexpr int kSteps = kChunkDims / 8;        // tf32 k-steps of Q.K^T in a K chunk
+// Shared memory, from a 1024-byte aligned base: Q as raw f32 (16 boxes of 64 rows x 32 f32, resident), a
+// ring of four 16 KB chunk slots (2 wg and 2 wg + 1 are warpgroup wg's), the partial scores (8 KB a
+// warpgroup, double-buffered by tile parity), the barriers. A K chunk is 32 keys x 64 head dims of both
+// planes, two boxes of 32 head dims each; a V^T chunk is 64 head dims x 32 keys of both planes, one box
+// each. Every box is rows of 128 bytes under the 128-byte swizzle and starts on 1024 bytes.
+constexpr uint32_t kQBox = BQ * 128, kQ = (D / 32) * kQBox;
+constexpr uint32_t kKBox = BK * 128, kVtBox = kChunkDims * 128;
+constexpr uint32_t kSlot = 4 * kKBox;
+static_assert(kSlot == 2 * kVtBox, "K and V^T chunks share the slots");
+constexpr int kSlots = 2 * kWarpgroups;
+constexpr uint32_t kPart = 128 * (BK / 2) * 4;  // 16 f32 scores a thread
+constexpr uint32_t kOffRing = kQ, kOffParts = kOffRing + kSlots * kSlot;
+constexpr uint32_t kOffBars = kOffParts + 2 * kWarpgroups * kPart;
+constexpr size_t kSmem = 1024 + kOffBars + 8 * (2 * kSlots + 1);  // 1024 bytes of slack to align the base
+static_assert(kSmem <= 232448, "shared memory over the per-block limit");
 
-// Shared-memory layout of one block. BQ query rows, BK keys per tile, DP the
-// padded head dim, LD the (odd) row stride of the Q and K tiles.
-template <int BQ, int BK, int DP, int LD>
-struct Layout {
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(sizeof(float) * BQ * LD);
-  static constexpr size_t v = k + align128(sizeof(float) * BK * LD);
-  static constexpr size_t s = v + align128(sizeof(float) * BK * DP);
-  static constexpr size_t o = s + align128(sizeof(float) * BQ * BK);
-  static constexpr size_t m = o + align128(sizeof(float) * BQ * DP);
-  static constexpr size_t l = m + align128(sizeof(float) * BQ);
-  static constexpr size_t keep = l + align128(sizeof(float) * BQ);
-  static constexpr size_t bytes = keep + align128(sizeof(float) * BK);
+struct Maps {  // Q raw in boxes of 32 head dims x 64 rows; K's hi ([0]) and lo ([1]) planes in boxes of 32 x 32;
+  CUtensorMap q, k[2], vt[2];  // V^T's planes in boxes of 32 keys x 64 head dims
 };
 
-// Copies rows [row0, row0 + ROWS) of a row-major (n, d) matrix into a
-// (ROWS, LD) shared tile, zero-filling rows >= n and columns in [d, DP).
-template <int ROWS, int DP, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n, int d) {
-  for (int e = threadIdx.x; e < ROWS * DP; e += kThreads) {
-    const int r = e / DP, col = e % DP;
-    dst[r * LD + col] = (row0 + r < n && col < d) ? src[(size_t)(row0 + r) * d + col] : 0.f;
-  }
-}
-
-// S = Q K^T for one key tile (unscaled).
-template <int BQ, int BK, int DP, int LD>
-__device__ __forceinline__ void tile_scores(const float* sQ, const float* sK, float* sS) {
-  for (int e = threadIdx.x; e < BQ * BK; e += kThreads) {
-    const int i = e / BK, j = e % BK;
-    const float* qr = sQ + i * LD;
-    const float* kr = sK + j * LD;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DP; ++c) acc = fmaf(qr[c], kr[c], acc);
-    sS[e] = acc;
-  }
-}
-
-// Online-softmax step for one key tile: scale and mask the scores, update the
-// running max and sum, write P in place in sS and rescale the output
-// accumulator rows by exp(m_old - m_new).
-template <int BQ, int BK, int DP>
-__device__ __forceinline__ void tile_softmax(float* sS, float* sO, float* sM, float* sL,
-                                             const float* sKeep, float scale, int kv0, int nk) {
-  constexpr int kTpr = kThreads / BQ;  // threads per row, a power of two within one warp
-  constexpr int kCols = BK / kTpr;
-  const int row = threadIdx.x / kTpr, part = threadIdx.x % kTpr;
-  float* s = sS + row * BK + part * kCols;
-  float mx = -CUDART_INF_F;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int j = part * kCols + c;
-    float x = -CUDART_INF_F;  // keys past Nk take no weight at all
-    if (kv0 + j < nk) x = sKeep[j] != 0.f ? s[c] * scale : kMaskedScore;
-    s[c] = x;
-    mx = fmaxf(mx, x);
-  }
-#pragma unroll
-  for (int off = kTpr / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float m_old = sM[row];
-  const float m_new = fmaxf(m_old, mx);
-  const float alpha = expf(m_old - m_new);
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const float p = expf(s[c] - m_new);
-    sum += p;
-    s[c] = p;
-  }
-#pragma unroll
-  for (int off = kTpr / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  float* o = sO + row * DP;
-  for (int c = part; c < DP; c += kTpr) o[c] *= alpha;
-  __syncwarp();
-  if (part == 0) {
-    sM[row] = m_new;
-    sL[row] = sL[row] * alpha + sum;
-  }
-}
-
-// O += P V for one key tile.
-template <int BQ, int BK, int DP>
-__device__ __forceinline__ void tile_pv(const float* sS, const float* sV, float* sO) {
-  for (int e = threadIdx.x; e < BQ * DP; e += kThreads) {
-    const int i = e / DP, c = e % DP;
-    const float* p = sS + i * BK;
-    float acc = sO[e];
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) acc = fmaf(p[j], sV[j * DP + c], acc);
-    sO[e] = acc;
-  }
-}
-
-template <int BQ, int BK, int DP, int LD>
-__global__ void __launch_bounds__(kThreads)
-kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int heads,
-       int nq, int nk, int d, float scale) {
-  using L = Layout<BQ, BK, DP, LD>;
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, float* __restrict__ out, int heads,
+       int nq, int nk, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + L::q);
-  float* sK = reinterpret_cast<float*>(smem + L::k);
-  float* sV = reinterpret_cast<float*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
-  float* sKeep = reinterpret_cast<float*>(smem + L::keep);
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const base = smem + (sQ - smem_u32(smem));
+  const uint32_t ring = sQ + kOffRing;
+  const uint32_t full = sQ + kOffBars;      // per slot: its chunk has landed
+  const uint32_t empty = full + 8 * kSlots;  // per slot: every warp of its warpgroup is done with it
+  const uint32_t qbar = empty + 8 * kSlots;
+  float* parts = reinterpret_cast<float*>(base + kOffParts);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const float* qb = q + (size_t)bh * nq * d;
-  const float* kb = k + (size_t)bh * nk * d;
-  const float* vb = v + (size_t)bh * nk * d;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
+  const int n_tiles = (nk + BK - 1) / BK, n_chunks = n_tiles * 2 * kChunks;  // this warpgroup's chunks
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const bool producer = tid == 0;  // issues this warpgroup's copies; no warp is set aside for it
 
-  load_tile<BQ, DP, LD>(sQ, qb, q0, nq, d);
-  for (int e = threadIdx.x; e < BQ * DP; e += kThreads) sO[e] = 0.f;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    sM[r] = kMaskedScore;
-    sL[r] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < nk; kv0 += BK) {
-    __syncthreads();  // the previous tile's P.V is done with sK, sV, sS
-    load_tile<BK, DP, LD>(sK, kb, kv0, nk, d);
-    load_tile<BK, DP, DP>(sV, vb, kv0, nk, d);
-    for (int j = threadIdx.x; j < BK; j += kThreads)
-      sKeep[j] = (mb == nullptr || (kv0 + j < nk && mb[kv0 + j] != 0)) ? 1.f : 0.f;
-    __syncthreads();
-    tile_scores<BQ, BK, DP, LD>(sQ, sK, sS);
-    __syncthreads();
-    tile_softmax<BQ, BK, DP>(sS, sO, sM, sL, sKeep, scale, kv0, nk);
-    __syncthreads();
-    tile_pv<BQ, BK, DP>(sS, sV, sO);
+  // This warpgroup's chunk i: of tile i / 8, its K chunk i % 8 (below kChunks) or V^T chunk i % 8 - kChunks,
+  // the head dims kHalf wg + 64 (i % 4) on; it goes to slot 2 wg + i % 2, whose (i / 2)-th use it is.
+  auto slot = [&](int i) { return ring + (2 * wg + (i & 1)) * kSlot; };
+  auto load_chunk = [&](int i) {
+    const int tile = i / (2 * kChunks), j = i % (2 * kChunks), d0 = kHalf * wg + kChunkDims * (j % kChunks);
+    const uint32_t dst = slot(i), bar = full + 8 * (2 * wg + (i & 1));
+    mbar_expect_tx(bar, kSlot);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (j < kChunks) {
+        tma_load(dst + 2 * p * kKBox, &maps.k[p], bar, d0, tile * BK, bh);
+        tma_load(dst + (2 * p + 1) * kKBox, &maps.k[p], bar, d0 + 32, tile * BK, bh);
+      } else {
+        tma_load(dst + p * kVtBox, &maps.vt[p], bar, tile * BK, d0, bh);
+      }
+    }
+  };
+  auto wait_chunk = [&](int i) {
+    __syncwarp();
+    mbar_wait(full + 8 * (2 * wg + (i & 1)), (i >> 1) & 1);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+  };
+  // every warp of this warpgroup is done with chunk i: its slot takes chunk i + 2
+  auto release = [&](int i) {
+    const uint32_t bar = empty + 8 * (2 * wg + (i & 1));
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+    if (producer && i + 2 < n_chunks) {
+      mbar_wait(bar, (i >> 1) & 1);
+      load_chunk(i + 2);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-
-  float* ob = out + (size_t)bh * nq * d;
-  for (int e = threadIdx.x; e < BQ * DP; e += kThreads) {
-    const int i = e / DP, c = e % DP;
-    if (q0 + i < nq && c < d) ob[(size_t)(q0 + i) * d + c] = sO[e] / fmaxf(sL[i], 1e-30f);
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, kQ);
+#pragma unroll
+    for (int b = 0; b < D / 32; ++b) tma_load(sQ + b * kQBox, &maps.q, qbar, 32 * b, q0, bh);
   }
-  if (lse != nullptr) {  // a row with no real key: -1e30 + log(Nk) is -1e30 in f32
-    for (int r = threadIdx.x; r < BQ; r += kThreads)
-      if (q0 + r < nq) lse[(size_t)bh * nq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  if (producer) {
+    load_chunk(0);
+    load_chunk(1);
+  }
+
+  float o[kHalf / 2], ot[kChunkDims / 2];  // 64 rows x this warpgroup's 256 output columns; one chunk's P.V
+#pragma unroll
+  for (int i = 0; i < kHalf / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunkDims / 2; ++i) ot[i] = 0.f;
+  float m_run[2] = {kMaskedScore, kMaskedScore}, l_run[2] = {0.f, 0.f};
+  // this thread's Q row g of its warp's 16 in every box (row g + 8 is 8 rows on, under the same swizzle)
+  const float* q_row = reinterpret_cast<const float*>(base) + (warp * 16 + g) * 32;
+  mbar_wait(qbar, 0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int c0 = tile * 2 * kChunks;  // this tile's first chunk
+
+    // this warpgroup's half of S = Q K^T, 64 x BK: each k-step of 8 head dims as lo.hi + hi.lo + hi.hi, the
+    // small terms first; Q's A fragment (rows g, g + 8; head dims t, t + 4 of the step, K's natural order) is
+    // read from the raw boxes and split in registers, two fragments in flight
+    float sc[BK / 2];
+    uint32_t qa[2][2][4];  // [fragment][hi, lo]
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = c0 + c;
+      wait_chunk(i);
+      const uint32_t k_hi = slot(i), k_lo = k_hi + 2 * kKBox;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int step = c * kSteps + ks, f = step & 1, dim = kHalf * wg + 8 * step;
+        // the 128-byte swizzle: 16-byte unit u of row r lies at unit u ^ (r % 8), and r % 8 = g
+        const float* box = q_row + (dim / 32) * (kQBox / 4);
+        const int u = (dim % 32) / 4, at = ((u ^ g) << 2) + t, at4 = (((u + 1) ^ g) << 2) + t;
+        const float v[4] = {box[at], box[8 * 32 + at], box[at4], box[8 * 32 + at4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float h = tf32_rna(v[e]);
+          qa[f][0][e] = __float_as_uint(h);
+          qa[f][1][e] = __float_as_uint(tf32_rna(v[e] - h));
+        }
+        const uint64_t kh = smem_desc(k_hi + (ks / 4) * kKBox, 1024, kSwizzle128) + 2 * (ks % 4);
+        const uint64_t kl = smem_desc(k_lo + (ks / 4) * kKBox, 1024, kSwizzle128) + 2 * (ks % 4);
+        wgmma_fence();
+        Wgmma32<BK>::rs(sc, qa[f][1], kh, step > 0);
+        Wgmma32<BK>::rs(sc, qa[f][0], kl, 1);
+        Wgmma32<BK>::rs(sc, qa[f][0], kh, 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before is done: its fragment may be rewritten
+        if (ks == 0 && c > 0) release(i - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(c0 + kChunks - 1);
+
+    // the two halves meet in shared memory: thread tid of either warpgroup holds the same rows and
+    // keys, so each adds the other's 16 values (a + b == b + a: both get the same bits)
+    float4* mine = reinterpret_cast<float4*>(parts + ((tile & 1) * kWarpgroups + wg) * (kPart / 4));
+    const float4* theirs = reinterpret_cast<const float4*>(parts + ((tile & 1) * kWarpgroups + (wg ^ 1)) * (kPart / 4));
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) mine[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+    __syncthreads();  // a part is rewritten two tiles on, after the next barrier: its reader is past it
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const float4 x = theirs[i * 128 + tid];
+      sc[4 * i] += x.x;
+      sc[4 * i + 1] += x.y;
+      sc[4 * i + 2] += x.z;
+      sc[4 * i + 3] += x.w;
+    }
+
+    // online softmax in the log2 domain (both warpgroups compute the same); P in f32, split into hi and lo
+    // A fragments in the order of the transposed planes' keys
+    float alpha[2];
+    softmax_probs<BK>(sc, tile * BK, nk, mb, scale_log2, t, m_run, l_run, alpha);
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) split_fragment(sc + 4 * j, ph[j], pl[j]);
+
+    // O += P V over this warpgroup's 256 columns, a V^T chunk of 64 at a time: the chunk's products into a
+    // fresh accumulator (the tensor cores' sums run over one tile only), folded into the running output with
+    // the softmax's rescale by one FFMA
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = c0 + kChunks + c;
+      wait_chunk(i);
+      const uint32_t v_hi = slot(i), v_lo = v_hi + kVtBox;
+      fence_regs(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const uint64_t vh = smem_desc(v_hi, 1024, kSwizzle128) + 2 * j;
+        const uint64_t vl = smem_desc(v_lo, 1024, kSwizzle128) + 2 * j;
+        Wgmma32<kChunkDims>::rs(ot, pl[j], vh, j > 0);
+        Wgmma32<kChunkDims>::rs(ot, ph[j], vl, 1);
+        Wgmma32<kChunkDims>::rs(ot, ph[j], vh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(ot);
+      release(i);
+#pragma unroll
+      for (int e = 0; e < kChunkDims / 2; ++e)
+        o[c * (kChunkDims / 2) + e] = fmaf(o[c * (kChunkDims / 2) + e], alpha[(e >> 1) & 1], ot[e]);
+    }
+  }
+
+  float* ob = out + (size_t)bh * nq * D + kHalf * wg;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= nq) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    float* orow = ob + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
-template <int BQ, int BK, int DP, int LD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
-                   int bh, int heads, int nq, int nk, int d, float scale, cudaStream_t stream) {
-  using L = Layout<BQ, BK, DP, LD>;
-  static_assert(L::bytes <= 232448, "shared memory over the per-block limit");
-  static_assert(kThreads % BQ == 0 && BK % (kThreads / BQ) == 0, "softmax row split");
-  auto fn = kernel<BQ, BK, DP, LD>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+// planes: Q raw ((bh, nq, D) f32), K hi, K lo ((bh, nk, D) f32), V^T hi, V^T lo ((bh, D, nk rounded up to 8)
+// f32, keys in the order of tf32_planes.cu).
+cudaError_t launch(const void* const* planes, const void* mask, void* out, int bh, int heads, int nq, int nk,
+                   float scale, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const int nk_pad = (nk + 7) / 8 * 8;
+  Maps maps = {};
+  bool ok = make_map(&maps.q, planes[0], D, nq, bh, 32, BQ, CU_TENSOR_MAP_SWIZZLE_128B, true);
+  for (int p = 0; p < 2; ++p)
+    ok = ok && make_map(&maps.k[p], planes[1 + p], D, nk, bh, 32, BK, CU_TENSOR_MAP_SWIZZLE_128B, true) &&
+         make_map(&maps.vt[p], planes[3 + p], nk_pad, D, bh, 32, kChunkDims, CU_TENSOR_MAP_SWIZZLE_128B, true);
+  if (!ok) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  fn<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse), heads, nq, nk, d,
-      scale);
+  kernel<<<grid, kThreads, kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<float*>(out), heads,
+                                            nq, nk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-}  // namespace fp32
+cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = (int)kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, kSmem);
+}
+
+}  // namespace d512_tf32
 
 }  // namespace
 
-// q: (bh, nq, d), k and v: (bh, nk, d), out: (bh, nq, d), all contiguous and of
-// one type (bf16 when is_bf16, else f32, which this entry takes at head dim
-// 512 only: flash_attn_fwd_f32 takes f32 at 64 and 72); mask: (bh / heads, nk)
+// q: (bh, nq, d), k and v: (bh, nk, d), out: (bh, nq, d), all contiguous bf16
+// (is_bf16 must be 1: flash_attn_fwd_f32 takes f32; the flag stays so that an
+// older build, which took f32 here, binds the same way); mask: (bh / heads, nk)
 // bytes, or null for no mask; lse: (bh, nq) f32 to receive the row
 // log-sum-exp, or null (head dims 64 and 72 only). Returns a cudaError_t; 0
 // means the launch was accepted.
@@ -1007,24 +1099,24 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
                               void* out, void* lse, int bh, int heads, int nq, int nk, int d,
                               float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && is_bf16) return hopper::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
-  if (d == 72 && is_bf16) return hopper::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
-  if (d == 512 && lse == nullptr) {
-    return is_bf16 ? d512::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s)
-                   : fp32::launch<16, 16, 512, 513>(q, k, v, mask, out, nullptr, bh, heads, nq, nk, d, scale, s);
-  }
+  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) return hopper::launch<64>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
+  if (d == 72) return hopper::launch<72>(q, k, v, mask, out, lse, bh, heads, nq, nk, scale, s);
+  if (d == 512 && lse == nullptr) return d512::launch(q, k, v, mask, out, bh, heads, nq, nk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The f32 form at head dims 64 and 72 on its split planes (tf32_planes.cu):
-// planes holds the pointers Q hi, Q lo, K hi, K lo ((bh, n, d) f32) and V^T hi,
-// V^T lo ((bh, d, nk rounded up to a multiple of 8) f32); mask, out (f32), lse
-// and the rest as flash_attn_fwd. Returns a cudaError_t.
+// The f32 forms on split planes (tf32_planes.cu). At head dims 64 and 72
+// planes holds the pointers Q hi, Q lo, K hi, K lo ((bh, n, d) f32) and V^T
+// hi, V^T lo ((bh, d, nk rounded up to a multiple of 8) f32); at head dim 512
+// Q raw ((bh, nq, d) f32), K hi, K lo, V^T hi, V^T lo, and lse must be null.
+// mask, out (f32), lse and the rest as flash_attn_fwd. Returns a cudaError_t.
 extern "C" int flash_attn_fwd_f32(const void* const* planes, const void* mask, void* out, void* lse, int bh,
                                   int heads, int nq, int nk, int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return fwd_tf32::launch<64>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 72) return fwd_tf32::launch<72>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
+  if (d == 512 && lse == nullptr) return d512_tf32::launch(planes, mask, out, bh, heads, nq, nk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1038,9 +1130,10 @@ extern "C" int flash_attn_fwd_occupancy(int d, int* smem_bytes, int* blocks_per_
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same for the f32 form at head dim 64 or 72.
+// The same for the f32 form at head dim 64, 72 or 512.
 extern "C" int flash_attn_fwd_occupancy_f32(int d, int* smem_bytes, int* blocks_per_sm) {
   if (d == 64) return fwd_tf32::occupancy<64>(smem_bytes, blocks_per_sm);
   if (d == 72) return fwd_tf32::occupancy<72>(smem_bytes, blocks_per_sm);
+  if (d == 512) return d512_tf32::occupancy(smem_bytes, blocks_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

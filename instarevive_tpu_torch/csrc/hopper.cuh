@@ -248,6 +248,15 @@ template <> struct Wgmma32<32> {
                  : WGMMA_ACC16(0)
                  : "l"(a), "l"(b), "r"(accumulate));
   }
+  // D (64 x 32, f32) = [D +] A (64 x 8, registers) . B (32 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
 };
 
 template <> struct Wgmma32<64> {

@@ -22,15 +22,18 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
 * ``flash_lse_plain`` and ``flash_backward_plain`` repeat the kernels'
   arithmetic from the saved log-sum-exp in plain torch; the tests and the
   smoke run hold the kernels against them.
-* f32 at head dims 64 and 72: both kernels run every product on the tensor
-  cores as three tf32 products (hi.hi + hi.lo + lo.hi) of operands split
-  into hi = tf32(x) and lo = tf32(x - hi), which keeps about 21 bits of each
+* f32, every head dim: the kernels run every product on the tensor cores as
+  three tf32 products (hi.hi + hi.lo + lo.hi) of operands split into
+  hi = tf32(x) and lo = tf32(x - hi), which keeps about 21 bits of each
   product. ``tf32_planes`` (``csrc/tf32_planes.cu``, a prepass with its own
   launch count) writes those planes before each launch, also transposed for a
   B operand whose K runs along the sequence (a tf32 operand of wgmma is read
-  K-major only); ``tf32_planes_plain`` is its bit-exact plain version. The
-  kernels' sums are f32 and torch's own TF32 stays off, so the f32 bounds are
-  those of an f32 kernel.
+  K-major only); ``tf32_planes_plain`` is its bit-exact plain version. At
+  head dim 512 the forward reads Q raw and splits it in registers (its
+  planes would not fit beside the rest), so it takes two prepass launches (K
+  natural, V transposed) where head dims 64 and 72 take three. The kernels'
+  sums are f32 and torch's own TF32 stays off, so the f32 bounds are those of
+  an f32 kernel.
 * ``attention``: the dispatch. Every unbiased attention on a CUDA tensor goes
   to the kernels, at every size; biased attention and all CPU work go to
   ``sdpa``. (SwinIR's biased window attention does not come here: it has its
@@ -53,7 +56,7 @@ from instarevive_tpu_torch.ops.cuda_build import load_library
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 72, 512)  # the forward kernel's instantiations: UNet/ControlNet heads, DiT heads, the VAE mid-block
-GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations, and the f32 forms on split-tf32 planes
+GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations
 DEAD_ROW = -1e29        # a log-sum-exp below this flags a row whose keys were all masked
 # The transposed planes' order along the sequence within each group of 8: position j holds entry
 # PERM8[j], the order in which a thread's accumulator columns (2t, 2t+1) become tf32 A-fragment k (t, t+4).
@@ -125,14 +128,14 @@ def tf32_planes_plain(x: torch.Tensor, natural: bool = True, transposed: bool = 
 
 def tf32_planes(x: torch.Tensor, natural: bool = True, transposed: bool = False):
     """``tf32_planes_plain`` by the prepass kernel on a CUDA tensor (f32,
-    contiguous, head dim at most 128); the plain version on a CPU one."""
+    contiguous, head dim at most 512); the plain version on a CPU one."""
     if not x.is_cuda:
         return tf32_planes_plain(x, natural, transposed)
     if x.dtype != torch.float32 or x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"tf32_planes takes a contiguous, 16-byte aligned f32 tensor, got {x.dtype} {tuple(x.shape)}")
     *lead, n, d = x.shape
     bh = x.numel() // max(n * d, 1)
-    if not (1 <= d <= 128 and n >= 1 and 1 <= bh <= 65535):
+    if not (1 <= d <= 512 and n >= 1 and 1 <= bh <= 65535):
         raise ValueError(f"tf32_planes: unsupported shape {tuple(x.shape)}")
     hi = lo = t_hi = t_lo = None
     if natural:
@@ -160,8 +163,8 @@ def _pointers(planes) -> ctypes.Array:
 
 
 def _is_split(q: torch.Tensor) -> bool:
-    """Whether the f32 form on split-tf32 planes takes these operands."""
-    return q.dtype == torch.float32 and q.shape[-1] in GRAD_HEAD_DIMS
+    """Whether these operands go to an f32 form on split-tf32 planes (every f32 one does)."""
+    return q.dtype == torch.float32
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -197,8 +200,9 @@ def _forward(q, k, v, kv_mask, scale, want_lse: bool):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if want_lse else None
     mask_ptr, lse_ptr = None if kv_mask is None else kv_mask.data_ptr(), None if lse is None else lse.data_ptr()
-    if _is_split(q):
-        planes = [*tf32_planes(q)[:2], *tf32_planes(k)[:2], *tf32_planes(v, natural=False, transposed=True)[2:]]
+    if _is_split(q):  # at head dim 512 Q goes raw: the kernel splits it in registers
+        planes = [*([q] if d == 512 else tf32_planes(q)[:2]), *tf32_planes(k)[:2],
+                  *tf32_planes(v, natural=False, transposed=True)[2:]]
         fn = load_library("flash_attn_fwd").flash_attn_fwd_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -209,8 +213,7 @@ def _forward(q, k, v, kv_mask, scale, want_lse: bool):
         with torch.cuda.device(q.device):
             err = _bind("flash_attn_fwd", "flash_attn_fwd", 6)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), lse_ptr,
-                b * h, h, nq, nk, d, scale, int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream,
+                b * h, h, nq, nk, d, scale, 1, torch.cuda.current_stream().cuda_stream,  # bf16
             )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")

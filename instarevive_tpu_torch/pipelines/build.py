@@ -52,9 +52,10 @@ def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module
 
 
 def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
-                   device="cpu", dit_master_weights: bool = False, swinir_master_weights: bool = False,
+                   device="cuda", dit_master_weights: bool = False, swinir_master_weights: bool = False,
                    components: Optional[Sequence[str]] = None) -> RestorationPipeline:
-    """Build the models on ``device``; ``dtype`` (e.g. torch.bfloat16) is the
+    """Build the models on ``device`` (the card unless the caller asks for
+    the CPU); ``dtype`` (e.g. torch.bfloat16) is the
     compute dtype of every matmul and conv. Norm statistics, softmax and the
     SwinIR relative-position bias stay f32. Weights are left at torch's
     default init: give them with ``init_params`` or ``load_state_dicts``.

@@ -22,14 +22,15 @@ reused), the builds and the two cases in turns. Prints each build's
 registers and spills, one line per check and per timing, and the card line.
 
 With ``--dtype f32`` the inputs are f32 and the bounds chip_smoke.py's f32
-ones (1e-4 absolute, 1e-4 on the log-sum-exp). At head dims 64 and 72 a build
-with the split-tf32 entry ``flash_attn_fwd_f32`` is timed on planes the
-prepass (``ops/attention.tf32_planes``) made once beforehand, so its figure is
-the kernel's; the prepass is timed on its own beside it (``prepass``). A
-build without that entry (an older tree's) takes f32 through
+ones (1e-4 absolute and of the reference's largest magnitude, 1e-4 on the
+log-sum-exp). A build whose split-tf32 entry ``flash_attn_fwd_f32`` takes
+the head dim (its ``flash_attn_fwd_occupancy_f32`` answers for it) is timed
+on planes the prepass (``ops/attention.tf32_planes``) made once beforehand,
+so its figure is the kernel's: Q's, K's and V^T's planes at 64 and 72, Q raw
+with K's and V^T's planes at 512. The prepass is timed on its own beside it
+(``prepass``). Any other build (an older tree's) takes f32 through
 ``flash_attn_fwd``. The bound of an f32 row is the larger of its bytes over
-3.35 TB/s and three times its operations over 495 TFLOP/s (TF32), at head
-dim 512 its operations over 67 TFLOP/s (the f32 form there runs FMAs).
+3.35 TB/s and three times its operations over 495 TFLOP/s (TF32).
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ SHAPES = [
     ("vae_mid_tile576_decode", (1, 1, 5184, 5184, 512), None),
     ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0)),
 ]
-# --dtype f32: the f32 trainers' shapes (the DiT at a DMD step's batch 2, the UNet's) and the DMD step's
-# frozen-VAE encode at batch 2
+# --dtype f32: the f32 trainers' shapes (the DiT at a DMD step's batch 2, the UNet's), the DMD step's
+# frozen-VAE encode at batch 2 and a ragged masked head-dim-512 shape with a sample whose keys are all masked
 F32_SHAPES = [
     ("dit_self_b2", (2, 16, 1024, 1024, 72), None),
     ("dit_self", (4, 16, 1024, 1024, 72), None),
@@ -72,18 +73,17 @@ F32_SHAPES = [
     ("unet_ds2_self", (2, 10, 1024, 1024, 64), None),
     ("unet_mid_cross4", (2, 20, 64, 4, 64), None),
     ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None),
+    ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0)),
 ]
 HOST_SHAPES = [("unet_mid_cross4", (2, 20, 64, 4, 64)), ("d72_q64_k77", (2, 16, 64, 77, 72))]
-BOUNDS = {"bf16": (1e-2, 2e-2, 1e-3), "f32": (1e-4, 2e-2, 1e-4)}  # as chip_smoke.py: absolute, of max|ref|, of the lse
-PEAK_BYTES, PEAK_TF32, PEAK_F32 = 3.35e12, 495e12, 67e12
+BOUNDS = {"bf16": (1e-2, 2e-2, 1e-3), "f32": (1e-4, 1e-4, 1e-4)}  # as chip_smoke.py: absolute, of max|ref|, of the lse
+PEAK_BYTES, PEAK_TF32 = 3.35e12, 495e12
 
 
-def f32_bound_ms(nbytes, flops, d):
+def f32_bound_ms(nbytes, flops):
     """The least time of an f32 forward: bytes over the memory rate, or the
-    split-tf32 products (three a product) over the TF32 rate at head dims 64
-    and 72, the operations over the FMA rate at 512."""
-    ops = 3 * flops / PEAK_TF32 if d in (64, 72) else flops / PEAK_F32
-    return max(nbytes / PEAK_BYTES, ops) * 1e3
+    split-tf32 products (three a product) over the TF32 rate."""
+    return max(nbytes / PEAK_BYTES, 3 * flops / PEAK_TF32) * 1e3
 
 
 def build(sources):
@@ -139,11 +139,14 @@ def main(argv=None) -> None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         launchers[name] = fn
-        if f32 and hasattr(lib, "flash_attn_fwd_f32"):  # the split-tf32 form at head dims 64 and 72
+        if f32 and hasattr(lib, "flash_attn_fwd_f32"):  # the split-tf32 forms, at the head dims they take
             fn = lib.flash_attn_fwd_f32
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            split[name] = fn
+            occupancy = lib.flash_attn_fwd_occupancy_f32
+            occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            split[name] = (fn, {d for d in (64, 72, 512) if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) == 0})
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -158,16 +161,17 @@ def main(argv=None) -> None:
         lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS else None  # none at 512
         keys = b * nk if mask is None else int(mask.sum().item())
         planes = None
-        if f32 and d in A.GRAD_HEAD_DIMS:  # made once: the kernels' figures leave the prepass out
-            planes = [*A.tf32_planes(q)[:2], *A.tf32_planes(k)[:2], *A.tf32_planes(v, natural=False, transposed=True)[2:]]
+        if f32:  # made once: the kernels' figures leave the prepass out; at 512 Q goes raw
+            planes = [*([q] if d == 512 else A.tf32_planes(q)[:2]), *A.tf32_planes(k)[:2],
+                      *A.tf32_planes(v, natural=False, transposed=True)[2:]]
         cases.append((label, (b, h, nq, nk, d), q, k, v, mask, out, lse, 4.0 * h * nq * keys * d, planes))
 
     def launch(name, case):
         _, (b, h, nq, nk, d), q, k, v, mask, out, lse, _, planes = case
         mask_ptr, lse_ptr = None if mask is None else mask.data_ptr(), None if lse is None else lse.data_ptr()
-        if planes is not None and name in split:
-            err = split[name]((ctypes.c_void_p * 6)(*(p.data_ptr() for p in planes)), mask_ptr, out.data_ptr(),
-                              lse_ptr, b * h, h, nq, nk, d, d**-0.5, stream)
+        if planes is not None and name in split and d in split[name][1]:
+            err = split[name][0]((ctypes.c_void_p * len(planes))(*(p.data_ptr() for p in planes)), mask_ptr,
+                                 out.data_ptr(), lse_ptr, b * h, h, nq, nk, d, d**-0.5, stream)
         else:
             err = launchers[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), lse_ptr,
                                   b * h, h, nq, nk, d, d**-0.5, int(not f32), stream)
@@ -214,12 +218,11 @@ def main(argv=None) -> None:
             extra = ""
             if f32:
                 b, h, nq, nk, d = shape
-                if planes is not None:
-                    prepass = ms(lambda: (A.tf32_planes(q), A.tf32_planes(k), A.tf32_planes(v, False, True)))
-                    extra += f" prepass={prepass:.4f} ms"
+                split_inputs = [(k, True, False), (v, False, True)] + ([] if d == 512 else [(q, True, False)])
+                prepass = ms(lambda: [A.tf32_planes(*x) for x in split_inputs])
                 plain = ms(lambda: A.sdpa(q, k, v, kv_mask=mask))
                 nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-                extra += f" plain_sdpa={plain:.4f} ms bound={f32_bound_ms(nbytes, flops, d):.4f} ms"
+                extra += f" prepass={prepass:.4f} ms plain_sdpa={plain:.4f} ms bound={f32_bound_ms(nbytes, flops):.4f} ms"
             print(f"[time r{r}] {label:18s} {shape} " + " ".join(row) + f" torch_sdpa={lib:.4f} ms" + extra, flush=True)
     # host time of one launcher call, in turns: on the same tensors every call,
     # and on views at a new address every call (the launcher keeps 256 maps)

@@ -161,9 +161,8 @@ def kernel_table(fn, label: str, top: int = 28) -> None:
         print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:150]}", flush=True)
     groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_wg::kernel", "gnconv_f32::kernel"),
               "GroupNorm, upsample (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel", "upsample_kernel"),
-              "flash attention at head dims 64/72 and f32 (flash_attn_fwd.cu)": ("hopper::kernel", "fwd_tf32::kernel",
-                                                                                "fp32::kernel"),
-              "flash attention at head dim 512 (flash_attn_fwd.cu)": ("d512::kernel",),
+              "flash attention at head dims 64/72 (flash_attn_fwd.cu)": ("hopper::kernel", "fwd_tf32::kernel"),
+              "flash attention at head dim 512 (flash_attn_fwd.cu)": ("d512::kernel", "d512_tf32::kernel"),
               "window attention (swin_attention.cu)": ("swin_tc::kernel", "swin_f32::kernel"),
               "layout transposes": ("nchwToNhwc", "nhwcToNchw"),
               "library GroupNorm": ("GroupNorm", "group_norm", "RowwiseMoments"),

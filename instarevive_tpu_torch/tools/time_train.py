@@ -185,7 +185,9 @@ def time_steps(task, batches, phases=PHASES) -> Dict[str, object]:
 
 
 GROUPS = {  # first match wins, in this order
-    "K1 flash forward (flash_attn_fwd.cu)": ("hopper::kernel", "d512::kernel", "fp32::kernel", "fwd_tf32::kernel"),
+    # fp32: the FMA form's namespace at head dim 512 before d512_tf32, for a profile of an older tree
+    "K1 flash forward (flash_attn_fwd.cu)": ("hopper::kernel", "d512::kernel", "d512_tf32::kernel", "fwd_tf32::kernel",
+                                             "fp32::kernel"),
     # bwd32: the f32 form's namespace before the split-tf32 one, for a profile of an older tree
     "K2a flash dq (flash_attn_bwd.cu)": tuple(f"{ns}::kernel<{d}, {kv}" for ns in ("bwd16", "bwd32", "bwd_tf32")
                                              for d in (64, 72) for kv in ("false", "(bool)0")),

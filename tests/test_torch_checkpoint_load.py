@@ -108,7 +108,7 @@ def _jax_load(setup, monkeypatch, **paths):
 
 
 def _port_load(**paths):
-    pipe = init_params(build_pipeline(TINY), seed=0)
+    pipe = init_params(build_pipeline(TINY, device="cpu"), seed=0)
     own = pipe.dit.y_embedder.y_embedding.detach().clone()
     return load_state_dicts(pipe, **{model: load_checkpoint(path) for model, path in paths.items()}), own
 

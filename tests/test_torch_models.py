@@ -35,7 +35,7 @@ def pipes():
         "vae": jax.jit(jpipe.vae.init)(k2, jnp.zeros((1, 64, 64, 3)))["params"],
         "dit": jax.jit(jpipe.dit.init)(k3, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)), y)["params"],
     }
-    tpipe = load_state_dicts(build_pipeline(TINY), **state_dicts_from_jax(params, TINY))
+    tpipe = load_state_dicts(build_pipeline(TINY, device="cpu"), **state_dicts_from_jax(params, TINY))
     return jpipe, params, tpipe
 
 
@@ -234,7 +234,7 @@ def test_bf16_compute_keeps_f32_where_jax_does(pipes):
     mode; the port's bf16 DiT is then no farther from the f32 reference
     than the JAX package's own bf16 DiT is."""
     jpipe, params, _ = pipes
-    tpipe = load_state_dicts(build_pipeline(TINY, dtype=torch.bfloat16), **state_dicts_from_jax(params, TINY))
+    tpipe = load_state_dicts(build_pipeline(TINY, dtype=torch.bfloat16, device="cpu"), **state_dicts_from_jax(params, TINY))
     for name, p in tpipe.named_parameters():
         keep = name.endswith(("relative_position_bias_table", "scale_shift_table"))
         assert p.dtype == (torch.float32 if keep else torch.bfloat16), name

@@ -30,7 +30,7 @@ def pipes():
     """test_golden.py's JAX pipeline and params, and the port loaded with them."""
     jpipe = jax_build_pipeline(TINY)
     params = jax_init_params(jpipe, seed=0)
-    tpipe = load_state_dicts(build_pipeline(TINY), **state_dicts_from_jax(params, TINY))
+    tpipe = load_state_dicts(build_pipeline(TINY, device="cpu"), **state_dicts_from_jax(params, TINY))
     return jpipe, params, tpipe
 
 
@@ -77,7 +77,7 @@ def test_state_dict_files_load(pipes, tmp_path):
         extra = {"layers.0.residual_group.blocks.1.attn_mask": np.zeros(1), "pos_embed": np.zeros(1)}
         torch.save({"state_dict": {k: torch.from_numpy(np.array(v)) for k, v in {**sd, **extra}.items()}},
                    tmp_path / f"{name}.pth")
-    fresh = load_state_dicts(build_pipeline(TINY), **{n: load_checkpoint(str(tmp_path / f"{n}.pth")) for n in sds})
+    fresh = load_state_dicts(build_pipeline(TINY, device="cpu"), **{n: load_checkpoint(str(tmp_path / f"{n}.pth")) for n in sds})
     for (k, a), b in zip(tpipe.state_dict().items(), fresh.state_dict().values()):
         torch.testing.assert_close(a, b, atol=0, rtol=0, msg=k)
     with pytest.raises(KeyError, match="pos_embed.proj.weight"):

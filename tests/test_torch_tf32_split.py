@@ -1,12 +1,14 @@
-"""The split-tf32 form of the f32 flash attention (K1 and K2 at head dims 64
-and 72 on the card), on the CPU: ``tf32_planes_plain``, the bit-exact plain
-version of the prepass ``csrc/tf32_planes.cu``, and an emulation of the
-kernels' arithmetic in plain torch (every product as hi.hi + hi.lo + lo.hi of
-planes from ``tf32_planes_plain``, f32 matmuls) through the forward and its
-VJP, held to the port's unchanged f32 bounds against the JAX package's
-``flash_attention`` and ``jax.vjp`` run in interpret mode. The kernels
-themselves are held against the plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+"""The split-tf32 form of the f32 flash attention (K1 at head dims 64, 72 and
+512 and K2 at 64 and 72 on the card), on the CPU: ``tf32_planes_plain``, the
+bit-exact plain version of the prepass ``csrc/tf32_planes.cu``, and an
+emulation of the kernels' arithmetic in plain torch (every product as
+hi.hi + hi.lo + lo.hi of planes from ``tf32_planes_plain``, f32 matmuls)
+through the forward and its VJP, held to the port's unchanged f32 bounds
+against the JAX package's ``flash_attention`` and ``jax.vjp`` run in
+interpret mode (at head dim 512 the forward alone, as the head-dim-512
+kernel computes it, also held to 1e-4 of the reference's largest
+magnitude). The kernels themselves are held against the plain versions on
+the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from instarevive_tpu.ops.attention import sdpa as jax_sdpa
 from instarevive_tpu_torch.ops import attention as tattn
 
 OUT_BOUND = 1e-4   # chip_smoke.py BOUNDS["f32"]: the output, |out| <= 1
+OUT_REL = 1e-4     # REL_BOUNDS["f32"], of the reference output's largest magnitude
 LSE_BOUND = 1e-4   # LSE_BOUNDS["f32"]
 GRAD_REL = 2e-5    # BACKWARD_BOUNDS["f32"], of each gradient's largest magnitude
 
@@ -83,6 +86,27 @@ def test_a_cpu_tensor_takes_the_plain_prepass():
     for got, want in zip(tattn.tf32_planes(x, transposed=True), tattn.tf32_planes_plain(x, transposed=True)):
         assert torch.equal(got, want)
     assert tattn.tf32_planes.launches == before
+
+
+@pytest.mark.parametrize("n", [4096, 333, 5])
+def test_planes_at_head_dim_512_sum_back_and_invert(n):
+    """The prepass's planes at the VAE mid block's head dim: 13 zero bits,
+    hi + lo within 2^-22 of the operand, and the transposed planes undo to
+    the natural ones (zeros past n, PERM8 within each group of 8)."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((1, 1, n, 512)).astype(np.float32) * np.exp(rng.uniform(-20, 20, (1, 1, n, 512))).astype(np.float32)
+    x = torch.from_numpy(x)
+    hi, lo, t_hi, t_lo = tattn.tf32_planes_plain(x, natural=True, transposed=True)
+    for p in (hi, lo, t_hi, t_lo):
+        assert (p.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((hi.double() + lo.double()) - x.double()).abs().le(2.0**-22 * x.double().abs()).all()
+    n_pad = tattn.pad8(n)
+    assert t_hi.shape == (1, 1, 512, n_pad)
+    inverse = np.argsort(tattn.PERM8).tolist()
+    for nat, tr in ((hi, t_hi), (lo, t_lo)):
+        undone = tr.reshape(1, 1, 512, n_pad // 8, 8)[..., inverse].reshape(1, 1, 512, n_pad)
+        assert undone[..., n:].eq(0).all()
+        assert torch.equal(undone[..., :n].transpose(-1, -2), nat)
 
 
 # ---------------------------------------------------------------------------
@@ -187,3 +211,69 @@ def test_emulated_split_with_a_fully_masked_sample_matches_jax_sdpa_vjp(d):
         y = np.asarray(y)
         assert np.abs(x.numpy() - y).max() <= GRAD_REL * np.abs(y).max(), name
     assert got[0][0].abs().max() == 0 and got[1][0].abs().max() == 0
+
+
+# ---------------------------------------------------------------------------
+# Head dim 512: the forward alone (no backward there), as its kernel computes it.
+
+def _emulated_forward_d512(q, k, v, mask, scale):
+    """The head-dim-512 kernel's arithmetic: the split Q.K^T of each half of
+    the head dim on its own (one warpgroup each, Q split in registers as the
+    prepass splits K) and the halves added; an online softmax over 32-key
+    tiles, masked keys at -1e30 from a running max of -1e30; each tile's split
+    P.V folded into the running output with the rescale; normalised last."""
+    nk, half = k.shape[2], q.shape[-1] // 2
+    s = sum(_split_mm(q[..., i:i + half], k[..., i:i + half].transpose(-1, -2)) for i in (0, half)) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], tattn.NEG_INF)
+    m = torch.full(s.shape[:-1] + (1,), tattn.NEG_INF)
+    l, o = torch.zeros_like(m), torch.zeros(*s.shape[:-1], v.shape[-1])
+    for k0 in range(0, nk, 32):
+        st = s[..., k0:k0 + 32]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _split_mm(p, v[..., k0:k0 + 32, :])
+        m = m_new
+    return o / l
+
+
+def _within_f32_bounds(got, want):
+    err = np.abs(got - want).max()
+    return err <= min(OUT_BOUND, OUT_REL * np.abs(want).max()), err
+
+
+D512_CASES = {  # (B, H, Nq, Nk, keys kept per sample or None)
+    "ragged": (1, 1, 100, 77, None),
+    "ragged_masked_two_samples": (2, 1, 70, 200, [200, 45]),
+}
+
+
+@pytest.mark.parametrize("case", list(D512_CASES))
+def test_emulated_split_d512_forward_matches_jax_flash_interpret(case):
+    b, h, nq, nk, lens = D512_CASES[case]
+    d = 512
+    q, k, v, _ = _inputs(b, h, nq, nk, d, seed=512)
+    mask = None if lens is None else np.arange(nk)[None] < np.asarray(lens)[:, None]
+    scale = d**-0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   kv_mask=None if mask is None else jnp.asarray(mask), block_q=128, block_k=128)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = _emulated_forward_d512(*(torch.from_numpy(x) for x in (q, k, v)), tmask, scale)
+    ok, err = _within_f32_bounds(got.numpy(), np.asarray(want))
+    assert ok, err
+
+
+def test_emulated_split_d512_with_a_fully_masked_sample_matches_jax_sdpa():
+    """A sample with no real key at head dim 512: the port averages V over
+    its Nk keys, as the JAX package's sdpa (the TPU kernel averages over its
+    padded key length instead)."""
+    b, h, nq, nk, d = 2, 1, 40, 45, 512
+    q, k, v, _ = _inputs(b, h, nq, nk, d, seed=7)
+    mask = np.arange(nk)[None] < np.asarray([0, 33])[:, None]
+    want = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask), scale=d**-0.5)
+    got = _emulated_forward_d512(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask), d**-0.5)
+    ok, err = _within_f32_bounds(got.numpy(), np.asarray(want))
+    assert ok, err
+    assert torch.allclose(got[0], torch.from_numpy(v[0]).mean(-2, keepdim=True).expand(h, nq, d), atol=1e-6)
