@@ -14,12 +14,13 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    started together, and prints each build time with the registers and spills;
    for the forward (bf16 at head dims 64, 72 and 512; f32 at 64, 72 and 512
    on split-tf32 products), the backward (both passes at head dims 64 and 72,
-   bf16 and f32) and the bf16 fused convolution also their shared memory a
-   block, blocks an SM and their count of wgmma (HGMMA) and TMA-load
-   (UTMALDG) instructions, and fails if either count is 0 (for the
-   head-dim-512 kernel and the f32 forms too), if the forward library or the
-   backward's or the convolution's bf16 kernels hold an mma.sync (HMMA), or if
-   the head-dim-512 kernel, a backward kernel or an f32 form spills;
+   bf16 and f32) and the fused convolution (bf16, and f32 on split-tf32
+   products) also their shared memory a block, blocks an SM and their count
+   of wgmma (HGMMA) and TMA-load (UTMALDG) instructions (the f32 convolution's
+   FFMA too), and fails if either count is 0 (for the head-dim-512 kernel and
+   the f32 forms too), if the forward library or the backward's or the
+   convolution's kernels hold an mma.sync (HMMA), or if the head-dim-512
+   kernel, a backward kernel or an f32 form spills;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
@@ -29,16 +30,22 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    encode and a ragged masked shape, where ``sdpa`` with TF32 matmuls is shown
    outside the f32 bound), the split prepass of the f32 attention
    (``tf32_planes``, bit for bit against ``tf32_planes_plain``, head dims 64,
-   72 and 512), the fused GN+SiLU+conv3x3 (K3, ragged shapes, with
-   cuDNN's convolution alone on the activated input beside the kernel alone,
-   and a border case that tells a zero halo from a ``silu(b)`` halo), the
+   72 and 512), the fused GN+SiLU+conv3x3 (K3, bf16 at the restoration
+   path's shapes and f32, on split-tf32 products, at every shape an f32 run
+   here launches and the f32 DMD step's encode; ragged shapes, a bitwise
+   repeat, cuDNN's convolution alone on the activated input beside the
+   kernel alone, a border case in both types that tells a zero halo from a
+   ``silu(b)`` halo, and all five gradients against autograd through the
+   plain version), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
    nearest 2x upsample (K5c), the Swin window attention (K4, shifted and
    unshifted, bf16 and f32) and the per-sample reflect-padded 2-D filter (K6,
    f32, at the shapes of both degradation programs, ragged shapes, a shared
    kernel, and a border case that tells reflect from edge repeat);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
-   the CPU, and holds the two against each other;
+   the CPU, and holds the two against each other; the f32 runs here (this
+   one, the depth-cut f32 server of 7, the f32 train steps of 8 and 12) tally
+   K3's launches by shape and fail on an f32 shape 3 did not hold;
 5. builds the full-width ``configs/instarevive_v1.yaml`` pipeline in bf16
    with seeded random weights, runs ``process`` on a 4x512x512 batch and
    ``process_tiled`` on a 1024x1024 image, checks the outputs and that every
@@ -202,7 +209,8 @@ def bound(nbytes: float, flops: float, dt: str, split: bool = False):
 
 
 def split_form(dt: str) -> bool:
-    """Whether the attention kernels run split-tf32 products at this type (f32, every head dim)."""
+    """Whether the kernels run split-tf32 products at this type: the f32 forms
+    of the attention (every head dim) and of the fused conv."""
     return dt == "f32"
 
 
@@ -233,22 +241,26 @@ def max_err(out, ref) -> float:
 
 
 def conv_phase():
-    """K3 against the plain version at every shape of the main path and at
-    shapes ragged against its 16 x 16 pixel tile; the yardstick is
-    group_norm -> silu -> conv2d in channels-last. ``ms`` is the wrapper's
-    time, the moments and fold launches inside it included; ``conv_only_ms``
-    is the convolution kernel alone on a fold made before, and
-    ``conv_library_ms`` cuDNN's ``F.conv2d`` alone on the activated input
-    (channels-last, x's dtype), the one library call for what the kernel body
-    computes. ``tile_n`` is the channel tile the launcher took. Returns
-    per-shape records."""
+    """K3 against the plain version at every shape of the main path (bf16)
+    and of this run's f32 paths (f32, the split-tf32 form) and at shapes
+    ragged against its pixel tiles, twice (the bits must repeat); the
+    yardstick is group_norm -> silu -> conv2d in channels-last (TF32 off).
+    ``ms`` is the wrapper's time, the moments and fold launches inside it
+    included (in f32 on the weight's planes made before, as a module caches
+    them; ``prepass_ms`` is their prepass); ``conv_only_ms`` is the
+    convolution kernel alone on a fold made before, and ``conv_library_ms``
+    cuDNN's ``F.conv2d`` alone on the activated input (channels-last, x's
+    dtype), the one library call for what the kernel body computes. f32
+    bounds count three tf32 products a product at the TF32 rate
+    (``bound_fma_ms``: at the f32 FMA rate). ``tile_n`` is the channel tile
+    the launcher took. Returns per-shape records."""
     import ctypes
 
     import torch
     import torch.nn.functional as F
 
     from instarevive_tpu_torch.ops import cuda_build, gn_conv
-    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain, weight_planes
     from instarevive_tpu_torch.ops.norm_kernels import affine_silu_plain, gn_affine
 
     tile_n = cuda_build.load_library("gn_conv").gn_silu_conv3x3_tile_n
@@ -268,9 +280,21 @@ def conv_phase():
     ragged = [(3, 31, 47, 128, 128), (2, 9, 21, 128, 256), (1, 17, 33, 32, 64), (1, 40, 24, 96, 96),
               (1, 3, 40, 96, 96), (1, 2, 3, 32, 32)]
     cases += [("ragged_" + "_".join(map(str, shape)), shape, ("bf16",)) for shape in ragged]
+    # f32: the f32 DMD step's VAE encode at batch 2, 512² (the cldm step runs two); the shapes the f32 form was held
+    # at before; this run's f32 paths: the small pipeline's encode and decode at 2 x 128² (the cldm step's encode
+    # among them) and the depth-cut f32 server's at 1 x 512 x 640; ragged shapes
+    dmd_encode = [(512, 128, 128), (256, 128, 256), (256, 256, 256), (128, 256, 512), (128, 512, 512), (64, 512, 512)]
+    cases += [(f"dmd_encode_{hw}_{c}_{co}", (2, hw, hw, c, co), ("f32",)) for hw, c, co in dmd_encode]
     cases += [("b4_64_512_512", (4, 64, 64, 512, 512), ("f32",)),
               ("tile576_72_512_512", (1, 72, 72, 512, 512), ("f32",)),
               ("small_128_128_128", (2, 128, 128, 128, 128), ("f32",))]
+    small = [(16, 512, 512), (32, 256, 512), (32, 512, 512), (64, 128, 256), (64, 256, 256), (64, 512, 256),
+             (128, 256, 128)]
+    cases += [(f"small_{hw}_{c}_{co}", (2, hw, hw, c, co), ("f32",)) for hw, c, co in small]
+    served = [(64, 512, 512), (128, 256, 512), (128, 512, 512), (256, 128, 256), (256, 256, 256), (256, 512, 256),
+              (512, 128, 128), (512, 256, 128)]
+    cases += [(f"serve_{hw}_{c}_{co}", (1, hw, hw * 5 // 4, c, co), ("f32",)) for hw, c, co in served]
+    cases += [("ragged_" + "_".join(map(str, shape)), shape, ("f32",)) for shape in ragged]
     records = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, (n, h, w, c, co), dts in cases:
@@ -284,17 +308,21 @@ def conv_phase():
                 return F.conv2d(F.silu(F.group_norm(x_cl, 32, gl, bl, 1e-6)), w_oihw, biasl, padding=1)
 
             with torch.no_grad():
-                out = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+                # f32: the weight's split planes made once, as a module caches them; the prepass is timed apart
+                planes = weight_planes(wk) if dt == "f32" else None
+                out = gn_silu_conv3x3(x, gamma, beta, wk, bias, planes=planes)
                 torch.cuda.synchronize()
                 ref = gn_silu_conv3x3_plain(x, gamma, beta, wk, bias)
                 err = max_err(out, ref)
                 if not torch.isfinite(out).all():
                     fail(f"gn_conv {name} {dt}: kernel output is not finite")
+                if not torch.equal(out, gn_silu_conv3x3(x, gamma, beta, wk, bias, planes=planes)):
+                    fail(f"gn_conv {name} {dt}: two calls on the same inputs differ")
                 del ref
                 iters = 5 if n * h * w >= 2**20 else 10
-                ms = cuda_ms(lambda: gn_silu_conv3x3(x, gamma, beta, wk, bias), iters=iters)
+                ms = cuda_ms(lambda: gn_silu_conv3x3(x, gamma, beta, wk, bias, planes=planes), iters=iters)
                 a, b = gn_affine(x, gamma, beta)
-                conv_ms = cuda_ms(lambda: gn_conv._launch(x, a, b, wk, bias), iters=iters)
+                conv_ms = cuda_ms(lambda: gn_conv._launch(x, a, b, wk, bias, planes), iters=iters)
                 plain_ms = cuda_ms(lambda: gn_silu_conv3x3_plain(x, gamma, beta, wk, bias), iters=3, warmup=1)
                 lib_ms = cuda_ms(library, iters=iters)
                 act = affine_silu_plain(x, a, b, silu=True).permute(0, 3, 1, 2)
@@ -302,36 +330,86 @@ def conv_phase():
                 del act
             flops = 2.0 * n * h * w * 9 * c * co
             nbytes = x.element_size() * (x.numel() + wk.numel() + out.numel())
-            b_ms, b_by = bound(nbytes, flops, dt)
+            b_ms, b_by = bound(nbytes, flops, dt, split=split_form(dt))
             rec = dict(name=name, dtype=dt, shape=[n, h, w, c, co], max_abs_err=err, bound=CONV_BOUNDS[dt], ms=ms,
                        includes="gn_stats_fold", conv_only_ms=conv_ms, conv_library_ms=conv_lib_ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9,
-                       conv_only_tflops=flops / conv_ms / 1e9)
-            if dt == "bf16":
-                rec["tile_n"] = tile_n(co)
+                       conv_only_tflops=flops / conv_ms / 1e9, tile_n=tile_n(co), repeats_bits=True)
+            if dt == "f32":  # the split prepass of a bare weight, and the bound at the f32 FMA rate beside
+                rec["prepass_ms"] = cuda_ms(lambda: weight_planes(wk), iters=iters)
+                rec["bound_fma_ms"] = bound(nbytes, flops, dt)[0]
             print(f"[gn_conv] {name:27s} {dt:4s} N,H,W,C,Co={n},{h},{w},{c},{co} max_abs_err={err:.3e} "
                   f"(bound {CONV_BOUNDS[dt]:.0e}) ms={ms:.4f} ({rec['tflops']:.1f} TFLOP/s; conv alone {conv_ms:.4f}, "
                   f"{rec['conv_only_tflops']:.1f} TFLOP/s; cuDNN conv alone {conv_lib_ms:.4f}) plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) tile_n={rec.get('tile_n', '-')}", flush=True)
+                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) tile_n={rec['tile_n']}"
+                  + (f" prepass_ms={rec['prepass_ms']:.4f} bound_fma_ms={rec['bound_fma_ms']:.4f}" if dt == "f32" else ""),
+                  flush=True)
             if not err <= CONV_BOUNDS[dt]:
                 fail(f"gn_conv {name} {dt}: kernel differs from the plain version by {err} > {CONV_BOUNDS[dt]}")
             records.append(rec)
-            del x, x_cl, wk, w_oihw, out
+            del x, x_cl, wk, w_oihw, out, planes
 
     # A constant image with beta != 0 normalises to beta everywhere. With equal
     # weights an interior pixel sums 9 taps of silu(beta), an edge 6, a corner
     # 4; a halo of silu(b) instead of zero would give 9 everywhere.
     c = 64
-    x = torch.full((1, 8, 20, c), 0.5, device="cuda", dtype=torch.bfloat16)
-    beta = torch.full((c,), 1.5, device="cuda")
-    wk = torch.full((3, 3, c, 32), 1.0 / c, device="cuda", dtype=torch.bfloat16)
-    out = gn_silu_conv3x3(x, torch.ones(c, device="cuda"), beta, wk, torch.zeros(32, device="cuda")).float()
-    s = F.silu(beta[0]).to(torch.bfloat16).float().item()
-    for (yy, xx), taps in (((3, 9), 9), ((0, 0), 4), ((7, 19), 4), ((0, 5), 6), ((4, 19), 6), ((4, 0), 6)):
-        got = out[0, yy, xx, 0].item()
-        if abs(got - taps * s) > 2e-2 * taps * s:
-            fail(f"gn_conv border: pixel ({yy}, {xx}) is {got}, expected {taps} taps of {s}: the halo is not zero")
-    print(f"[gn_conv] border case: corner 4, edge 6, interior 9 taps of silu(beta)={s:.4f}: the halo is zero", flush=True)
+    for dt in ("bf16", "f32"):
+        dtype = getattr(torch, DTYPES[dt])
+        x = torch.full((1, 8, 20, c), 0.5, device="cuda", dtype=dtype)
+        beta = torch.full((c,), 1.5, device="cuda")
+        wk = torch.full((3, 3, c, 32), 1.0 / c, device="cuda", dtype=dtype)
+        out = gn_silu_conv3x3(x, torch.ones(c, device="cuda"), beta, wk, torch.zeros(32, device="cuda")).float()
+        s = F.silu(beta[0]).to(dtype).float().item()
+        for (yy, xx), taps in (((3, 9), 9), ((0, 0), 4), ((7, 19), 4), ((0, 5), 6), ((4, 19), 6), ((4, 0), 6)):
+            got = out[0, yy, xx, 0].item()
+            if abs(got - taps * s) > 2e-2 * taps * s:
+                fail(f"gn_conv border {dt}: pixel ({yy}, {xx}) is {got}, expected {taps} taps of {s}: the halo is "
+                     "not zero")
+        print(f"[gn_conv] border case {dt}: corner 4, edge 6, interior 9 taps of silu(beta)={s:.4f}: "
+              "the halo is zero", flush=True)
+    return records
+
+
+# K3's gradient on the card (the kernels forward, autograd through the plain
+# version backward) against autograd through the plain version alone, per
+# input, relative to the reference gradient's largest magnitude: the two run
+# the same backward on the same inputs and cotangent, but cuDNN's backward
+# convolutions may sum in other orders between calls. f32 1e-4; bf16 1e-2 (x's
+# gradient is rounded to bf16: one step of its largest value is 3.9e-3).
+CONV_GRAD_BOUNDS = {"bf16": 1e-2, "f32": 1e-4}
+
+
+def conv_grad_phase():
+    """All five gradients of K3 (x, gamma, beta, w, bias) through
+    ``gn_silu_conv3x3`` on the card against autograd through
+    ``gn_silu_conv3x3_plain``, bf16 and f32. Returns per-dtype records."""
+    import torch
+
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, h, w, c, co = 2, 40, 24, 128, 256
+    for dt in ("f32", "bf16"):
+        inputs = vae_inputs(gen, dt, n, h, w, c, co)
+        cot = torch.randn(n, h, w, co, device="cuda", generator=gen).to(inputs[0].dtype)
+        grads = {}
+        for label, fn in (("kernel", gn_silu_conv3x3), ("plain", gn_silu_conv3x3_plain)):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            launches = gn_silu_conv3x3.launches
+            out = fn(*leaves)
+            if label == "kernel" and gn_silu_conv3x3.launches != launches + 1:
+                fail(f"gn_conv grad {dt}: the forward did not launch the kernel")
+            (out.float() * cot.float()).sum().backward()
+            grads[label] = [t.grad.float() for t in leaves]
+        errs = {name: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for name, a, b in zip(("x", "gamma", "beta", "w", "bias"), grads["kernel"], grads["plain"])}
+        print(f"[gn_conv] gradient {dt} N,H,W,C,Co={n},{h},{w},{c},{co}: kernel forward + plain backward against "
+              f"autograd through the plain version, relative errors {({k: f'{v:.2e}' for k, v in errs.items()})} "
+              f"(bound {CONV_GRAD_BOUNDS[dt]:.0e})", flush=True)
+        if not max(errs.values()) <= CONV_GRAD_BOUNDS[dt]:
+            fail(f"gn_conv gradient {dt}: {errs} over {CONV_GRAD_BOUNDS[dt]}")
+        records.append(dict(dtype=dt, shape=[n, h, w, c, co], max_rel_err=errs, bound=CONV_GRAD_BOUNDS[dt]))
     return records
 
 
@@ -462,9 +540,10 @@ def ptxas_figures(log: str, pattern: str, key) -> dict:
     return report
 
 
-def sass_counts(library: str, in_name: str = "") -> dict:
-    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
-    the SASS of the built library's functions whose name holds ``in_name``."""
+def sass_counts(library: str, in_name: str = "", ops=("HGMMA", "UTMALDG", "HMMA")) -> dict:
+    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions, or
+    those of ``ops``, in the SASS of the built library's functions whose name
+    holds ``in_name``."""
     import shutil
 
     from instarevive_tpu_torch.ops import cuda_build
@@ -473,7 +552,7 @@ def sass_counts(library: str, in_name: str = "") -> dict:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
     text = "".join(part for part in sass.split("Function : ")[1:] if in_name in part.split("\n", 1)[0])
-    return {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return {op: text.count(op) for op in ops}
 
 
 def occupancy_figures(library: str, entry: str, args, key) -> dict:
@@ -529,30 +608,28 @@ def hopper_build_report(log: str):
 
 
 def gn_conv_build_report(log: str):
-    """The bf16 fused convolution as built: registers and spill stores of each
-    channel tile (ptxas, when this run compiled it), the shared memory a block
-    takes at C = 512 and the blocks an SM holds (the library's own figures),
-    and the counts of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
-    instructions in its bf16 kernels' SASS. Fails if either of the first two
-    is 0 or if an HMMA is left."""
-    import ctypes
-
-    from instarevive_tpu_torch.ops import cuda_build
-
+    """The fused convolution as built, the bf16 form and the split-tf32 f32
+    form (``f32_``): registers and spill stores of each channel tile (ptxas,
+    when this run compiled it), the shared memory a block takes at C = 512
+    and the blocks an SM holds (the library's own figures), and the counts of
+    HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in
+    each form's SASS, and the f32 form's FFMA. Fails if either of the first
+    two is 0 in a form, if an HMMA is left or if an f32 kernel spills."""
     report = ptxas_figures(log, r"gnconv_wg6kernelILi(\d+)E", lambda m: f"n{m.group(1)}")
-    occupancy = cuda_build.load_library("gn_conv").gn_silu_conv3x3_occupancy
-    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    occupancy.restype = ctypes.c_int
-    for bn in (64, 128):
-        smem, blocks = ctypes.c_int(), ctypes.c_int()
-        if occupancy(bn, 512, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
-            fail(f"gn_silu_conv3x3_occupancy({bn}, 512) failed")
-        report[f"n{bn}_smem_bytes_c512"], report[f"n{bn}_blocks_per_sm"] = smem.value, blocks.value
+    report.update(ptxas_figures(log, r"gnconv_tf326kernelILi(\d+)E", lambda m: f"f32_n{m.group(1)}"))
+    cases = [(bn, 512) for bn in (64, 128)]
+    report.update(occupancy_figures("gn_conv", "gn_silu_conv3x3_occupancy", cases, lambda a: f"n{a[0]}"))
+    report.update(occupancy_figures("gn_conv", "gn_silu_conv3x3_occupancy_f32", cases, lambda a: f"f32_n{a[0]}"))
     report.update(sass_counts("gn_conv", "gnconv_wg"))
-    print(f"[build] gn_conv.cu, the bf16 form: {report}", flush=True)
-    if not (report["HGMMA"] and report["UTMALDG"]) or report["HMMA"]:
-        fail(f"the fused convolution's bf16 kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG "
-             f"and {report['HMMA']} HMMA instructions")
+    report.update({f"f32_{k}": v for k, v in sass_counts("gn_conv", "gnconv_tf32", ("HGMMA", "UTMALDG", "HMMA",
+                                                                                      "FFMA")).items()})
+    print(f"[build] gn_conv.cu, the bf16 and split-tf32 forms: {report}", flush=True)
+    spills = {k: v for k, v in report.items() if k.startswith("f32_") and k.endswith("_spill_stores") and v}
+    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG")) or report["HMMA"] \
+            or report["f32_HMMA"] or spills:
+        fail(f"the fused convolution's kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
+             f"{report['HMMA']} HMMA instructions (f32: {report['f32_HGMMA']}, {report['f32_UTMALDG']}, "
+             f"{report['f32_HMMA']}); spills {spills}")
     return report
 
 
@@ -791,7 +868,7 @@ def planes_phase():
     plain version, no library call computing it. Returns per-shape records."""
     import torch
 
-    from instarevive_tpu_torch.ops.attention import pad8, tf32_planes, tf32_planes_plain
+    from instarevive_tpu_torch.ops.tf32_planes import pad8, tf32_planes, tf32_planes_plain
 
     records = []
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -934,28 +1011,50 @@ TRAIN_ONLY_KERNELS = BACKWARD_KERNELS + ("filter2d",)
 
 
 def reset_counts() -> None:
-    from instarevive_tpu_torch.ops.attention import tf32_planes
+    """Every kernel count to 0, the split prepass's too (it counts apart: f32
+    runs alone launch it), and its tally by shape to an empty dict."""
+    from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
 
-    for fn in (*counters().values(), tf32_planes):  # the prepass counts apart: f32 runs alone launch it
+    for fn in (*counters().values(), tf32_planes):
         fn.launches = 0
+    tf32_planes.shapes = {}
 
 
-def f32_launches(fwd_split: int, fwd_d512: int, what: str) -> dict:
+def conv_weight_planes() -> int:
+    """The split prepass's launches since the last reset that packed a conv
+    weight: its tally's (Co, 9, C) natural-only shapes (``weight_planes``;
+    the attention's operands have sequences longer than 9)."""
+    from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
+
+    if sum(tf32_planes.shapes.values()) != tf32_planes.launches:
+        fail(f"tf32_planes: {tf32_planes.shapes} tallied by shape, {tf32_planes.launches} counted")
+    return sum(k for (_, n, _, natural, transposed), k in tf32_planes.shapes.items()
+               if n == 9 and natural and not transposed)
+
+
+def f32_launches(fwd_split: int, fwd_d512: int, what: str, convs: int = 0, conv_modules: int = 0) -> dict:
     """The launches of an f32 run on the card since the last reset: the f32
     attention forms (the forward at head dims 64/72, fwd_split of them, and
-    at 512, fwd_d512; both backward passes) and the split prepass, three a
-    forward at 64/72 (q, k, v), two at 512 (k, v: q goes raw) and four a
-    backward (q, k, v, dO). Fails if the prepass ran another number of times
-    or the run launched no split-tf32 kernel at 64/72."""
-    from instarevive_tpu_torch.ops.attention import tf32_planes
+    at 512, fwd_d512; both backward passes), K3's f32 form (``convs`` of
+    them) and the split prepass, three a forward at 64/72 (q, k, v), two at
+    512 (k, v: q goes raw), four a backward (q, k, v, dO) and one for each
+    of the ``conv_modules`` K3 convs the run called first (their weight
+    planes are packed once per module). Fails if the prepass ran another
+    number of times for either, K3 another number than ``convs``, or the run
+    launched no split-tf32 kernel at 64/72."""
+    from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
 
     got = read_counts()
+    weights = conv_weight_planes()
     out = {"flash_attn_fwd_f32": fwd_split, "flash_attn_fwd_f32_d512": fwd_d512,
            "flash_attn_bwd_dq_f32": got["flash_attn_bwd_dq"], "flash_attn_bwd_dkv_f32": got["flash_attn_bwd_dkv"],
-           "tf32_planes": tf32_planes.launches}
+           "gn_silu_conv3x3_f32": got["gn_silu_conv3x3"], "tf32_planes": tf32_planes.launches,
+           "tf32_planes_conv_weights": weights}
+    attention_planes = 3 * fwd_split + 2 * fwd_d512 + 4 * got["flash_attn_bwd_dq"]
     if fwd_split + fwd_d512 != got["flash_attn_fwd"] or got["flash_attn_bwd_dq"] != got["flash_attn_bwd_dkv"] \
-            or out["tf32_planes"] != 3 * fwd_split + 2 * fwd_d512 + 4 * got["flash_attn_bwd_dq"] or not fwd_split:
-        fail(f"{what}: f32 launches {out} against the counts {got}")
+            or out["tf32_planes"] - weights != attention_planes or weights != conv_modules or not fwd_split \
+            or got["gn_silu_conv3x3"] != convs:
+        fail(f"{what}: f32 launches {out} against the counts {got}, {conv_modules} conv weights to pack")
     return out
 
 
@@ -991,8 +1090,9 @@ def check_counts(what: str, pipe, dit_forwards: int, encodes: int, decodes: int,
     return got
 
 
-def small_pipeline_phase(cfg_full):
-    """Full widths, cut depth: f32 on the card against f32 on the CPU."""
+def small_pipeline_phase(cfg_full, conv_records):
+    """Full widths, cut depth: f32 on the card against f32 on the CPU; the f32
+    run's fused convolutions (K3's f32 form) tallied by shape."""
     import torch
 
     from instarevive_tpu_torch.config import merge
@@ -1007,8 +1107,12 @@ def small_pipeline_phase(cfg_full):
         gpu.load_state_dict(sd)
         lq = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(3))
         y = cpu.dit.y_embedder.y_embedding[:300][None].repeat(2, 1, 1)
-        reset_counts()
-        outs[label] = gpu.process(lq.cuda(), y.cuda()).cpu()
+        if label == "f32":
+            outs[label] = tally_shapes(lambda: gpu.process(lq.cuda(), y.cuda()), "small pipeline f32", conv_records,
+                                       None, "launches_small_pipeline", conv_dtype="f32").cpu()
+        else:
+            reset_counts()
+            outs[label] = gpu.process(lq.cuda(), y.cuda()).cpu()
         check_counts(f"small pipeline {label}", gpu, 1, 1, 1)
     ref = cpu.process(lq, y)
     err32 = (outs["f32"] - ref).abs().max().item()
@@ -1032,13 +1136,14 @@ def check_image(out, shape, what):
         fail(f"{what}: output outside [0, 1]")
 
 
-def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=None):
-    """Run ``call`` with every kernel count at 0 and the window attention,
-    (unless ``conv_records`` is None) the fused convolution and (with
+def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=None, conv_dtype="bf16"):
+    """Run ``call`` with every kernel count at 0 and (unless their records
+    are None) the window attention, the fused convolution and (with
     ``attn_records``) the flash-attention forward at head dim 512 tallying
     their launches by shape. Every shape the call gave a tallied kernel must
-    be one its phase held against the plain version; with ``key``, the
-    measured count goes into that record under it. Returns the call's output."""
+    be one its phase held against the plain version, the convolution's in
+    ``conv_dtype`` (an f32 run's in f32); with ``key``, the measured count
+    goes into that record under it. Returns the call's output."""
     import torch
 
     from instarevive_tpu_torch.ops.attention import flash_attention
@@ -1046,11 +1151,13 @@ def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=
     from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
 
     # (wrapper, legend, held shape -> record, which tallied shapes must be held: None for all)
-    tallied = [(swin_window_attention, "(B, H, W, 3C, shift, masked)",
-                {(*r["shape"], r["shift"], r["masked"]): r for r in swin_records if r["dtype"] == "bf16"}, None)]
+    tallied = []
+    if swin_records is not None:
+        tallied.append((swin_window_attention, "(B, H, W, 3C, shift, masked)",
+                        {(*r["shape"], r["shift"], r["masked"]): r for r in swin_records if r["dtype"] == "bf16"}, None))
     if conv_records is not None:
-        tallied.append((gn_silu_conv3x3, "(N, H, W, C, Co)",
-                        {tuple(r["shape"]): r for r in conv_records if r["dtype"] == "bf16"}, None))
+        tallied.append((gn_silu_conv3x3, "(N, H, W, C, Co, dtype)",
+                        {(*r["shape"], r["dtype"]): r for r in conv_records if r["dtype"] == conv_dtype}, None))
     if attn_records is not None:  # the other head dims' shapes are counted but not held here
         tallied.append((flash_attention, "(B, H, Nq, Nk, D, masked, with log-sum-exp) at D = 512",
                         {(*r["shape"], r["masked"], False): r for r in attn_records
@@ -1154,14 +1261,15 @@ def cli_phase():
         print(f"[cli] wrote {made} in {time.time() - t:.1f}s, sizes (w, h) {got}", flush=True)
 
 
-def serve_phase(cfg_full, swin_records, process_launches):
+def serve_phase(cfg_full, swin_records, process_launches, conv_records):
     """The port's server in this process, through the pieces its ``main`` puts
     together. Full width in bf16: concurrent requests in two shape buckets,
     every answer checked, ``/healthz`` held to the requests sent. Then a
     depth-cut f32 server, one answer held against ``process`` called directly
     on the same prepared image. Between them, the demo's restorer
     (``interface.build_restorer``) on one image. ``process_launches`` is what
-    one ``process`` call of the full model launches."""
+    one ``process`` call of the full model launches; the f32 server's fused
+    convolutions are tallied by shape against ``conv_records``."""
     import base64
     import io
     import threading
@@ -1256,8 +1364,8 @@ def serve_phase(cfg_full, swin_records, process_launches):
     y = pipe.dit.y_embedder.y_embedding[: pipe.dit.model_max_length][None].float()
     batcher, server, thread, url = serving(serve.make_restorer(pipe, y))
     try:
-        reset_counts()
-        got = post(url, pngs[-1])
+        got = tally_shapes(lambda: post(url, pngs[-1]), "serve, depth-cut f32", conv_records, None, "launches_serve",
+                           conv_dtype="f32")
         small_counts = check_counts("serve, depth-cut f32", pipe, 1, 1, 1)
         stats = health(url)
     finally:
@@ -1272,7 +1380,7 @@ def serve_phase(cfg_full, swin_records, process_launches):
     return len(pngs) / seconds, served / batches
 
 
-def train_phase(cfg_full):
+def train_phase(cfg_full, conv_records):
     """The trainer through its entry point (``train.launcher.main``, what
     ``python -m instarevive_tpu_torch.train`` runs) at full XL-2 width in bf16
     from f32 masters, batch 2 at 512x512, every block checkpointed: 3 steps,
@@ -1402,11 +1510,11 @@ def train_phase(cfg_full):
         del low, state
         free()
 
-        err = train_step_card_against_cpu(cfg_full, data, null)
+        err = train_step_card_against_cpu(cfg_full, data, null, conv_records)
     return counts, per_step, dict(timing, three_steps_s=seconds, peak_allocated_first_run_gib=peak, card_vs_cpu=err)
 
 
-def train_step_card_against_cpu(cfg_full, data, null):
+def train_step_card_against_cpu(cfg_full, data, null, conv_records):
     """One ``make_dmd_train_step`` at DiT depth 2, full width, f32, on the card
     and on the CPU: the same weights, batch and draws (made on the CPU and
     handed in). Losses and the gradients of both models are held to
@@ -1434,8 +1542,13 @@ def train_step_card_against_cpu(cfg_full, data, null):
     for label, task in (("cpu", cpu), ("cuda", gpu)):
         kept = {}
         to = lambda d: {k: v.to(task.device) for k, v in d.items()}  # noqa: E731
-        reset_counts()
-        metrics = task._step(*task.states, to(batch), None, {"y": y.to(task.device)}, draws=to(draws), keep_grads=kept)
+        step = lambda: task._step(*task.states, to(batch), None, {"y": y.to(task.device)}, draws=to(draws),  # noqa: E731
+                                  keep_grads=kept)
+        if label == "cuda":  # the f32 form's shapes, had the step any (it is handed latents: none)
+            metrics = tally_shapes(step, "train step f32", conv_records, None, conv_dtype="f32")
+        else:
+            reset_counts()
+            metrics = step()
         out[label] = ({k: float(v) for k, v in metrics.items()}, {k: [g.cpu() for g in v] for k, v in kept.items()})
     got = {k: v for k, v in read_counts().items() if k in T.expected_launches(2)}
     if got != T.expected_launches(2, encodes=0):
@@ -1797,7 +1910,7 @@ CLDM_SMALL_NET = dict(model_channels=64, num_res_blocks=1, attention_ds=[1, 2], 
                       num_head_channels=64, context_dim=64)
 
 
-def cldm_phase(held64):
+def cldm_phase(held64, conv_records):
     """The trainer with ``--task cldm`` through its entry point at the full
     ``configs/cldm.yaml`` width (SD-2.1 UNet and ControlNet, the frozen SwinIR
     and VAE) in bf16 from f32 masters, batch 2 at 512x512: 3 steps, then 1
@@ -1957,12 +2070,12 @@ def cldm_phase(held64):
         del refl
         free()
 
-        err = cldm_step_card_against_cpu(cfg, merge)
+        err = cldm_step_card_against_cpu(cfg, merge, conv_records)
     return counts, per_step, dict(timing, three_steps_s=seconds, peak_allocated_first_run_gib=peak, card_vs_cpu=err,
                                   attention_by_head_dim_3_steps=by_dim), by_dim
 
 
-def cldm_step_card_against_cpu(cfg_full, merge):
+def cldm_step_card_against_cpu(cfg_full, merge, conv_records):
     """One f32 ``CLDMTask.train_step`` with the UNet and the ControlNet cut
     to CLDM_SMALL_NET (head dim 64) and every layer random (no zero init, so
     every gradient is exercised), the VAE and SwinIR at full width, on the
@@ -1986,16 +2099,33 @@ def cldm_step_card_against_cpu(cfg_full, merge):
     res = {}
     for label, task in (("cpu", cpu), ("cuda", gpu)):
         kept = []
-        reset_counts()
-        metrics = task.train_step({k: v.to(task.device) for k, v in pair.items()}, keep_grads=kept,
-                                  draws={k: v.to(task.device) for k, v in draws.items()})
+        step = lambda: task.train_step({k: v.to(task.device) for k, v in pair.items()}, keep_grads=kept,  # noqa: E731
+                                       draws={k: v.to(task.device) for k, v in draws.items()})
+        if label == "cuda":  # get_input's VAE encodes: K3's f32 form, every shape held in the kernel phase
+            metrics = tally_shapes(step, "cldm step f32", conv_records, None, "launches_cldm_step", conv_dtype="f32")
+        else:
+            reset_counts()
+            metrics = step()
         res[label] = (float(metrics["loss"]), [g.cpu() for g in kept])
     counts = read_counts()
     want = T.cldm_attention_counts(cfg)
     if (counts["flash_attn_fwd"], counts["flash_attn_bwd_dq"], counts["flash_attn_bwd_dkv"]) != \
             (want["flash_attn_fwd"], want["flash_attn_bwd_dq"], want["flash_attn_bwd_dkv"]):
         fail(f"cldm step, card against CPU: attention launches {counts}, expected {want}")
-    launches = f32_launches(want["d64"], want["d512"], "cldm step, card against CPU")
+    levels, blocks = len(cfg["vae"]["ch_mult"]), cfg["vae"]["num_res_blocks"]
+    modules = 2 * (levels * blocks + 2)  # the encoder's K3 convs, each packing its weight planes on its first call
+    launches = f32_launches(want["d64"], want["d512"], "cldm step, card against CPU",
+                            convs=want["d512"] * modules, conv_modules=modules)  # one encode per mid-block attention
+    reset_counts()  # get_input again: the frozen VAE's cached planes serve every conv, no prepass
+    with torch.no_grad():
+        gpu.task.get_input({k: v.to(gpu.device) for k, v in pair.items()})
+    torch.cuda.synchronize()
+    again = read_counts()["gn_silu_conv3x3"], conv_weight_planes()
+    if again != (want["d512"] * modules, 0):
+        fail(f"cldm step, card against CPU: get_input after the step made {again[0]} K3 launches and packed "
+             f"{again[1]} conv weights, expected {want['d512'] * modules} and 0")
+    print(f"[train cldm] f32 step on the card: {launches['tf32_planes_conv_weights']} conv weights packed (one per "
+          f"encoder K3 conv); get_input again: {again[0]} K3 launches, {again[1]} packed", flush=True)
     (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
     top = max(g.abs().max().item() for g in g_cpu)
     errs = {"loss": abs(l_gpu - l_cpu) / l_cpu, "grad": max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) / top}
@@ -2005,7 +2135,8 @@ def cldm_step_card_against_cpu(cfg_full, merge):
           + f" (bound {CLDM_F32_BOUND:.0e}); attention launches on the card {want}", flush=True)
     if not max(errs.values()) <= CLDM_F32_BOUND:
         fail(f"cldm step: the card differs from the CPU by {errs}")
-    return dict(errs, f32_launches=launches)
+    return dict(errs, f32_launches=launches,
+                get_input_again={"gn_silu_conv3x3_f32": again[0], "tf32_planes_conv_weights": again[1]})
 
 
 def bwd_pass(build, pass_name, form=""):
@@ -2060,15 +2191,19 @@ def d512_entry(records, build):
     }
 
 
-def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_build, bwd_build, f32_steps):
+def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_build, bwd_build, f32_steps,
+                conv_records, conv_build, conv_grads):
     """The f32 forms' entries of the ``kernels`` line: K1 and K2 on split-tf32
     products at head dims 64 and 72 (the DiT's self-attention at a DMD step's
     batch at top level, every f32 shape at 64 and 72 below), K1's f32 form at
     head dim 512 (the DMD step's VAE encode at top level, with sdpa's error
-    in plain TF32 beside, and the ragged masked shape below) and the split
-    prepass. Each K1 entry carries its kernels' build figures.
-    ``launches`` is the sum over the two f32 card-against-CPU train steps
-    (``f32_steps``: the DMD step at depth 2 and the cldm step), each beside."""
+    in plain TF32 beside, and the ragged masked shape below), K3's f32 form
+    on split-tf32 products ((4, 64, 64, 512, 512) at top level, the conv
+    alone, cuDNN's conv alone, the prepass and the bound at the f32 FMA rate
+    beside; every f32 shape below; the gradient check) and the split prepass.
+    Each entry carries its kernels' build figures. ``launches`` is the sum
+    over the two f32 card-against-CPU train steps (``f32_steps``: the DMD
+    step at depth 2 and the cldm step), each beside."""
     d64_fwd, d64_dq, d64_dkv = d64
 
     def entry(name, source, replaces, records, main_name, **extra):
@@ -2086,6 +2221,8 @@ def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_
     dq, dkv = split(dq_records) + split(d64_dq), split(dkv_records) + split(d64_dkv)
     d512 = [r for r in attn_records if r["dtype"] == "f32" and r["shape"][4] == 512]
     d512_main = next(r for r in d512 if r["name"] == "vae_mid_dmd_encode")
+    conv32 = [r for r in conv_records if r["dtype"] == "f32"]
+    conv_main = next(r for r in conv32 if r["name"] == "b4_64_512_512")
     return [
         entry("flash_attn_fwd_f32", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63", fwd, "dit_self",
               build={k: v for k, v in fwd_build.items() if k.startswith("f32") and not k.startswith("f32_d512")}),
@@ -2098,9 +2235,15 @@ def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_
               build=bwd_pass(bwd_build, "dq", "f32_"), **rel(dq)),
         entry("flash_attn_bwd_dkv_f32", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:166", dkv, "dit_self",
               build=bwd_pass(bwd_build, "dkv", "f32_"), **rel(dkv)),
+        entry("gn_silu_conv3x3_f32", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112", conv32,
+              "b4_64_512_512", build={k: v for k, v in conv_build.items() if k.startswith("f32_")},
+              gradient=conv_grads, **{k: conv_main[k] for k in ("includes", "conv_only_ms", "conv_library_ms",
+                                                                "prepass_ms", "bound_fma_ms")},
+              launches_small_pipeline=sum(r.get("launches_small_pipeline", 0) for r in conv32),
+              launches_serve=sum(r.get("launches_serve", 0) for r in conv32)),
         entry("tf32_planes", "tf32_planes.cu", "instarevive_tpu/ops/attention.py:63", planes_records, "dit_q_b2",
               note="no TPU kernel of its own: the split of the f32 operands that the f32 forms of K1 "
-                   "(attention.py:63) and K2 (:127, :166) read"),
+                   "(attention.py:63), K2 (:127, :166) and K3 (gn_conv.py:112, conv weights once per module) read"),
     ]
 
 
@@ -2185,21 +2328,22 @@ def main() -> None:
     d64_fwd, d64_dq, d64_dkv, held64 = d64_phase()
     planes_records = planes_phase()
     conv_records = conv_phase()
+    conv_grads = conv_grad_phase()
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
     from instarevive_tpu_torch.tools import time_degrade
 
     filter_records = time_degrade.hold_filter2d(fail=fail)
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
-    small_pipeline_phase(cfg)
+    small_pipeline_phase(cfg, conv_records)
     launches, tiled = pipeline_phase(conv_records, swin_records, attn_records)
     cli_phase()
-    serve_phase(cfg, swin_records, launches)
-    train = train_phase(cfg)
+    serve_phase(cfg, swin_records, launches, conv_records)
+    train = train_phase(cfg, conv_records)
     timing = train[2]
     degrade_launches, degrade_timing = degrade_phase(filter_records)
     swinir_train = swinir_train_phase(cfg, swin_records, filter_records)
-    cldm = cldm_phase(held64)
+    cldm = cldm_phase(held64, conv_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -2211,7 +2355,7 @@ def main() -> None:
                       launches, tiled, up_records, "b4_256_256", train)
     conv = kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
                         launches, tiled, conv_records, "b4_512_128_128", train)
-    conv["build"] = conv_build
+    conv["build"] = {k: v for k, v in conv_build.items() if not k.startswith("f32_")}
     for entry in (swin, up):  # forward launches of the SwinIR trainer; their backward is the plain version's
         entry["launches_swinir_train_run"] = swinir_train[0][entry["name"]]
         entry["launches_swinir_train_step"] = swinir_train[1][entry["name"]]
@@ -2233,7 +2377,8 @@ def main() -> None:
         *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3], bwd_build),
         *f32_entries(attn_records, dq_records, dkv_records, (d64_fwd, d64_dq, d64_dkv), planes_records, fwd_build,
                      bwd_build, {"dmd_f32_step": timing["card_vs_cpu"]["f32_launches"],
-                                 "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]}),
+                                 "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]},
+                     conv_records, conv_build, conv_grads),
     ], "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2], "degrade": degrade_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
 // flash_attn_fwd.cu (K1 at head dims 64, 72 and 512), flash_attn_bwd.cu (K2),
-// gn_conv.cu (K3, bf16) and tf32_planes.cu (the f32 attention's split prepass).
+// gn_conv.cu (K3) and tf32_planes.cu (the split prepass of the f32 forms).
 //
 // * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
 //   phase's parity;
@@ -10,8 +10,8 @@
 //   wgmma.mma_async, and the bf16 x bf16 -> f32 forms the kernels use
 //   (Wgmma<N>::ss with both operands in shared memory, Wgmma<N>::rs with A in
 //   registers and B an MN-major shared tile), the tf32 x tf32 -> f32 forms of
-//   the f32 attention kernels (Wgmma32<N>::ss, Wgmma32<N>::rs; a tf32 B is
-//   K-major only), and ex2 (2^x);
+//   the f32 kernels (Wgmma32<N>::ss, Wgmma32<N>::rs; a tf32 B is K-major
+//   only), and ex2 (2^x);
 // * tf32_rna: an f32 value rounded to tf32 (its low 13 bits zero), the split
 //   of an f32 operand into hi + lo planes;
 // * on the host: cuTensorMapEncodeTiled, a libcuda entry point found through
@@ -117,7 +117,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets, swizzle (1: 128 bytes, 3: 32 bytes). K-major under a swizzle: the
+// offsets, swizzle (1: 128 bytes, 2: 64 bytes, 3: 32 bytes). K-major under a swizzle: the
 // stride offset is between 8-row groups and the leading one unused; a k-step
 // is 32 bytes along a row whatever the type (16 bf16 or 8 tf32 values), so a
 // step's descriptor is the previous one plus 2 (the address is in 16 bytes). MN-major:
@@ -128,7 +128,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, uint6
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 |
          swizzle << 62;
 }
-constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -231,7 +231,7 @@ template <> struct Wgmma<256> {
   }
 };
 
-// tf32 x tf32 -> f32, for the f32 attention kernels. A .tf32 operand in
+// tf32 x tf32 -> f32, for the f32 kernels. A .tf32 operand in
 // shared memory is K-major only (no transpose bit), so a B whose K is the
 // tile's row index comes from a transposed plane. The register A fragment of
 // a warp is a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4)
@@ -292,6 +292,21 @@ template <> struct Wgmma32<72> {
                  "%32, %33, %34, %35"
                  "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
                  : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC4(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma32<128> {
+  // D (64 x 128, f32) = [D +] A (64 x 8, registers) . B (128 x 8, shared, K-major)^T
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+                 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : WGMMA_ACC16(0), WGMMA_ACC16(16), WGMMA_ACC16(32), WGMMA_ACC16(48)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
   }
 };

@@ -39,9 +39,12 @@ def _gn(ch: int) -> GroupNorm:
 
 
 def _norm_silu_conv(norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(silu(norm(x)))`` for a 3x3 SAME ``conv``, through the fused op."""
+    """``conv(silu(norm(x)))`` for a 3x3 SAME ``conv``, through the fused op;
+    in f32 on the card with the conv's cached split-tf32 weight planes (the
+    CPU's plain version reads none, so none are packed there)."""
     w, bias = conv.hwio()
-    y = gn_silu_conv3x3(x.permute(0, 2, 3, 1), *norm.affine_f32(), w, bias, norm.num_groups, norm.eps)
+    planes = conv.tf32_planes() if x.is_cuda and x.dtype == torch.float32 else None
+    y = gn_silu_conv3x3(x.permute(0, 2, 3, 1), *norm.affine_f32(), w, bias, norm.num_groups, norm.eps, planes)
     return y.permute(0, 3, 1, 2)
 
 

@@ -15,8 +15,9 @@ names are torch's own, so the reference checkpoints' keys load as they are.
 
 ``GroupNorm`` runs through ``ops/norm_kernels.group_norm_silu`` (the CUDA
 moments and apply kernels on the card). What the kernels read in another
-form than the state dict holds (f32 norm vectors, HWIO conv weights) is
-derived once per module by ``derived`` and rebuilt when its source changes.
+form than the state dict holds (f32 norm vectors, HWIO conv weights and their
+split-tf32 planes) is derived once per module by ``derived`` and rebuilt when
+its source changes.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from instarevive_tpu_torch.ops.gn_conv import weight_planes
 from instarevive_tpu_torch.ops.norm_kernels import group_norm_silu
 
 
@@ -119,6 +121,14 @@ class Conv2d(DerivedCache, nn.Conv2d):
         per call."""
         return derived(self, "hwio", (self.weight, self.bias), lambda: (
             self.weight.detach().permute(2, 3, 1, 0).contiguous(), self.bias.detach().float()))
+
+    def tf32_planes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The weight's split-tf32 hi and lo planes, each (Cout, kh, kw, Cin)
+        f32: what the f32 form of ``ops/gn_conv.gn_silu_conv3x3`` reads
+        (``weight_planes``). Made once, not per call: a frozen model pays no
+        prepass launch a step."""
+        return derived(self, "tf32_planes", (self.weight,),
+                       lambda: weight_planes(self.weight.detach().permute(2, 3, 1, 0)))
 
 
 class LayerNorm(nn.LayerNorm):

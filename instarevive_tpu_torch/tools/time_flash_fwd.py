@@ -25,7 +25,7 @@ With ``--dtype f32`` the inputs are f32 and the bounds chip_smoke.py's f32
 ones (1e-4 absolute and of the reference's largest magnitude, 1e-4 on the
 log-sum-exp). A build whose split-tf32 entry ``flash_attn_fwd_f32`` takes
 the head dim (its ``flash_attn_fwd_occupancy_f32`` answers for it) is timed
-on planes the prepass (``ops/attention.tf32_planes``) made once beforehand,
+on planes the prepass (``ops/tf32_planes.tf32_planes``) made once beforehand,
 so its figure is the kernel's: Q's, K's and V^T's planes at 64 and 72, Q raw
 with K's and V^T's planes at 512. The prepass is timed on its own beside it
 (``prepass``). Any other build (an older tree's) takes f32 through

@@ -159,7 +159,7 @@ def kernel_table(fn, label: str, top: int = 28) -> None:
           f"copies {sum(c[0] for c in copies):.2f} ms", flush=True)
     for ms, count, key in rows[:top]:
         print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:150]}", flush=True)
-    groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_wg::kernel", "gnconv_f32::kernel"),
+    groups = {"fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_wg::kernel", "gnconv_tf32::kernel", "gnconv_f32::kernel"),
               "GroupNorm, upsample (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel", "upsample_kernel"),
               "flash attention at head dims 64/72 (flash_attn_fwd.cu)": ("hopper::kernel", "fwd_tf32::kernel"),
               "flash attention at head dim 512 (flash_attn_fwd.cu)": ("d512::kernel", "d512_tf32::kernel"),

@@ -193,12 +193,14 @@ GROUPS = {  # first match wins, in this order
                                              for d in (64, 72) for kv in ("false", "(bool)0")),
     "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"{ns}::kernel<{d}, {kv}" for ns in ("bwd16", "bwd32", "bwd_tf32")
                                                for d in (64, 72) for kv in ("true", "(bool)1")),
-    "f32 attention's split prepass (tf32_planes.cu)": ("tf32_split::kernel",),
+    "split prepass of the f32 forms (tf32_planes.cu)": ("tf32_split::kernel",),
     "K4 window attention (swin_attention.cu)": ("swin_tc::", "swin_f32::"),
     "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
     "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
     "optimizer, EMA, clipping (foreach)": ("multi_tensor_apply",),
-    "VAE kernels (gn_conv.cu, norm_kernels.cu)": ("gnconv_wg::kernel", "stats_kernel", "fold_kernel", "apply_kernel"),
+    # gnconv_f32: the f32 form's namespace before the split-tf32 one, for a profile of an older tree
+    "K3 fused GN+SiLU+conv (gn_conv.cu)": ("gnconv_wg::kernel", "gnconv_tf32::kernel", "gnconv_f32::kernel"),
+    "K5 GroupNorm (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel"),
     "convolutions (cuDNN)": ("fprop", "dgrad", "wgrad", "cudnn", "conv2d", "implicit_convolve"),
     "GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
     "GroupNorm (torch)": ("group_norm", "GroupNorm", "RowwiseMoments", "ComputeFusedParams"),

@@ -10,9 +10,7 @@ Without a card every test here skips.
 import pytest
 import torch
 
-from instarevive_tpu_torch.ops.attention import (
-    NEG_INF, _forward, flash_attention, flash_lse_plain, sdpa, tf32_planes, tf32_planes_plain,
-)
+from instarevive_tpu_torch.ops.attention import NEG_INF, _forward, flash_attention, flash_lse_plain, sdpa
 from instarevive_tpu_torch.ops.filters import filter2d, filter2d_plain
 from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
 from instarevive_tpu_torch.ops.norm_kernels import (
@@ -21,6 +19,7 @@ from instarevive_tpu_torch.ops.norm_kernels import (
 )
 from instarevive_tpu_torch.ops import window as W
 from instarevive_tpu_torch.ops.swin_attention import swin_window_attention, swin_window_attention_plain
+from instarevive_tpu_torch.ops.tf32_planes import tf32_planes, tf32_planes_plain
 from instarevive_tpu_torch.pipelines.build import set_precision
 
 # bf16: both outputs rounded to bf16 and P rounded to bf16 before P.V in the
@@ -586,6 +585,64 @@ def test_gn_silu_conv3x3_pads_with_zero_after_the_silu(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_gn_silu_conv3x3_f32_on_planes_given_or_made(cuda):
+    """The f32 form reads the weight's split planes: handed in (as a module
+    caches them) it launches no prepass; made by the wrapper from a bare HWIO
+    weight it launches one; both give the same bits."""
+    from instarevive_tpu_torch.ops.gn_conv import weight_planes
+
+    x, gamma, beta, wk, bias = _vae_inputs(cuda, torch.float32, 2, 24, 40, 128, 128, seed=6)
+    planes = weight_planes(wk)
+    prepass = tf32_planes.launches
+    given = gn_silu_conv3x3(x, gamma, beta, wk, bias, planes=planes)
+    assert tf32_planes.launches == prepass
+    made = gn_silu_conv3x3(x, gamma, beta, wk, bias)
+    torch.cuda.synchronize()
+    assert tf32_planes.launches == prepass + 1 and torch.equal(given, made)
+
+
+@pytest.mark.cuda
+def test_vae_conv_weight_planes_are_packed_once_per_module(cuda):
+    """In f32 each ResnetBlock conv packs its weight planes on its first
+    forward, one prepass launch of shape (Co, 9, C), and none after."""
+    from instarevive_tpu_torch.models.vae import ResnetBlock
+
+    block = ResnetBlock(64, 128).to(cuda).eval().requires_grad_(False)
+    x = torch.randn(2, 64, 16, 16, device=cuda).contiguous(memory_format=torch.channels_last)
+    tf32_planes.shapes = {}
+    try:
+        block(x)
+        first = dict(tf32_planes.shapes)
+        tf32_planes.shapes.clear()
+        block(x)
+        torch.cuda.synchronize()
+        second = dict(tf32_planes.shapes)
+    finally:
+        tf32_planes.shapes = None
+    assert first == {(128, 9, 64, True, False): 1, (128, 9, 128, True, False): 1} and second == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_silu_conv3x3_gradients_match_autograd_through_plain(cuda, dtype):
+    """x, gamma, beta, w and bias require grad: the kernels forward, then the
+    plain composition's gradient, against autograd through the plain version
+    (the same backward; cuDNN's backward may sum in another order)."""
+    inputs = _vae_inputs(cuda, dtype, 2, 24, 40, 128, 256, seed=7)
+    cot = torch.randn(2, 24, 40, 256, device=cuda, generator=torch.Generator(device=cuda).manual_seed(8))
+    grads = []
+    for fn in (gn_silu_conv3x3, gn_silu_conv3x3_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        launches = gn_silu_conv3x3.launches
+        (fn(*leaves).float() * cot).sum().backward()
+        assert gn_silu_conv3x3.launches == launches + (fn is gn_silu_conv3x3)
+        grads.append([t.grad.float() for t in leaves])
+    bound = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= bound * want.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_vae_kernels_refuse_what_they_cannot_run(cuda):
     x, gamma, beta, wk, bias = _vae_inputs(cuda, torch.bfloat16, 1, 8, 8, 64, 64)
     with pytest.raises(ValueError, match="multiples of 32"):
@@ -598,8 +655,8 @@ def test_vae_kernels_refuse_what_they_cannot_run(cuda):
         gn_silu_conv3x3(x, gamma, beta, wk.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0), bias)
     with pytest.raises(ValueError, match="contiguous"):
         gn_silu_conv3x3(x, gamma, beta, wk.float(), bias)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gn_silu_conv3x3(x.float().requires_grad_(), gamma, beta, wk.float(), bias)
+    with pytest.raises(ValueError, match="planes"):  # the f32 form's weight planes are (Co, 3, 3, C)
+        gn_silu_conv3x3(x.float(), gamma, beta, wk.float(), bias, planes=(wk.float(), wk.float()))
     with pytest.raises(RuntimeError, match="no backward"):
         group_norm_silu(x, gamma.requires_grad_(), beta)
     with pytest.raises(ValueError, match="16 bytes"):

@@ -1,7 +1,8 @@
 """The port's fused GN+SiLU+conv3x3 (its plain version, which the CPU runs)
 against the JAX package's Pallas kernel in interpret mode, as
-tests/test_gn_conv.py runs it, and the packed-weight cache of the modules
-that feed it.
+tests/test_gn_conv.py runs it, its gradient against the JAX custom_vjp's,
+the split-tf32 weight planes its f32 kernel reads, and the packed-weight
+cache of the modules that feed it.
 
 Tolerances. f32: the two sides sum 9C products in other orders; 1e-4 on
 outputs of size up to about 8. bf16: both round the activation to bf16, sum in
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from instarevive_tpu.ops.gn_conv import _reference as jax_reference
@@ -22,6 +24,7 @@ from instarevive_tpu.ops.gn_conv import gn_silu_conv3x3 as jax_gn_silu_conv3x3
 from instarevive_tpu_torch.models.vae import ResnetBlock
 from instarevive_tpu_torch.ops import cuda_build
 from instarevive_tpu_torch.ops import gn_conv as tconv
+from instarevive_tpu_torch.ops.tf32_planes import tf32_planes_plain
 
 ATOL = {"float32": 1e-4, "bfloat16": 6.3e-2}
 
@@ -189,3 +192,120 @@ def test_packed_weights_follow_a_reload_in_inference_mode():
         out = block(x)
         assert not torch.allclose(out, first, atol=1e-3)
         torch.testing.assert_close(out, fresh(x), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("c,co", [(64, 32), (96, 160)])
+def test_weight_planes_are_the_split_of_the_ohwi_weight(c, co):
+    """What the f32 kernel reads: w (3, 3, C, Co) as hi and lo planes of
+    (Co, 3, 3, C), bit for bit the split prepass's plain version of w in OHWI
+    order; hi + lo within 2^-22 |w|, each plane's low 13 mantissa bits zero."""
+    w = torch.from_numpy(_mats(1, 1, 1, c, co, seed=4)[3]) * 10.0
+    hi, lo = tconv.weight_planes(w)
+    want_hi, want_lo, _, _ = tf32_planes_plain(w.permute(3, 0, 1, 2).reshape(co, 9, c))
+    assert hi.shape == lo.shape == (co, 3, 3, c) and hi.dtype == lo.dtype == torch.float32
+    assert hi.is_contiguous() and lo.is_contiguous()
+    assert torch.equal(hi.reshape(co, 9, c), want_hi) and torch.equal(lo.reshape(co, 9, c), want_lo)
+    ohwi = w.permute(3, 0, 1, 2).double()
+    assert ((hi.double() + lo.double() - ohwi).abs() <= 2.0**-22 * ohwi.abs()).all()
+    for plane in (hi, lo):
+        assert not (plane.view(torch.int32) & 0x1FFF).any()
+
+
+def test_cpu_wrapper_ignores_the_planes():
+    """On the CPU the wrapper runs the plain version whatever planes it is
+    handed: the right ones and zeros give the same bits."""
+    mats = [torch.from_numpy(m) for m in _mats(2, 5, 7, 64, 32, seed=5)]
+    want = tconv.gn_silu_conv3x3_plain(*mats)
+    planes = tconv.weight_planes(mats[3])
+    assert torch.equal(tconv.gn_silu_conv3x3(*mats, planes=planes), want)
+    assert torch.equal(tconv.gn_silu_conv3x3(*mats, 32, 1e-6, tuple(torch.zeros_like(p) for p in planes)), want)
+
+
+def _jax_grads(mats, cot):
+    """All five gradients of <gn_silu_conv3x3(...), cot> through the JAX
+    package's custom_vjp (its Pallas kernel forward in interpret mode)."""
+    def loss(*args):
+        return jnp.sum(jax_gn_silu_conv3x3(*args, interpret=True) * jnp.asarray(cot))
+
+    return jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(m) for m in mats))
+
+
+def _torch_grads(fn, mats, cot, wanted=range(5)):
+    inputs = [torch.from_numpy(m).requires_grad_(i in wanted) for i, m in enumerate(mats)]
+    (fn(*inputs) * torch.from_numpy(cot)).sum().backward()
+    return [t.grad for t in inputs]
+
+
+GRAD_ATOL = 1e-4  # f32: both sides differentiate the same composition, summing in other orders
+
+
+def test_gradients_match_the_jax_custom_vjp():
+    """x, gamma, beta, w and bias all require grad: the port's gradients
+    (the CPU runs autograd through the plain version) against jax.grad of the
+    JAX package's custom_vjp, at 1e-4."""
+    mats = _mats(1, 8, 8, 128, 128, seed=6)
+    cot = np.random.default_rng(7).standard_normal((1, 8, 8, 128)).astype(np.float32)
+    for got, want in zip(_torch_grads(tconv.gn_silu_conv3x3, mats, cot), _jax_grads(mats, cot)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL, rtol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("wanted", [range(5), (0, 3)])
+def test_autograd_function_backward_matches_the_jax_custom_vjp(monkeypatch, wanted):
+    """The card's ``_GnSiluConv3x3``, its kernels' forward stood in for by the
+    plain version: its backward gives every input that requires grad (all
+    five, or x and w alone) JAX's gradient and the others None."""
+    monkeypatch.setattr(tconv, "_forward", lambda x, g, b, w, bias, groups, eps, planes:
+                        tconv.gn_silu_conv3x3_plain(x.detach(), g.detach(), b.detach(), w.detach(),
+                                                    bias.detach(), groups, eps))
+
+    def fn(x, gamma, beta, w, bias):
+        return tconv._GnSiluConv3x3.apply(x, gamma, beta, w, bias, 32, 1e-6, None)
+
+    mats = _mats(1, 8, 8, 128, 128, seed=8)
+    cot = np.random.default_rng(9).standard_normal((1, 8, 8, 128)).astype(np.float32)
+    got = _torch_grads(fn, mats, cot, wanted)
+    for i, want in enumerate(_jax_grads(mats, cot)):
+        if i in wanted:
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want), atol=GRAD_ATOL, rtol=GRAD_ATOL)
+        else:
+            assert got[i] is None
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "in_place", "dtype_round_trip", "round_trip_without_a_forward"])
+def test_weight_planes_follow_the_parameters(change):
+    """The split-tf32 planes of the f32 kernel are packed once per module
+    (on the card an f32 forward packs them, on the CPU none does) and follow
+    the weight as ``hwio()`` does: after each change the cached planes are
+    the split of the new weight."""
+    x = torch.randn(2, 64, 6, 6, generator=torch.Generator().manual_seed(0))
+    x = x.contiguous(memory_format=torch.channels_last)
+    block = ResnetBlock(64, 32).eval().requires_grad_(False)
+    block.load_state_dict(_seeded_state(block, 1))
+    block(x)
+    assert "tf32_planes" not in block.conv1.__dict__["_derived"]  # the CPU's forward packs none
+    packed = block.conv1.tf32_planes()
+    assert block.conv1.__dict__["_derived"]["tf32_planes"][1] is packed
+    assert block.conv1.tf32_planes() is packed
+    new = _seeded_state(block, 2)
+    if change == "load_state_dict":
+        block.load_state_dict(new)
+    elif change == "in_place":
+        with torch.no_grad():
+            for k, p in block.state_dict().items():
+                p.copy_(new[k])
+    elif change == "round_trip_without_a_forward":
+        block.load_state_dict(new)
+        block(x)
+        packed = block.conv1.tf32_planes()
+        block.to(torch.bfloat16).to(torch.float32)
+        assert not block.conv1.__dict__.get("_derived")
+    else:
+        block.load_state_dict(new)
+        block.to(torch.bfloat16)
+        block.to(torch.float32)
+    block(x)
+    planes = block.conv1.tf32_planes()
+    assert planes is not packed
+    want = tconv.weight_planes(block.conv1.weight.detach().permute(2, 3, 1, 0))
+    assert all(torch.equal(p, q) for p, q in zip(planes, want))
+    assert not torch.equal(planes[0], packed[0])

@@ -158,6 +158,10 @@ def test_swinir_packed_bias_follows_the_table(change):
 
 
 def test_vae_encode_decode_match_jax(pipes):
+    """The VAE matches the JAX VAE in f32; on the CPU, whose plain version
+    reads no split-tf32 weight planes, no ResnetBlock conv packs them."""
+    from instarevive_tpu_torch.models.vae import ResnetBlock
+
     jpipe, params, tpipe = pipes
     x = _rand((2, 64, 64, 3), 1) * 2 - 1
     vae = {"params": params["vae"]}
@@ -168,11 +172,14 @@ def test_vae_encode_decode_match_jax(pipes):
         timg = tpipe.vae.decode(torch.from_numpy(np.array(z)))
     np.testing.assert_allclose(tz.numpy(), np.asarray(z), atol=ATOL, rtol=0)
     np.testing.assert_allclose(timg.numpy(), np.asarray(img), atol=ATOL, rtol=0)
+    convs = [conv for block in tpipe.vae.modules() if isinstance(block, ResnetBlock) for conv in (block.conv1, block.conv2)]
+    assert convs and not any("tf32_planes" in conv.__dict__.get("_derived", {}) for conv in convs)
 
 
 def test_vae_runs_through_the_kernel_ops_in_channels_last(pipes, monkeypatch):
     """The path the card takes, minus the kernels: every ResnetBlock half goes
-    through ``gn_silu_conv3x3``, the two other norms of an encode or a decode
+    through ``gn_silu_conv3x3`` (handed no split-tf32 weight planes: the card
+    alone packs them, as the chip run's prepass tally holds), the two other norms of an encode or a decode
     through ``group_norm_silu`` and the decoder's upsamples through
     ``upsample2x_nearest``, here with their plain versions called by name;
     each is handed a contiguous NHWC view (a copy on the way would be a hidden
@@ -192,7 +199,11 @@ def test_vae_runs_through_the_kernel_ops_in_channels_last(pipes, monkeypatch):
             return plain(x, *args, **kwargs)
         return op
 
-    monkeypatch.setattr(vae_mod, "gn_silu_conv3x3", counted("conv", gn_silu_conv3x3_plain))
+    def conv_without_planes(x, gamma, beta, w, bias, groups, eps, planes):
+        assert planes is None
+        return gn_silu_conv3x3_plain(x, gamma, beta, w, bias, groups, eps)
+
+    monkeypatch.setattr(vae_mod, "gn_silu_conv3x3", counted("conv", conv_without_planes))
     monkeypatch.setattr(layers_mod, "group_norm_silu", counted("norm", group_norm_silu_plain))
     monkeypatch.setattr(vae_mod, "upsample2x_nearest", counted("up", upsample2x_nearest_plain))
 

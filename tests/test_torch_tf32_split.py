@@ -22,6 +22,7 @@ from instarevive_tpu.ops.attention import _flash_fwd_impl as jax_flash_fwd_impl
 from instarevive_tpu.ops.attention import flash_attention as jax_flash_attention
 from instarevive_tpu.ops.attention import sdpa as jax_sdpa
 from instarevive_tpu_torch.ops import attention as tattn
+from instarevive_tpu_torch.ops import tf32_planes as tplanes
 
 OUT_BOUND = 1e-4   # chip_smoke.py BOUNDS["f32"]: the output, |out| <= 1
 OUT_REL = 1e-4     # REL_BOUNDS["f32"], of the reference output's largest magnitude
@@ -48,19 +49,19 @@ def _as_bits(x):
     (0x80000000, 0x80000000),  # -0
 ], ids=["one", "tie", "negative_tie", "under", "over", "carry", "subnormal", "negative_zero"])
 def test_tf32_round_is_round_to_nearest_ties_away(given, want):
-    assert _as_bits(tattn.tf32_round(_bits([given]))) == [want]
+    assert _as_bits(tplanes.tf32_round(_bits([given]))) == [want]
 
 
 def test_planes_have_13_zero_bits_and_sum_to_the_operand():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((3, 4, 50, 72)).astype(np.float32) * np.exp(rng.uniform(-20, 20, (3, 4, 50, 72))).astype(np.float32)
     x = torch.from_numpy(x)
-    hi, lo, t_hi, t_lo = tattn.tf32_planes_plain(x)
+    hi, lo, t_hi, t_lo = tplanes.tf32_planes_plain(x)
     assert t_hi is None and t_lo is None
     for p in (hi, lo):
         assert (p.view(torch.int32) & 0x1FFF).eq(0).all()
     assert ((hi.double() + lo.double()) - x.double()).abs().le(2.0**-22 * x.double().abs()).all()
-    assert torch.equal(hi, tattn.tf32_round(x)) and torch.equal(lo, tattn.tf32_round(x - hi))
+    assert torch.equal(hi, tplanes.tf32_round(x)) and torch.equal(lo, tplanes.tf32_round(x - hi))
 
 
 @pytest.mark.parametrize("n", [77, 300, 1000, 4, 8])
@@ -69,23 +70,23 @@ def test_transposed_planes_invert_back_to_the_operand(n):
     each group of 8; undoing the order, the padding and the transpose gives
     the natural planes."""
     x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, 3, n, 64)).astype(np.float32))
-    hi, lo, t_hi, t_lo = tattn.tf32_planes_plain(x, natural=True, transposed=True)
-    n_pad = tattn.pad8(n)
+    hi, lo, t_hi, t_lo = tplanes.tf32_planes_plain(x, natural=True, transposed=True)
+    n_pad = tplanes.pad8(n)
     assert n_pad % 8 == 0 and n <= n_pad < n + 8 and t_hi.shape == (2, 3, 64, n_pad)
-    inverse = np.argsort(tattn.PERM8).tolist()
+    inverse = np.argsort(tplanes.PERM8).tolist()
     for nat, tr in ((hi, t_hi), (lo, t_lo)):
         undone = tr.reshape(2, 3, 64, n_pad // 8, 8)[..., inverse].reshape(2, 3, 64, n_pad)
         assert undone[..., n:].eq(0).all()
         assert torch.equal(undone[..., :n].transpose(-1, -2), nat)
-    assert tattn.tf32_planes_plain(x, natural=False, transposed=True)[:2] == (None, None)
+    assert tplanes.tf32_planes_plain(x, natural=False, transposed=True)[:2] == (None, None)
 
 
 def test_a_cpu_tensor_takes_the_plain_prepass():
     x = torch.randn(1, 2, 9, 72)
-    before = tattn.tf32_planes.launches
-    for got, want in zip(tattn.tf32_planes(x, transposed=True), tattn.tf32_planes_plain(x, transposed=True)):
+    before = tplanes.tf32_planes.launches
+    for got, want in zip(tplanes.tf32_planes(x, transposed=True), tplanes.tf32_planes_plain(x, transposed=True)):
         assert torch.equal(got, want)
-    assert tattn.tf32_planes.launches == before
+    assert tplanes.tf32_planes.launches == before
 
 
 @pytest.mark.parametrize("n", [4096, 333, 5])
@@ -96,13 +97,13 @@ def test_planes_at_head_dim_512_sum_back_and_invert(n):
     rng = np.random.default_rng(n)
     x = rng.standard_normal((1, 1, n, 512)).astype(np.float32) * np.exp(rng.uniform(-20, 20, (1, 1, n, 512))).astype(np.float32)
     x = torch.from_numpy(x)
-    hi, lo, t_hi, t_lo = tattn.tf32_planes_plain(x, natural=True, transposed=True)
+    hi, lo, t_hi, t_lo = tplanes.tf32_planes_plain(x, natural=True, transposed=True)
     for p in (hi, lo, t_hi, t_lo):
         assert (p.view(torch.int32) & 0x1FFF).eq(0).all()
     assert ((hi.double() + lo.double()) - x.double()).abs().le(2.0**-22 * x.double().abs()).all()
-    n_pad = tattn.pad8(n)
+    n_pad = tplanes.pad8(n)
     assert t_hi.shape == (1, 1, 512, n_pad)
-    inverse = np.argsort(tattn.PERM8).tolist()
+    inverse = np.argsort(tplanes.PERM8).tolist()
     for nat, tr in ((hi, t_hi), (lo, t_lo)):
         undone = tr.reshape(1, 1, 512, n_pad // 8, 8)[..., inverse].reshape(1, 1, 512, n_pad)
         assert undone[..., n:].eq(0).all()
@@ -114,8 +115,8 @@ def test_planes_at_head_dim_512_sum_back_and_invert(n):
 
 def _split_mm(a, b):
     """a @ b as the kernels take it: lo.hi + hi.lo + hi.hi of tf32 planes."""
-    ah, al = tattn.tf32_planes_plain(a)[:2]
-    bh, bl = tattn.tf32_planes_plain(b)[:2]
+    ah, al = tplanes.tf32_planes_plain(a)[:2]
+    bh, bl = tplanes.tf32_planes_plain(b)[:2]
     return al @ bh + ah @ bl + ah @ bh
 
 
