@@ -20,7 +20,11 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    FFMA too), and fails if either count is 0 (for the head-dim-512 kernel and
    the f32 forms too), if the forward library or the backward's or the
    convolution's kernels hold an mma.sync (HMMA), or if the head-dim-512
-   kernel, a backward kernel or an f32 form spills;
+   kernel, a backward kernel or an f32 form spills; for the window attention
+   (bf16, and f32 on split-tf32 products) its registers, the heads an item,
+   shared memory, ring slots and blocks an SM at ``process``'s shape, and its
+   mma.sync (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS) counts, failing on
+   a spill or a count of 0;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
@@ -38,8 +42,10 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``silu(b)`` halo, and all five gradients against autograd through the
    plain version), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
-   nearest 2x upsample (K5c), the Swin window attention (K4, shifted and
-   unshifted, bf16 and f32) and the per-sample reflect-padded 2-D filter (K6,
+   nearest 2x upsample (K5c), the Swin window attention (K4, bf16 and f32 on
+   split-tf32 products, shifted, unshifted and at odd shifts, a bitwise
+   repeat; each form's registers, shared memory, blocks an SM and SASS counts
+   in the build report) and the per-sample reflect-padded 2-D filter (K6,
    f32, at the shapes of both degradation programs, ragged shapes, a shared
    kernel, and a border case that tells reflect from edge repeat);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
@@ -210,7 +216,8 @@ def bound(nbytes: float, flops: float, dt: str, split: bool = False):
 
 def split_form(dt: str) -> bool:
     """Whether the kernels run split-tf32 products at this type: the f32 forms
-    of the attention (every head dim) and of the fused conv."""
+    of the attention (every head dim), of the fused conv and of the window
+    attention."""
     return dt == "f32"
 
 
@@ -896,15 +903,55 @@ def planes_phase():
     return records
 
 
+def swin_build_report(log: str):
+    """K4 as built, both forms (bf16 ``swin16``, f32 ``swin_tf32``): registers
+    and spill stores (ptxas, when this run compiled it), the heads a work
+    item takes at ``process``'s 256 windows, the shared memory a block takes
+    then, the ring's slots and the blocks an SM holds (the library's own
+    figures), and the counts of mma.sync (HMMA), ldmatrix (LDSM) and cp.async
+    (LDGSTS: the copies into the tiles) instructions in each form's SASS.
+    Fails if a form has none of one of them, or spills."""
+    import ctypes
+
+    import torch
+
+    from instarevive_tpu_torch.ops import cuda_build
+    from instarevive_tpu_torch.ops.swin_attention import heads_per_item
+
+    report = ptxas_figures(log, r"swin16(6)kernel|swin_tf32(6)kernel", lambda m: "bf16" if m.group(1) else "f32")
+    fn = cuda_build.load_library("swin_attention").swin_window_attention_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, bf16 in (("bf16", True), ("f32", False)):
+        g = heads_per_item(6, 30, 256, sms, bf16)
+        got = [ctypes.c_int() for _ in range(3)]
+        if fn(g, 30, int(bf16), *(ctypes.byref(x) for x in got)) != 0:
+            fail(f"swin_window_attention_occupancy({g}, 30, {int(bf16)}) failed")
+        smem, slots, blocks = (x.value for x in got)
+        report.update({f"{key}_heads_per_item": g, f"{key}_smem_bytes": smem, f"{key}_slots": slots,
+                       f"{key}_blocks_per_sm": blocks})
+        counts = sass_counts("swin_attention", "swin16" if bf16 else "swin_tf32", ("HMMA", "LDSM", "LDGSTS"))
+        report.update({f"{key}_{op}": n for op, n in counts.items()})
+    print(f"[build] swin_attention.cu, the bf16 and split-tf32 forms: {report}", flush=True)
+    spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
+    missing = [f"{key}_{op}" for key in ("bf16", "f32") for op in ("HMMA", "LDSM", "LDGSTS") if not report[f"{key}_{op}"]]
+    if missing or spills:
+        fail(f"the window attention's kernels lack {missing} or spill {spills}")
+    return report
+
+
 def swin_phase():
     """K4 against its plain version (roll, partition, ``sdpa``, reverse, roll
     back) at every shape the main path, the CLI and the server give it, plus
-    non-square maps and batch 1, shifted with the mask and unshifted without.
-    Yardsticks: ``library_ms`` is one ``F.scaled_dot_product_attention`` call
-    with the additive mask on already partitioned (B * nW, heads, 64, hd)
-    tensors; ``library_composition_ms`` is the whole composition around that
-    call (roll, partition, head split, the call, reverse, roll back). Returns
-    per-shape records."""
+    non-square maps and batch 1, in bf16 and f32, shifted with the mask and
+    unshifted without, and at the odd shifts 3 and 5 (whose window rows start
+    at odd pixels: the kernel's cp.async copies) at two shapes; each kernel
+    output twice, for the same bits. Yardsticks: ``library_ms`` is one
+    ``F.scaled_dot_product_attention`` call with the additive mask on already
+    partitioned (B * nW, heads, 64, hd) tensors; ``library_composition_ms``
+    is the whole composition around that call (roll, partition, head split,
+    the call, reverse, roll back). Returns per-shape records."""
     import torch
     import torch.nn.functional as F
 
@@ -913,23 +960,24 @@ def swin_phase():
 
     heads, hd, win = 6, 30, 8
     c, n, scale = heads * hd, win * win, hd**-0.5
-    cases = [  # (name, (B, H, W), dtypes)
-        ("process_b4_64x64", (4, 64, 64), ("bf16", "f32")),
-        ("tiled_b1_128x128", (1, 128, 128), ("bf16", "f32")),
-        ("one_512_b1_64x64", (1, 64, 64), ("bf16", "f32")),
-        ("serve_b2_64x64", (2, 64, 64), ("bf16",)),
-        ("serve_b3_64x64", (3, 64, 64), ("bf16",)),
-        ("serve_b1_64x80", (1, 64, 80), ("bf16",)),
-        ("cli_b1_64x104", (1, 64, 104), ("bf16",)),
-        ("nonsquare_b1_64x48", (1, 64, 48), ("bf16", "f32")),
-        ("nonsquare_b2_64x48", (2, 64, 48), ("bf16",)),
-        ("small_b2_16x16", (2, 16, 16), ("bf16", "f32")),
+    both, odd = ("bf16", "f32"), (0, win // 2, 3, 5)
+    cases = [  # (name, (B, H, W), dtypes, shifts)
+        ("process_b4_64x64", (4, 64, 64), both, odd),
+        ("tiled_b1_128x128", (1, 128, 128), both, (0, win // 2)),
+        ("one_512_b1_64x64", (1, 64, 64), both, odd),
+        ("serve_b2_64x64", (2, 64, 64), both, (0, win // 2)),
+        ("serve_b3_64x64", (3, 64, 64), both, (0, win // 2)),
+        ("serve_b1_64x80", (1, 64, 80), both, (0, win // 2)),
+        ("cli_b1_64x104", (1, 64, 104), both, (0, win // 2)),
+        ("nonsquare_b1_64x48", (1, 64, 48), both, (0, win // 2)),
+        ("nonsquare_b2_64x48", (2, 64, 48), both, (0, win // 2)),
+        ("small_b2_16x16", (2, 16, 16), both, (0, win // 2)),
     ]
     records = []
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for name, (b, h, w), dts in cases:
+    for name, (b, h, w), dts, shifts in cases:
         for dt in dts:
-            for shift in (0, win // 2):
+            for shift in shifts:
                 dtype = getattr(torch, DTYPES[dt])
                 qkv = torch.randn(b, h, w, 3 * c, device="cuda", generator=gen)
                 qkv[..., 2 * c:] = torch.rand(b, h, w, c, device="cuda", generator=gen) * 2 - 1
@@ -955,6 +1003,7 @@ def swin_phase():
 
                 with torch.no_grad():
                     out = swin_window_attention(qkv, bias, mask, heads, win, scale, shift)
+                    again = swin_window_attention(qkv, bias, mask, heads, win, scale, shift)
                     torch.cuda.synchronize()
                     ref = swin_window_attention_plain(qkv, bias, mask, heads, win, scale, shift)
                     ref32 = swin_window_attention_plain(qkv.float(), bias, mask, heads, win, scale, shift)
@@ -969,15 +1018,17 @@ def swin_phase():
                     comp_ms = cuda_ms(library_composition, iters=10)
                 windows = b * (h // win) * (w // win)
                 nbytes = qkv.element_size() * (qkv.numel() + out.numel()) + 4 * (bias.numel() + (0 if mask is None else mask.numel()))
-                b_ms, b_by = bound(nbytes, 4.0 * windows * heads * n * n * hd, dt)
-                rec = dict(name=f"{name}_{'shifted' if shift else 'unshifted'}", dtype=dt, shape=[b, h, w, 3 * c],
+                b_ms, b_by = bound(nbytes, 4.0 * windows * heads * n * n * hd, dt, split_form(dt))
+                shifted = {0: "unshifted", win // 2: "shifted"}.get(shift, f"shift{shift}")
+                rec = dict(name=f"{name}_{shifted}", dtype=dt, shape=[b, h, w, 3 * c],
                            shift=shift, masked=mask is not None, max_abs_err=err, bound=SWIN_BOUNDS[dt],
-                           max_abs_err_vs_f32=err32, library_max_abs_err_vs_f32=lib_err, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, library_composition_ms=comp_ms, bound_ms=b_ms, bound_by=b_by,
-                           gbytes_per_s=nbytes / ms / 1e6)
+                           max_abs_err_vs_f32=err32, library_max_abs_err_vs_f32=lib_err, repeats_bits=torch.equal(out, again),
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_composition_ms=comp_ms, bound_ms=b_ms,
+                           bound_by=b_by, gbytes_per_s=nbytes / ms / 1e6)
                 print(f"[swin_attn] {rec['name']:30s} {dt:4s} B,H,W,3C={b},{h},{w},{3 * c} shift={shift} "
                       f"max_abs_err={err:.3e} (bound {SWIN_BOUNDS[dt]:.0e}) vs_f32_reference={err32:.3e} "
-                      f"(library's {lib_err:.3e}) ms={ms:.4f} ({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
+                      f"(library's {lib_err:.3e}) same_bits={rec['repeats_bits']} ms={ms:.4f} "
+                      f"({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} "
                       f"torch_sdpa_ms={lib_ms:.4f} with_partition_and_rolls_ms={comp_ms:.4f} "
                       f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
                 if not err <= SWIN_BOUNDS[dt]:
@@ -986,8 +1037,10 @@ def swin_phase():
                 if dt == "bf16" and not err32 <= SWIN_F32_REF_BOUND:
                     fail(f"swin_window_attention {name} shift={shift}: bf16 kernel is {err32} from the f32 "
                          f"reference, over {SWIN_F32_REF_BOUND}")
+                if not rec["repeats_bits"]:
+                    fail(f"swin_window_attention {name} {dt} shift={shift}: two runs gave other bits")
                 records.append(rec)
-                del qkv, q, k, v, add, out, ref, ref32
+                del qkv, q, k, v, add, out, again, ref, ref32
     return records
 
 
@@ -1781,7 +1834,8 @@ def swinir_train_phase(cfg_full, swin_records, filter_records):
             metrics = task.train_step(data_pair, keep_grads=kept)
             res[label] = (float(metrics["loss"]), [g.cpu() for g in kept])
         small = dict(dict.fromkeys(counters(), 0), swin_window_attention=4, upsample2x=3)
-        if read_counts() != small:
+        f32_counts = read_counts()
+        if f32_counts != small:
             fail(f"train swinir step, card against CPU: launches {read_counts()}, expected {small}")
         (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
         top = max(g.abs().max().item() for g in g_cpu)
@@ -1791,7 +1845,7 @@ def swinir_train_phase(cfg_full, swin_records, filter_records):
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {SWINIR_TRAIN_F32_BOUND:.0e})", flush=True)
         if not max(errs.values()) <= SWINIR_TRAIN_F32_BOUND:
             fail(f"train swinir step: the card differs from the CPU by {errs}")
-    return counts, per_step, dict(timing, three_steps_s=seconds, card_vs_cpu=errs)
+    return counts, per_step, dict(timing, three_steps_s=seconds, card_vs_cpu=dict(errs, f32_launches=f32_counts))
 
 
 def d64_phase():
@@ -2247,6 +2301,24 @@ def f32_entries(attn_records, dq_records, dkv_records, d64, planes_records, fwd_
     ]
 
 
+def swin_f32_entry(records, build, step_launches):
+    """K4's f32 form (``swin_tf32``, split-tf32 products) in the ``kernels``
+    line: the f32 records, ``process``'s shifted shape at top level;
+    ``launches`` is the count of the depth-cut f32 SwinIR train step held
+    against the CPU."""
+    f32 = [r for r in records if r["dtype"] == "f32"]
+    main_rec = next(r for r in f32 if r["name"] == "process_b4_64x64_shifted")
+    return {
+        "name": "swin_window_attention_f32", "route": "cuda", "source": "instarevive_tpu_torch/csrc/swin_attention.cu",
+        "replaces": "instarevive_tpu/ops/swin_attention.py:48", "form": "swin_tf32",
+        "launches": step_launches["swin_window_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in f32), "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+        "library_composition_ms": main_rec["library_composition_ms"], "main_shape": main_rec["shape"],
+        "build": {k[4:]: v for k, v in build.items() if k.startswith("f32_")}, "shapes": f32,
+    }
+
+
 def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
     """K6's entry of the ``kernels`` line: f32, the stage-1 blur's times at
     top level; ``launches`` is the count of the 3-step ``--task swinir`` run."""
@@ -2309,7 +2381,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
-    fwd_build = conv_build = bwd_build = None
+    fwd_build = conv_build = bwd_build = swin_build = None
     for name, (seconds, cached, log) in cuda_build.build_libraries().items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
@@ -2322,6 +2394,8 @@ def main() -> None:
             conv_build = gn_conv_build_report(log)
         if name == "flash_attn_bwd":
             bwd_build = bwd_build_report(log)
+        if name == "swin_attention":
+            swin_build = swin_build_report(log)
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
@@ -2350,7 +2424,9 @@ def main() -> None:
     fwd["with_lse"] = lse_records  # the training forward: the same kernel writing the row log-sum-exp
     fwd["build"] = fwd_build
     swin = kernel_entry("swin_window_attention", "swin_attention.cu", "instarevive_tpu/ops/swin_attention.py:48",
-                        launches, tiled, swin_records, "process_b4_64x64_shifted", train)
+                        launches, tiled, [r for r in swin_records if r["dtype"] == "bf16"], "process_b4_64x64_shifted",
+                        train)
+    swin.update(form="swin16", build={k[5:]: v for k, v in swin_build.items() if k.startswith("bf16_")})
     up = kernel_entry("upsample2x", "norm_kernels.cu", "instarevive_tpu/ops/norm_kernels.py:143",
                       launches, tiled, up_records, "b4_256_256", train)
     conv = kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
@@ -2373,6 +2449,7 @@ def main() -> None:
                      launches, tiled, apply_records, "b4_512_128", train),
         up,
         swin,
+        swin_f32_entry(swin_records, swin_build, swinir_train[2]["card_vs_cpu"]["f32_launches"]),
         filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
         *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3], bwd_build),
         *f32_entries(attn_records, dq_records, dkv_records, (d64_fwd, d64_dq, d64_dkv), planes_records, fwd_build,

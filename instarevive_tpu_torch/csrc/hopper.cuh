@@ -1,9 +1,12 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
+// Hopper (sm_90a) building blocks shared by the port's kernels:
 // flash_attn_fwd.cu (K1 at head dims 64, 72 and 512), flash_attn_bwd.cu (K2),
-// gn_conv.cu (K3) and tf32_planes.cu (the split prepass of the f32 forms).
+// gn_conv.cu (K3), swin_attention.cu (K4) and tf32_planes.cu (the split
+// prepass of the f32 forms).
 //
 // * mbarriers: init, arrive (with an expected byte count for TMA), wait on a
 //   phase's parity;
+// * cp.async of 4 bytes, with an mbarrier arrival when the thread's copies
+//   land;
 // * TMA: cp.async.bulk.tensor loads of one box of a tiled tensor map into
 //   shared memory, completing on an mbarrier (3-D and 4-D);
 // * wgmma: shared-memory descriptors, the fences and commit/wait around
@@ -65,6 +68,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // After the mbarriers are initialised, before any thread or TMA uses them.
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// 4 bytes from global src to shared dst.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// One arrival on bar once this thread's cp.async copies so far have landed
+// (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // One box of `map` at the given coordinates (innermost first) into shared

@@ -21,8 +21,10 @@ with a shift it is ``roll -> that function -> roll back``.
 
 Rounding points, both versions alike: q, k, v as stored; scores, softmax and
 P.V in f32 (the bf16 kernel carries P as two bf16 terms, 16 bits of mantissa,
-so nothing of P is lost that an f32 sum would keep); one rounding to qkv's
-dtype at the end.
+so nothing of P is lost that an f32 sum would keep; the f32 kernel runs each
+product as three tf32 products of split operands, hi = tf32(x), lo =
+tf32(x - hi), lo.hi + hi.lo + hi.hi, within about 2^-21 of the f32 product);
+one rounding to qkv's dtype at the end.
 
 On a CPU tensor the wrapper runs ``swin_window_attention_plain``; on a CUDA
 tensor it launches the kernel or raises. The TPU kernel has no backward (the
@@ -47,10 +49,13 @@ from instarevive_tpu_torch.ops.cuda_build import load_library
 from instarevive_tpu_torch.ops.norm_kernels import check_nhwc, raise_on_error
 
 WINDOW = 8         # the kernel's window: 64 tokens, four 16-row MMA tiles
-MAX_HEAD_DIM = 32  # head dims up to this, zero-padded to it in shared memory only
-# Most heads a block of the bf16 kernel takes together (15 KB of shared memory
-# each); the grid is windows x (heads / heads per block).
-MAX_HEADS_PER_BLOCK = 6
+MAX_HEAD_DIM = 32  # head dims up to this
+# The kernel's block (``geometry`` in the CUDA source): 8 warps; in shared
+# memory a ring of up to MAX_SLOTS slots, each the per-head tiles of one work
+# item (G heads); two blocks an SM (SM_SMEM bytes, of which each block
+# reserves 1 KB more) wherever one slot fits them, else one block of up to
+# SMEM_LIMIT; an item's part of a token row is at most ROW_UNITS 4-byte words.
+SMEM_LIMIT, SM_SMEM, SMEM_HEADER, MAX_SLOTS, ROW_UNITS = 232448, 233472, 128, 4, 288
 
 
 def swin_window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
@@ -86,22 +91,55 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def heads_per_block(heads: int, windows: int, sms: int) -> int:
-    """Heads a block of the bf16 kernel takes: the largest divisor of
-    ``heads`` up to ``MAX_HEADS_PER_BLOCK`` that still leaves a block for
-    every SM, else 1. More heads a block make a token's row one long coalesced
-    read (at 256 windows 0.024 ms with 6 against 0.045 ms with 1); too few
-    blocks leave SMs idle (at 64 windows 0.017 ms with 6, 0.012-0.013 ms with
-    3 or 2). Figures: ``tools/time_swin_attention.py`` on an NVIDIA H100 80GB
-    HBM3 at 700 W, 6 heads of 30."""
-    fits = [d for d in range(1, MAX_HEADS_PER_BLOCK + 1) if heads % d == 0 and windows * (heads // d) >= sms]
-    return max(fits, default=1)
+def ring_geometry(g: int, hd: int, element_size: int):
+    """(slots of the ring, blocks an SM by shared memory) of the kernel's
+    block for work items of ``g`` heads of ``hd``; 0 slots: the item does not
+    fit."""
+    slot = 3 * g * 64 * 40 * 2 if element_size == 2 else g * (2 * 64 * 36 + 32 * 68) * 4
+    if 3 * g * hd * element_size // 4 > ROW_UNITS:
+        return 0, 0
+    two = (SM_SMEM // 2 - 1024 - SMEM_HEADER) // slot
+    one = (SMEM_LIMIT - SMEM_HEADER) // slot
+    return (min(MAX_SLOTS, two), 2) if two >= 1 else (min(MAX_SLOTS, one), 1)
+
+
+@lru_cache(maxsize=None)
+def heads_per_item(heads: int, hd: int, windows: int, sms: int, bf16: bool) -> int:
+    """Heads a work item of the kernel takes (a divisor of ``heads``). A
+    block's warps (8; 16 when the items are no more than the SMs, one block
+    each) take an item's 4 x G (head, 16-row) tasks, and an SM holds two
+    blocks of 8 warps. Of the sizes whose block fits and whose items the card
+    takes in one wave (at most two an SM): the one with the least work on the
+    busiest SM (its items times the task rounds an item takes), the larger on
+    a tie; where no size gives one wave, the largest (fewest items, each with
+    its copies' latency). At 6 heads of 30 on 132 SMs, bf16: 3 at 64 windows,
+    6 at 80-104 and 256; f32 (whose block holds three heads at most): 3 at 64,
+    96, 104 and 256 windows, 2 at 80: the fastest of 1, 2, 3 and 6 heads an
+    item in ``tools/time_swin_attention.py`` at each of those shapes (NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    es = 2 if bf16 else 4
+    geo = {g: ring_geometry(g, hd, es) for g in range(1, heads + 1) if heads % g == 0}
+    sizes = [g for g, (slots, _) in geo.items() if slots]
+
+    def items(g):
+        return windows * (heads // g)
+
+    def rounds(g):  # items on the busiest SM
+        return -(-items(g) // sms)
+
+    def work(g):  # task rounds an item takes, counted in part where warps idle (the other block takes them)
+        warps = 16 if items(g) <= sms else 8
+        return rounds(g) * max(1.0, 4 * g / warps)
+
+    one_wave = [g for g in sizes if rounds(g) <= geo[g][1]]
+    return min(one_wave, key=lambda g: (work(g), -g)) if one_wave else max(sizes)
 
 
 def _f32_table(t: torch.Tensor, shape: tuple, like: torch.Tensor, what: str, grad_ok: bool = False) -> None:
-    if t.shape != shape or t.dtype != torch.float32 or t.device != like.device or not t.is_contiguous():
-        raise ValueError(f"swin_window_attention: {what} must be a contiguous {shape} f32 tensor on {like.device}, "
-                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if t.shape != shape or t.dtype != torch.float32 or t.device != like.device or not t.is_contiguous() \
+            or t.data_ptr() % 16:
+        raise ValueError(f"swin_window_attention: {what} must be a contiguous, 16-byte aligned {shape} f32 tensor on "
+                         f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     if t.requires_grad and not grad_ok:
         raise RuntimeError(f"swin_window_attention: {what} requires grad and takes no gradient here")
 
@@ -116,7 +154,8 @@ def _launch(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
         err = _kernel()(
             qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
             b, h, w, heads, c // heads, window, shift, float(scale),
-            heads_per_block(heads, b * n_windows, _sm_count(qkv.device.index)), int(qkv.dtype == torch.bfloat16),
+            heads_per_item(heads, c // heads, b * n_windows, _sm_count(qkv.device.index), qkv.dtype == torch.bfloat16),
+            int(qkv.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on_error(err, "swin_window_attention")

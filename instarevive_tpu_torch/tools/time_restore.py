@@ -163,7 +163,9 @@ def kernel_table(fn, label: str, top: int = 28) -> None:
               "GroupNorm, upsample (norm_kernels.cu)": ("stats_kernel", "fold_kernel", "apply_kernel", "upsample_kernel"),
               "flash attention at head dims 64/72 (flash_attn_fwd.cu)": ("hopper::kernel", "fwd_tf32::kernel"),
               "flash attention at head dim 512 (flash_attn_fwd.cu)": ("d512::kernel", "d512_tf32::kernel"),
-              "window attention (swin_attention.cu)": ("swin_tc::kernel", "swin_f32::kernel"),
+              # swin_tc, swin_f32: the forms before swin16 and swin_tf32, for a profile of an older tree
+              "window attention (swin_attention.cu)": ("swin16::kernel", "swin_tf32::kernel", "swin_tc::kernel",
+                                                       "swin_f32::kernel"),
               "layout transposes": ("nchwToNhwc", "nhwcToNchw"),
               "library GroupNorm": ("GroupNorm", "group_norm", "RowwiseMoments"),
               "dtype/layout copies": ("copy_kernel", "CatArrayBatchedCopy", "direct_copy"),

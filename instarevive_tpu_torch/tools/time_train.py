@@ -194,7 +194,8 @@ GROUPS = {  # first match wins, in this order
     "K2b flash dk/dv (flash_attn_bwd.cu)": tuple(f"{ns}::kernel<{d}, {kv}" for ns in ("bwd16", "bwd32", "bwd_tf32")
                                                for d in (64, 72) for kv in ("true", "(bool)1")),
     "split prepass of the f32 forms (tf32_planes.cu)": ("tf32_split::kernel",),
-    "K4 window attention (swin_attention.cu)": ("swin_tc::", "swin_f32::"),
+    # swin_tc, swin_f32: the forms before swin16 and swin_tf32, for a profile of an older tree
+    "K4 window attention (swin_attention.cu)": ("swin16::", "swin_tf32::", "swin_tc::", "swin_f32::"),
     "K5c upsample (norm_kernels.cu)": ("upsample_kernel",),
     "K6 filter2d (filter2d.cu)": ("filter2d_kernel",),
     "optimizer, EMA, clipping (foreach)": ("multi_tensor_apply",),

@@ -702,6 +702,44 @@ def test_swin_window_attention_matches_plain(cuda, dtype, b, h, w, heads, hd, sh
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,shift", [(3, 64, 104, 4), (3, 64, 104, 3)])
+def test_swin_window_attention_walks_more_windows_than_blocks(cuda, dtype, b, h, w, shift):
+    """312 windows (936 f32 items): more work items than the persistent grid
+    has blocks, and not a multiple of them, so blocks walk different counts
+    and every ring slot's barrier phase turns an odd number of times in some."""
+    qkv, bias, mask = _swin_inputs(cuda, dtype, b, h, w, 6, 30, shift, seed=3)
+    out = swin_window_attention(qkv, bias, mask, 6, 8, 30**-0.5, shift)
+    ref = swin_window_attention_plain(qkv, bias, mask, 6, 8, 30**-0.5, shift)
+    assert torch.isfinite(out).all() and (out.float() - ref.float()).abs().max().item() <= SWIN_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swin_window_attention_corner_windows_wrap_both_ways(cuda, dtype):
+    """Shift 4 with SwinIR's own mask: the last window of each image takes its
+    rows from two image rows and each row from two pixel runs; its output
+    lands in the four corners of the map."""
+    b, h, w = 2, 24, 40
+    qkv, bias, mask = _swin_inputs(cuda, dtype, b, h, w, 6, 30, 4, seed=4)
+    out = swin_window_attention(qkv, bias, mask, 6, 8, 30**-0.5, 4)
+    ref = swin_window_attention_plain(qkv, bias, mask, 6, 8, 30**-0.5, 4)
+    rows, cols = [*range(4), *range(h - 4, h)], [*range(4), *range(w - 4, w)]
+    corner = (out.float() - ref.float())[:, rows][:, :, cols]
+    assert torch.isfinite(out).all() and corner.abs().max().item() <= SWIN_BOUNDS[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= SWIN_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,shift", [(4, 64, 64, 4), (1, 64, 64, 3), (3, 8, 8, 0)])
+def test_swin_window_attention_repeats_its_bits(cuda, dtype, b, h, w, shift):
+    qkv, bias, mask = _swin_inputs(cuda, dtype, b, h, w, 6, 30, shift, seed=5)
+    first = swin_window_attention(qkv, bias, mask, 6, 8, 30**-0.5, shift)
+    assert torch.equal(first, swin_window_attention(qkv, bias, mask, 6, 8, 30**-0.5, shift))
+
+
+@pytest.mark.cuda
 def test_swin_window_attention_f32_takes_an_odd_head_dim(cuda):
     qkv, bias, mask = _swin_inputs(cuda, torch.float32, 2, 16, 16, 3, 7, 4)
     out = swin_window_attention(qkv, bias, mask, 3, 8, 0.4, 4)

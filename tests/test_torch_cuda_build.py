@@ -18,7 +18,7 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-WGMMA_LIBRARIES = ("flash_attn_fwd", "flash_attn_bwd", "gn_conv", "tf32_planes")  # the libraries that include hopper.cuh
+WGMMA_LIBRARIES = ("flash_attn_fwd", "flash_attn_bwd", "gn_conv", "swin_attention", "tf32_planes")  # the libraries that include hopper.cuh
 
 
 def _paths():

@@ -249,6 +249,44 @@ def test_gradients_match_the_jax_custom_vjp():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL, rtol=GRAD_ATOL)
 
 
+# bf16: x and w in bf16, gamma, beta and bias f32. Each side rounds x's and
+# w's gradients to bf16 once and sums in f32 in its own order (the port an
+# f32 convolution of the bf16 activation, JAX one in bf16), which can carry a
+# value across a rounding boundary: two bf16 steps of the largest magnitude,
+# 2^-7 of it. gamma's and beta's are f32 sums of the same bf16 terms: the same
+# bound. bias's gradient is the sum of the bf16 cotangent over N*H*W pixels;
+# the port takes it in f32, JAX in bf16 (the bias is added in x's dtype), so
+# JAX is as far from the exact sum as its own bf16 partial sums carry it: the
+# bound is that distance, computed here, plus the same two steps.
+BF16_GRAD_REL = 2.0**-7
+
+
+def test_bf16_gradients_match_the_jax_custom_vjp():
+    """The five gradients of a bf16 call (x and w bf16) through the port's
+    backward against jax.grad of the JAX custom_vjp, at the bounds above."""
+    mats = _mats(1, 8, 8, 128, 128, seed=6)
+    cot = np.random.default_rng(7).standard_normal((1, 8, 8, 128)).astype(np.float32)
+    inputs = [torch.from_numpy(m) for m in mats]
+    inputs[0], inputs[3] = inputs[0].to(torch.bfloat16), inputs[3].to(torch.bfloat16)
+    inputs = [t.requires_grad_() for t in inputs]
+    (tconv.gn_silu_conv3x3(*inputs).float() * torch.from_numpy(cot)).sum().backward()
+
+    def loss(*args):
+        return jnp.sum(jax_gn_silu_conv3x3(*args, interpret=True).astype(jnp.float32) * jnp.asarray(cot))
+
+    args = [jnp.asarray(m) for m in mats]
+    args[0], args[3] = args[0].astype(jnp.bfloat16), args[3].astype(jnp.bfloat16)
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*args)
+    assert inputs[0].grad.dtype == inputs[3].grad.dtype == torch.bfloat16
+    exact_bias = torch.from_numpy(cot).to(torch.bfloat16).double().sum(dim=(0, 1, 2)).numpy()
+    for i, (t, w) in enumerate(zip(inputs, want)):
+        got, w = t.grad.double().numpy(), np.asarray(w.astype(jnp.float32), dtype=np.float64)
+        limit = BF16_GRAD_REL * np.abs(w).max()
+        if i == 4:
+            limit += np.abs(w - exact_bias).max()
+        assert np.abs(got - w).max() <= limit, ("x", "gamma", "beta", "w", "bias")[i]
+
+
 @pytest.mark.parametrize("wanted", [range(5), (0, 3)])
 def test_autograd_function_backward_matches_the_jax_custom_vjp(monkeypatch, wanted):
     """The card's ``_GnSiluConv3x3``, its kernels' forward stood in for by the
