@@ -24,7 +24,11 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    (bf16, and f32 on split-tf32 products) its registers, the heads an item,
    shared memory, ring slots and blocks an SM at ``process``'s shape, and its
    mma.sync (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS) counts, failing on
-   a spill or a count of 0;
+   a spill or a count of 0; for the 2-D filter every instantiation's
+   registers and spills (one a band width and rows a thread), the shared
+   memory and blocks an SM of the degradation shapes' plans, and the FFMA,
+   LDS and LDGSTS counts of the main path's instantiation, failing on a spill
+   or a count of 0;
 3. holds every kernel against its plain PyTorch version at the shapes the
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
@@ -47,7 +51,9 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    repeat; each form's registers, shared memory, blocks an SM and SASS counts
    in the build report) and the per-sample reflect-padded 2-D filter (K6,
    f32, at the shapes of both degradation programs, ragged shapes, a shared
-   kernel, and a border case that tells reflect from edge repeat);
+   kernel, the card tests' hard shapes: 1, 2, 5, 6, 64 and 128 channels,
+   reflect at its limit; one launch a call at every C, the same bits twice,
+   and a border case that tells reflect from edge repeat);
 4. runs a small full-width pipeline (depth cut) in f32 on the card and on
    the CPU, and holds the two against each other; the f32 runs here (this
    one, the depth-cut f32 server of 7, the f32 train steps of 8 and 12) tally
@@ -938,6 +944,47 @@ def swin_build_report(log: str):
     missing = [f"{key}_{op}" for key in ("bf16", "f32") for op in ("HMMA", "LDSM", "LDGSTS") if not report[f"{key}_{op}"]]
     if missing or spills:
         fail(f"the window attention's kernels lack {missing} or spill {spills}")
+    return report
+
+
+def filter_build_report(log: str):
+    """K6 as built: registers and spill stores of each instantiation
+    (``e{band width}_r{rows}``; ptxas, when this run compiled it), the plan
+    its launcher picks at the degradation shapes (``filter2d_plan``: band
+    width, rows a thread, tiles, shared memory a block, blocks an SM), and
+    the FFMA, LDS and LDGSTS counts and all instructions of the main path's
+    instantiation (3 channels, 4 rows) in the library's SASS, and the FFMA and
+    all instructions of its innermost loop with the most FFMA (a chunk of 4
+    taps). Fails on a spill or a count of 0."""
+    import shutil
+
+    from instarevive_tpu_torch.ops import cuda_build
+    from instarevive_tpu_torch.ops.filters import filter2d_plan
+    from instarevive_tpu_torch.tools.time_degrade import FILTER_CASES
+
+    report = ptxas_figures(log, r"filter2d_kernelILi(\d)ELi(\d)E", lambda m: f"e{m.group(1)}_r{m.group(2)}")
+    for name, shape, taps, _ in FILTER_CASES[:4]:
+        report[f"{name}_plan"] = filter2d_plan(shape, taps)
+    so = cuda_build.library_path("filter2d", cuda_build.LIBRARIES["filter2d"])
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    text = "".join(part for part in sass.split("Function : ")[1:] if "filter2d_kernelILi3ELi4E" in part.split("\n", 1)[0])
+    ins = [(int(addr, 16), op.split(".")[0], rest) for addr, op, rest in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", text)]
+    ops = [op for _, op, _ in ins]
+    report.update({f"e3_r4_{op}": ops.count(op) for op in ("FFMA", "LDS", "LDGSTS")}, e3_r4_instructions=len(ops))
+    # the innermost loop with the most FFMA (a full chunk of 4 taps): its FFMA among all its instructions
+    loops = [(int(m.group(1), 16), addr) for addr, op, rest in ins if op == "BRA"
+             for m in [re.search(r"0x([0-9a-f]+)", rest)] if m and int(m.group(1), 16) < addr]
+    inner = [(lo, hi) for lo, hi in loops if not any(lo <= lo2 and hi2 < hi for lo2, hi2 in loops)]
+    bodies = [[op for addr, op, _ in ins if lo <= addr <= hi] for lo, hi in inner]
+    if bodies:
+        body = max(bodies, key=lambda b: (b.count("FFMA"), b.count("FFMA") / len(b)))
+        report.update(e3_r4_loop_FFMA=body.count("FFMA"), e3_r4_loop_instructions=len(body))
+    print(f"[build] filter2d.cu: {report}", flush=True)
+    spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
+    if spills or not all(report[f"e3_r4_{op}"] for op in ("FFMA", "LDS", "LDGSTS")):
+        fail(f"the 2-D filter's kernels spill {spills} or lack FFMA, LDS or LDGSTS: {report}")
     return report
 
 
@@ -2319,9 +2366,10 @@ def swin_f32_entry(records, build, step_launches):
     }
 
 
-def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
-    """K6's entry of the ``kernels`` line: f32, the stage-1 blur's times at
-    top level; ``launches`` is the count of the 3-step ``--task swinir`` run."""
+def filter_entry(records, swinir_counts, dmd_counts, degrade_launches, build):
+    """K6's entry of the ``kernels`` line: f32, the stage-1 blur's times,
+    plan and share of the bound at top level, the build report beside;
+    ``launches`` is the count of the 3-step ``--task swinir`` run."""
     main_rec = next(r for r in records if r["name"] == "realesrgan_hq_b2_512")
     return {
         "name": "filter2d", "route": "cuda", "source": "instarevive_tpu_torch/csrc/filter2d.cu",
@@ -2331,8 +2379,10 @@ def filter_entry(records, swinir_counts, dmd_counts, degrade_launches):
         "max_rel_err": max(r["max_rel_err"] for r in records),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
         "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+        "share_of_bound": main_rec["share_of_bound"], "plan": main_rec["plan"],
+        "form": "register tiles of rows x 12 flats, two warp groups over a tile's input rows, a block a tile on cp.async",
         "library": "reflect F.pad + one grouped F.conv2d: the plain version itself", "main_shape": main_rec["shape"],
-        "shapes": records,
+        "build": build, "shapes": records,
     }
 
 
@@ -2381,7 +2431,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     set_precision()  # no TF32: the plain versions' f32 convolutions are f32
 
-    fwd_build = conv_build = bwd_build = swin_build = None
+    fwd_build = conv_build = bwd_build = swin_build = filter_build = None
     for name, (seconds, cached, log) in cuda_build.build_libraries().items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
@@ -2396,6 +2446,8 @@ def main() -> None:
             bwd_build = bwd_build_report(log)
         if name == "swin_attention":
             swin_build = swin_build_report(log)
+        if name == "filter2d":
+            filter_build = filter_build_report(log)
 
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
@@ -2450,7 +2502,7 @@ def main() -> None:
         up,
         swin,
         swin_f32_entry(swin_records, swin_build, swinir_train[2]["card_vs_cpu"]["f32_launches"]),
-        filter_entry(filter_records, swinir_train[0], train[0], degrade_launches),
+        filter_entry(filter_records, swinir_train[0], train[0], degrade_launches, filter_build),
         *d64_entries(d64_fwd, d64_dq, d64_dkv, cldm[3], bwd_build),
         *f32_entries(attn_records, dq_records, dkv_records, (d64_fwd, d64_dq, d64_dkv), planes_records, fwd_build,
                      bwd_build, {"dmd_f32_step": timing["card_vs_cpu"]["f32_launches"],

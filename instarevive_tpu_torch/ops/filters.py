@@ -30,7 +30,7 @@ from instarevive_tpu_torch.ops.norm_kernels import raise_on_error
 
 _PAD_MODES = {"edge": "replicate", "reflect": "reflect"}
 MAX_TAPS = 41            # the kernel's largest kh and kw
-MAX_SHARED = 232448      # bytes of shared memory a block may use
+PLAN_FIELDS = ("e", "rows", "tiles", "smem", "blocks_per_sm", "sms")
 
 
 def gaussian_kernel1d(ksize: int, sigma: float = 0.0) -> np.ndarray:
@@ -75,18 +75,31 @@ def filter2d_plain(img: torch.Tensor, kernel: torch.Tensor, dilation: int = 1) -
 @lru_cache(maxsize=None)
 def _kernel():
     lib = load_library("filter2d")
-    lib.filter2d_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.filter2d_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.filter2d_f32.restype = ctypes.c_int
-    lib.filter2d_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.filter2d_smem_bytes.restype = ctypes.c_int
+    lib.filter2d_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.filter2d_plan.restype = ctypes.c_int
     return lib
+
+
+def filter2d_plan(shape, taps, align: int = 16) -> dict:
+    """The launch ``filter2d`` makes on the current card for a (B, H, W, C)
+    image and (kh, kw) taps, with the image and the output ``align``-byte
+    aligned, as its C launcher picks it (``filter2d_plan`` in
+    ``csrc/filter2d.cu``): ``e`` channels a band, ``rows`` output rows a
+    thread, ``tiles`` blocks (one a tile), ``smem`` bytes a block,
+    ``blocks_per_sm`` resident, ``sms`` of the card."""
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    raise_on_error(_kernel().filter2d_plan(*shape, *taps, align, plan), "filter2d_plan")
+    return dict(zip(PLAN_FIELDS, plan))
 
 
 def filter2d(img: torch.Tensor, kernel: torch.Tensor, dilation: int = 1) -> torch.Tensor:
     """Correlate NHWC ``img`` (B, H, W, C) with a per-sample (B, kh, kw) or a
     shared (kh, kw) kernel over the reflect-padded image; same shape out. On
     the card (``dilation == 1``): f32, contiguous, odd kh and kw up to 41 with
-    ``kh // 2 < H`` and ``kw // 2 < W``; any H, W and C."""
+    ``kh // 2 < H`` and ``kw // 2 < W``; any H, W and C, one launch
+    (``filter2d_plan`` says how it tiles)."""
     _check_filter(img, kernel)
     if not img.is_cuda or dilation != 1:
         return filter2d_plain(img, kernel, dilation)
@@ -103,20 +116,14 @@ def filter2d(img: torch.Tensor, kernel: torch.Tensor, dilation: int = 1) -> torc
         raise ValueError(f"filter2d: the kernel takes odd sizes up to {MAX_TAPS}, got {kh} x {kw}")
     if kh // 2 >= h or kw // 2 >= w:
         raise ValueError(f"filter2d: reflect padding of {kh // 2} x {kw // 2} needs a larger image than {h} x {w}")
-    if img.numel() >= 2**31 or b > 65535 or h > 65535 * 32:
-        raise ValueError(f"filter2d: shape {tuple(img.shape)} is beyond the kernel's 32-bit index or its grid")
-    lib = _kernel()
-    # channels a launch takes: all of them unless their patch outgrows a block's shared memory
-    base, per = lib.filter2d_smem_bytes(kh, kw, 0), lib.filter2d_smem_bytes(kh, kw, 1)
-    chunk = c if per == base else min(c, (MAX_SHARED - base) // (per - base))  # kw == 1 has no halo to grow
+    if img.numel() >= 2**31:
+        raise ValueError(f"filter2d: shape {tuple(img.shape)} is beyond the kernel's 32-bit index")
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for c0 in range(0, c, chunk):
-            err = lib.filter2d_f32(img.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, kh, kw,
-                                   int(kernel.dim() == 3), c0, min(chunk, c - c0), stream)
-            raise_on_error(err, "filter2d")
-            filter2d.launches += 1
+        err = _kernel().filter2d_f32(img.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, kh, kw,
+                                     int(kernel.dim() == 3), torch.cuda.current_stream().cuda_stream)
+    raise_on_error(err, "filter2d")
+    filter2d.launches += 1
     if filter2d.shapes is not None:
         key = (b, h, w, c, kh, kw, kernel.dim() == 3)
         filter2d.shapes[key] = filter2d.shapes.get(key, 0) + 1

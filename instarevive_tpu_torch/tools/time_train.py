@@ -2,7 +2,7 @@
 goes.
 
     python -m instarevive_tpu_torch.tools.time_train [--task dmd|swinir|cldm|reflow] [--steps 5] [--depth N]
-        [--lowmem] [--profile] [--f32]
+        [--lowmem] [--profile] [--f32] [--prepass]
 
 Writes seeded PNGs to a temporary folder, builds the trainer's task
 (``train.launcher.DMDTask``, ``SwinIRTask`` or ``CLDMTask``) with the
@@ -18,7 +18,9 @@ optimizer; for SwinIR forward, backward, optimizer; for cldm and reflow
 get_input, forward, backward, optimizer), peak memory and the
 attention-kernel launches of one step beside what the configuration implies. With ``--profile`` it also prints
 device time by kernel group from ``torch.profiler`` over one step, and that
-step's wall against its kernel time.
+step's wall against its kernel time. With ``--prepass`` (and ``--f32``) it
+tallies one step's launches of the split prepass by shape and times each
+shape alone through its C launcher beside its bytes bound.
 
 ``train_argv``, ``write_images``, ``expected_launches``,
 ``cldm_expected_launches`` and ``time_steps`` are what ``chip_smoke.py``'s
@@ -240,6 +242,62 @@ def profile_step(task, batch) -> None:
         print(f"[profile]     {ms:8.3f} ms  x{count:<5d} {key[:140]}", flush=True)
 
 
+def prepass_alone(task, batch, iters: int = 50) -> Dict[str, float]:
+    """The split prepass (``csrc/tf32_planes.cu``) alone: its launches of one
+    step tallied by shape, then each shape timed through its C launcher (no
+    wrapper) on seeded operands, beside its bytes bound (the operand read
+    once, each plane written once, over 3.35 TB/s). Prints a line a shape and
+    the launch-weighted sums of one step."""
+    import ctypes
+
+    import torch
+
+    from instarevive_tpu_torch.ops import tf32_planes as P
+    from instarevive_tpu_torch.ops.cuda_build import load_library
+
+    P.tf32_planes.shapes = {}
+    try:
+        task.run_step(batch)
+        torch.cuda.synchronize()
+        shapes = P.tf32_planes.shapes
+    finally:
+        P.tf32_planes.shapes = None
+    fn = load_library("tf32_planes").tf32_planes
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    total = {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
+    for (bh, n, d, natural, transposed), count in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        x = torch.randn(bh, n, d, device="cuda")
+        planes = [torch.empty_like(x) if natural else None for _ in range(2)] + \
+            [x.new_empty(bh, d, P.pad8(n)) if transposed else None for _ in range(2)]
+        args = (x.data_ptr(), *(None if p is None else p.data_ptr() for p in planes), bh, n, d, stream)
+        for _ in range(5):
+            fn(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            if fn(*args):
+                sys.exit(f"tf32_planes launch failed at {(bh, n, d, natural, transposed)}")
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        nbytes = 4 * (x.numel() + sum(p.numel() for p in planes if p is not None))
+        bound = nbytes / 3.35e12 * 1e3
+        total["launches"] += count
+        total["ms"] += count * ms
+        total["bound_ms"] += count * bound
+        print(f"[prepass] (bh, n, d)=({bh}, {n}, {d}) natural={natural} transposed={transposed}: {count} launches a "
+              f"step, {ms:.4f} ms alone, bound {bound:.4f} ms (bytes), {bound / ms:.0%} of it", flush=True)
+    if total["launches"]:
+        print(f"[prepass] one step: {total['launches']} launches, {total['ms']:.2f} ms alone in all against "
+              f"{total['bound_ms']:.2f} ms of bytes bound ({total['bound_ms'] / total['ms']:.0%}); launch-weighted gap "
+              f"{total['ms'] - total['bound_ms']:.2f} ms a step", flush=True)
+    else:
+        print("[prepass] no prepass launch in this step (only the f32 forms launch it: add --f32)", flush=True)
+    return total
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
@@ -250,6 +308,7 @@ def main(argv=None) -> None:
     ap.add_argument("--lowmem", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--f32", action="store_true", help="f32 compute (the trainers' default) instead of bf16")
+    ap.add_argument("--prepass", action="store_true", help="the split prepass alone at one step's shapes")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo))
     import instarevive_tpu_torch
@@ -289,6 +348,8 @@ def main(argv=None) -> None:
         record.update(depth=task.gen.depth, launches_expected=expected_launches(task.gen.depth, task.gen.grad_checkpoint))
     if ldm:
         record.update(launches_expected=cldm_attention_counts(cfg))
+    if args.prepass:
+        record["prepass_alone"] = prepass_alone(task, batches[-1])
     print(json.dumps(record), flush=True)
     if args.profile:
         profile_step(task, batches[-1])

@@ -832,31 +832,102 @@ def _filter_inputs(cuda, shape, taps, per_sample, seed=0):
         ((2, 33, 65, 3), (41, 41), True),     # the padding nearly as large as the image
         ((2, 90, 130, 3), (5, 13), True),     # rectangular taps
         ((1, 21, 21, 2), (41, 41), False),    # reflect at its limit: pad 20 of 21
-        ((1, 64, 96, 64), (41, 41), True),    # too many channels for one block's shared memory: four launches
+        ((1, 64, 96, 64), (41, 41), True),    # 16 bands of 4 channels, one launch
         ((1, 40, 40, 5), (1, 1), True),       # a single tap
+        ((1, 48, 70, 128), (41, 41), True),   # 32 bands of 4 channels
+        ((2, 37, 53, 1), (21, 21), True),     # one channel, H and W no multiple of any tile
+        ((2, 45, 29, 2), (13, 13), True),     # two channels, ragged
+        ((2, 19, 27, 5), (7, 7), True),       # five channels: bands of one
+        ((1, 41, 50, 3), (41, 41), False),    # shared taps at 41, reflect at its limit in H
+        ((1, 130, 90, 6), (21, 21), False),   # bands of two channels, shared taps
     ],
 )
 def test_filter2d_matches_plain(cuda, shape, taps, per_sample):
+    """One launch at every C; within the bound of the plain version; the
+    same inputs twice give the same bits."""
     img, kernel = _filter_inputs(cuda, shape, taps, per_sample)
     before = filter2d.launches
     out = filter2d(img, kernel)
     torch.cuda.synchronize()
-    assert filter2d.launches - before == (4 if shape[3] == 64 else 1)
+    assert filter2d.launches - before == 1
     ref = filter2d_plain(img, kernel)
     assert out.shape == img.shape and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= FILTER_REL_BOUND * ref.abs().max().item()
+    assert torch.equal(filter2d(img, kernel), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 2, 1])
+@pytest.mark.parametrize("c,taps,w,e", [(1, (21, 21), 384, 1), (2, (13, 13), 200, 2), (3, (21, 21), 130, 3),
+                                        (5, (9, 9), 90, 1), (6, (7, 7), 70, 2), (64, (41, 41), 50, 4)])
+def test_filter2d_every_instantiation_matches_plain(cuda, c, taps, w, e, rows):
+    """Every band width and rows a thread the launcher can pick, each at the
+    first image height where its plan (``filter2d_plan``, from the shape and
+    the card's SM count) takes those rows: one launch, within the bound of
+    the plain version."""
+    from instarevive_tpu_torch.ops.filters import filter2d_plan
+
+    h = next((h for h in range(taps[0] // 2 + 1, 2048) if filter2d_plan((2, h, w, c), taps)["rows"] == rows), None)
+    assert h is not None, f"no height up to 2048 takes {rows} rows a thread at (2, h, {w}, {c})"
+    plan = filter2d_plan((2, h, w, c), taps)
+    assert plan["e"] == e and plan["tiles"] >= 1 and plan["blocks_per_sm"] >= 1, plan
+    img, kernel = _filter_inputs(cuda, (2, h, w, c), taps, True)
+    before = filter2d.launches
+    out = filter2d(img, kernel)
+    torch.cuda.synchronize()
+    assert filter2d.launches - before == 1
+    ref = filter2d_plain(img, kernel)
+    assert (out - ref).abs().max().item() <= FILTER_REL_BOUND * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_filter2d_after_a_plan_of_fewer_taps(cuda):
+    """A plan query for fewer taps, then a launch of the same instantiation
+    that takes more shared memory (both under the 48 KB default): the query
+    leaves the launch's limit alone."""
+    from instarevive_tpu_torch.ops.filters import filter2d_plan
+
+    shape = (2, 90, 130, 3)
+    small, large = filter2d_plan(shape, (5, 5)), filter2d_plan(shape, (5, 13))
+    assert (small["e"], small["rows"]) == (large["e"], large["rows"]) and small["smem"] < large["smem"] < 48 * 1024
+    filter2d_plan(shape, (5, 5))
+    img, kernel = _filter_inputs(cuda, shape, (5, 13), True)
+    ref = filter2d_plain(img, kernel)
+    assert (filter2d(img, kernel) - ref).abs().max().item() <= FILTER_REL_BOUND * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_filter2d_misaligned_image_takes_bands_of_one(cuda):
+    """An image 4 bytes off a 16-byte boundary: the launcher drops to bands of
+    one channel (its 4E-byte copies need 4E-byte alignment) and still matches."""
+    from instarevive_tpu_torch.ops.filters import filter2d_plan
+
+    shape, taps = (1, 40, 30, 64), (7, 7)
+    img, kernel = _filter_inputs(cuda, shape, taps, True)
+    flat = torch.empty(img.numel() + 1, device=cuda)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(img)
+    assert shifted.data_ptr() % 16 == 4 and filter2d_plan(shape, taps, align=4)["e"] == 1
+    out = filter2d(shifted, kernel)
+    ref = filter2d_plain(img, kernel)
     assert (out - ref).abs().max().item() <= FILTER_REL_BOUND * ref.abs().max().item()
 
 
 @pytest.mark.cuda
 def test_filter2d_reflects_and_repeats_its_bits(cuda):
     """One-neighbour taps on a ramp: reflect reads pixel 1 at the left border
-    (an edge repeat would read pixel 0). The same inputs twice: the same bits."""
+    and row 1 at the top (an edge repeat would read pixel 0, row 0). The same
+    inputs twice: the same bits."""
     ramp = torch.arange(40, dtype=torch.float32, device=cuda)
     img = (ramp[None, :, None, None] * 100 + ramp[None, None, :, None]).expand(2, 40, 40, 3).contiguous()
     kernel = torch.zeros(3, 3, device=cuda)
     kernel[1, 0] = 1.0
     out = filter2d(img, kernel)
     assert out[0, 5, 0, 0].item() == img[0, 5, 1, 0].item() and out[0, 5, 39, 0].item() == img[0, 5, 38, 0].item()
+    kernel = torch.zeros(3, 3, device=cuda)
+    kernel[0, 1] = 1.0  # reads the row above: reflect reads row 1 at the top
+    out = filter2d(img, kernel)
+    assert out[0, 0, 5, 0].item() == img[0, 1, 5, 0].item() and out[0, 39, 5, 0].item() == img[0, 38, 5, 0].item()
     img, kernel = _filter_inputs(cuda, (2, 200, 168, 3), (21, 21), True, seed=3)
     assert torch.equal(filter2d(img, kernel), filter2d(img, kernel))
 

@@ -67,6 +67,45 @@ def test_filter2d_plain_matches_the_pallas_kernel_in_interpret_mode(name):
     assert np.abs(got.numpy() - want).max() <= TOL
 
 
+RAGGED_CASES = {  # shapes the card kernel's tiles (16 R rows x 96 flats, channel bands) do not divide
+    "gray_37x53_k21": ((2, 37, 53, 1), 21, True),
+    "two_channels_45x29_k13": ((1, 45, 29, 2), 13, True),
+    "five_channels_19x27_k7": ((2, 19, 27, 5), 7, True),
+    "c64_24x30_k41": ((1, 24, 30, 64), 41, True),
+    "c128_18x22_k5x9": ((1, 18, 22, 128), (5, 9), True),
+    "reflect_limit_21x21_k41_shared": ((1, 21, 21, 2), 41, False),
+    "pitch_390_floats_90x130": ((2, 90, 130, 3), (5, 13), True),
+}
+
+
+@pytest.mark.parametrize("name", list(RAGGED_CASES))
+def test_filter2d_plain_matches_jax_at_ragged_shapes(name):
+    shape, k, per_sample = RAGGED_CASES[name]
+    img, kernel = _inputs(shape, k, per_sample, seed=11 + len(name))
+    want = np.asarray(jax_filters.filter2d(jnp.asarray(img), jnp.asarray(kernel)))
+    got = filters.filter2d_plain(torch.from_numpy(img), torch.from_numpy(kernel))
+    assert np.abs(got.numpy() - want).max() <= TOL
+
+
+RAGGED_PALLAS_CASES = {  # ragged W and odd channel counts that _pallas_filter_ok still admits (H a multiple of 8)
+    "five_channels_w131_k21": ((1, 16, 131, 5), 21, True),
+    "gray_w200_k7_shared": ((2, 24, 200, 1), 7, False),
+    "two_channels_w130_k5x13": ((1, 8, 130, 2), (5, 13), True),
+}
+
+
+@pytest.mark.parametrize("name", list(RAGGED_PALLAS_CASES))
+def test_filter2d_plain_matches_the_pallas_kernel_at_ragged_shapes(name):
+    shape, k, per_sample = RAGGED_PALLAS_CASES[name]
+    kh, kw = (k, k) if isinstance(k, int) else k
+    assert jax_filters._pallas_filter_ok(shape[1], shape[2], kh, kw)
+    img, kernel = _inputs(shape, k, per_sample, seed=5 + len(name))
+    per = kernel if per_sample else np.broadcast_to(kernel[None], (shape[0], *kernel.shape))
+    want = np.asarray(jax_filters._filter2d_pallas(jnp.asarray(img), jnp.asarray(per), interpret=True))
+    got = filters.filter2d_plain(torch.from_numpy(img), torch.from_numpy(kernel))
+    assert np.abs(got.numpy() - want).max() <= TOL
+
+
 @pytest.mark.parametrize("dilation", [2, 3])
 def test_dilated_filter2d_matches_jax(dilation):
     img, kernel = _inputs((2, 32, 40, 3), 5, True, seed=9)
