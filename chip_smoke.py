@@ -97,7 +97,22 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    shape held in 11, frozen weights unchanged, one ``train_step`` under
    ``torch.cuda.set_sync_debug_mode("error")``; times warm steps; takes one
    ``--task reflow`` step; and holds one depth-cut f32 step at head dim 64 on
-   the card against the CPU, counting its f32 attention and prepass launches.
+   the card against the CPU, counting its f32 attention and prepass launches;
+13. runs the sampling CLI's function (``instarevive_tpu_torch.sample``) at
+   full v1 width in bf16 with seeded random weights: two prompts (the null
+   embedding, guidance 4.5) at 512x512, 20 steps of DPM-Solver++(2M), DDIM,
+   SA-Solver and DDPM (respaced to 20); images checked, every kernel's
+   launches held to 20 DiT calls and a decode, every K1 (head dims 72 and
+   512) and K3 shape one held in 3; wall a call, ms a step, peak memory;
+   one call of each under ``torch.cuda.set_sync_debug_mode("error")``;
+   then a depth-cut f32 copy (DiT depth 2, 4 DPM-Solver steps) on the card
+   against the CPU;
+14. runs the validation function (``instarevive_tpu_torch.validate``) on two
+   seeded 512x512 PNGs with 13 ControlNet-Half stages and 20 steps: degrade
+   on the card, SwinIR, encode, sample, decode, PSNR and SSIM finite; K1
+   20 x 2 x (28 + 13) + 2, K4 48, K6 as the draws say, every K1, K3, K4 and K6
+   shape held; wall and peak memory; then a depth-cut f32 control step on the
+   card against the CPU.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -284,6 +299,8 @@ def conv_phase():
         (128, 512, 512), (64, 512, 512), (256, 512, 256), (512, 256, 128),
     ]
     cases = [(f"b4_{hw}_{c}_{co}", (4, hw, hw, c, co), ("bf16",)) for hw, c, co in b4]
+    # the same layers at batch 2: a sample call's decode, a validation batch's encode and decode
+    cases += [(f"b2_{hw}_{c}_{co}", (2, hw, hw, c, co), ("bf16",)) for hw, c, co in b4]
     encode = [(1024, 128, 128), (512, 128, 256), (512, 256, 256), (256, 256, 512), (256, 512, 512), (128, 512, 512)]
     cases += [(f"tiled_encode_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in encode]
     tile = [(72, 512, 512), (144, 512, 512), (288, 512, 256), (288, 256, 256), (576, 256, 128), (576, 128, 128)]
@@ -697,6 +714,10 @@ def kernel_phase():
         ("vae_mid_tile576_decode", (1, 1, 5184, 5184, 512), None, ("bf16",)),   # its decode, one 72^2 latent tile
         ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0), ("bf16", "f32")),
         ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None, ("f32",)),        # an f32 DMD step's frozen-VAE encode
+        # batch 2 without guidance: the validation DiT (bf16) and the depth-cut f32 sample and control runs
+        ("dit_self_b2", (2, 16, 1024, 1024, 72), None, ("bf16", "f32")),
+        ("dit_cross_b2", (2, 16, 1024, 300, 72), None, ("bf16", "f32")),
+        ("vae_mid_b2", (2, 1, 4096, 4096, 512), None, ("bf16",)),               # a sample call's decode, validate's
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -1162,7 +1183,7 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans: int = 1):
+def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans: int = 1, control_depth: int = 0):
     """Launches the configuration implies: per SwinIR forward one window
     attention for every block and one upsample for every step of its
     upsampler; per VAE encode 2 fused convs for
@@ -1170,13 +1191,14 @@ def expected_counts(pipe, dit_forwards: int, encodes: int, decodes: int, cleans:
     + 2; one moments launch inside every fused conv and one for each of the
     two standalone norms of an encode or a decode, which also launch the
     apply kernel; levels - 1 upsamples per decode; attention twice per DiT
-    block and once per VAE mid block. Inference launches no backward kernel
-    and no degradation filter."""
+    block (``control_depth`` ControlNet-Half copies included) and once per VAE
+    mid block. Inference launches no backward kernel and no degradation
+    filter."""
     levels, blocks = len(pipe.vae.ch_mult), len(pipe.vae.encoder.down[0].block)
     convs = encodes * 2 * (levels * blocks + 2) + decodes * 2 * (levels * (blocks + 1) + 2)
     norms = 2 * (encodes + decodes)
     swin_blocks = sum(len(layer.residual_group.blocks) for layer in pipe.swinir.layers)
-    return {"flash_attn_fwd": dit_forwards * 2 * pipe.dit.depth + encodes + decodes,
+    return {"flash_attn_fwd": dit_forwards * 2 * (pipe.dit.depth + control_depth) + encodes + decodes,
             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0, "gn_silu_conv3x3": convs,
             "gn_stats_fold": convs + norms, "gn_apply": norms,
             "upsample2x": decodes * (levels - 1) + cleans * len(pipe.swinir.ups),
@@ -1236,14 +1258,17 @@ def check_image(out, shape, what):
         fail(f"{what}: output outside [0, 1]")
 
 
-def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=None, conv_dtype="bf16"):
+def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=None, conv_dtype="bf16",
+                 attn_dims=(512,), filter_records=None):
     """Run ``call`` with every kernel count at 0 and (unless their records
-    are None) the window attention, the fused convolution and (with
-    ``attn_records``) the flash-attention forward at head dim 512 tallying
-    their launches by shape. Every shape the call gave a tallied kernel must
-    be one its phase held against the plain version, the convolution's in
-    ``conv_dtype`` (an f32 run's in f32); with ``key``, the measured count
-    goes into that record under it. Returns the call's output."""
+    are None) the window attention, the fused convolution, (with
+    ``attn_records``) the flash-attention forward at the head dims
+    ``attn_dims`` and (with ``filter_records``) the 2-D filter tallying their
+    launches by shape. Every shape the call gave a tallied kernel must be one
+    its phase held against the plain version, the convolution's and the
+    attention's in ``conv_dtype`` (an f32 run's in f32); with ``key``, the
+    measured count goes into that record under it. Returns the call's
+    output."""
     import torch
 
     from instarevive_tpu_torch.ops.attention import flash_attention
@@ -1259,9 +1284,15 @@ def tally_shapes(call, what, conv_records, swin_records, key=None, attn_records=
         tallied.append((gn_silu_conv3x3, "(N, H, W, C, Co, dtype)",
                         {(*r["shape"], r["dtype"]): r for r in conv_records if r["dtype"] == conv_dtype}, None))
     if attn_records is not None:  # the other head dims' shapes are counted but not held here
-        tallied.append((flash_attention, "(B, H, Nq, Nk, D, masked, with log-sum-exp) at D = 512",
+        tallied.append((flash_attention, f"(B, H, Nq, Nk, D, masked, with log-sum-exp) at D in {attn_dims}",
                         {(*r["shape"], r["masked"], False): r for r in attn_records
-                         if r["dtype"] == "bf16" and r["shape"][4] == 512}, lambda shape: shape[4] == 512))
+                         if r["dtype"] == conv_dtype and r["shape"][4] in attn_dims},
+                        lambda shape: shape[4] in attn_dims))
+    if filter_records is not None:
+        from instarevive_tpu_torch.ops.filters import filter2d
+
+        tallied.append((filter2d, "(B, H, W, C, kh, kw, per-sample)",
+                        {(*r["shape"], *r["taps"], r["per_sample"]): r for r in filter_records}, None))
     reset_counts()
     for fn, _, _, _ in tallied:
         fn.shapes = {}
@@ -2240,6 +2271,208 @@ def cldm_step_card_against_cpu(cfg_full, merge, conv_records):
                 get_input_again={"gn_silu_conv3x3_f32": again[0], "tf32_planes_conv_weights": again[1]})
 
 
+# The depth-cut f32 sampling runs, card against CPU: each latent relative to
+# the CPU's largest magnitude (random weights under guidance take latents to
+# tens); matmuls and the attention kernels sum in other orders than the CPU.
+SAMPLE_F32_BOUND = 1e-3
+SAMPLE_ALGOS = ("dpm-solver", "ddim", "sa-solver", "iddpm")
+SAMPLE_STEPS = 20  # every sampler here takes one model call a step (iddpm over 20 respaced steps)
+CONTROL_DEPTH = 13
+
+
+def random_projections(dit, seed):
+    """The ControlNet-Half projections of ``dit`` drawn N(0, 0.02^2) in
+    place, so that the branch moves the output (they start at zero)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in dit.named_parameters():
+            if name.startswith("controlnet.") and "_proj." in name:
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen))
+
+
+def depth_cut_f32(cfg_full, control_depth=0):
+    """(CPU, card) pipelines holding only a full-width DiT cut to depth 2 (with
+    ``control_depth`` ControlNet-Half stages and random projections), f32, the
+    same seeded weights on both."""
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+
+    cfg = merge(cfg_full, {"dit": {"depth": 2}})
+    cpu = init_params(build_pipeline(cfg, device="cpu", components=("dit",), control_depth=control_depth), seed=2)
+    random_projections(cpu.dit, 3)
+    gpu = build_pipeline(cfg, device="cuda", components=("dit",), control_depth=control_depth)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def sample_phase(cfg_full, pipe, conv_records, attn_records):
+    """``instarevive_tpu_torch.sample``'s function at full v1 width in bf16:
+    two prompts (the null embedding, guidance 4.5, so the DiT runs at batch 4)
+    at 512x512 with each sampler for 20 steps. Each call: images of the right
+    shape, finite, in [0, 1]; every kernel launched as 20 DiT calls and one
+    decode imply, every K1 and K3 shape one the kernel phases held; then
+    timed. One call of each under the sync debug mode ``error``: the loops
+    read nothing back. Then a depth-cut f32 copy (4 DPM-Solver steps, one
+    prompt) on the card against the CPU. Returns (the 20-step DPM-Solver call's launches,
+    timing records)."""
+    import torch
+
+    from instarevive_tpu_torch import sample as S
+    from instarevive_tpu_torch.tools.time_restore import wall
+
+    null = pipe.dit.y_embedder.y_embedding[:300][None].float()
+    y = null.expand(2, -1, -1)
+    shape = S.latent_shape(["a photo", "a red panda"], 512)
+    counts, timing = {}, {}
+    for algo in SAMPLE_ALGOS:
+        kw = dict(algo=algo, step=SAMPLE_STEPS, cfg_scale=4.5)
+
+        def call(latents=False):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            return (S.sample_latents if latents else S.sample_images)(pipe, y, y, shape, generator=gen, **kw)
+
+        t = time.perf_counter()
+        imgs = tally_shapes(call, f"sample {algo}", conv_records, None, "launches_sample", attn_records,
+                            attn_dims=(72, 512))
+        first = time.perf_counter() - t
+        check_image(imgs, (2, 512, 512, 3), f"sample {algo}")
+        counts[algo] = check_counts(f"sample {algo}", pipe, SAMPLE_STEPS, 0, 1, cleans=0)
+        if not torch.equal(call(), imgs):
+            fail(f"sample {algo}: the same seed gave other bits")
+        torch.cuda.reset_peak_memory_stats()
+        walls = wall(call, 2)
+        latent_walls = wall(lambda: call(latents=True), 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        timing[algo] = dict(first_call_s=first, wall_s=walls, latents_wall_s=latent_walls,
+                            ms_per_step=min(latent_walls) / SAMPLE_STEPS * 1e3, peak_gib=peak,
+                            flash_attn_fwd=counts[algo]["flash_attn_fwd"])
+        print(f"[sample] {card_line()}: {algo} x {SAMPLE_STEPS} steps, 2 prompts at 512x512 (DiT batch 4 under "
+              f"guidance 4.5): images (2, 512, 512, 3) finite in [0, 1], the same bits twice; K1 launches "
+              f"{counts[algo]['flash_attn_fwd']} = {SAMPLE_STEPS} x 2 x {pipe.dit.depth} + 1 (the decode), every "
+              f"kernel as the configuration implies; wall a call {min(walls):.4f} s (runs "
+              f"{', '.join(f'{w:.4f}' for w in walls)}; first {first:.2f} s), sampling alone "
+              f"{timing[algo]['ms_per_step']:.2f} ms a step, peak allocated {peak:.2f} GiB", flush=True)
+
+    # every sampler's loop waits for the card nowhere: one call of each under the sync debug mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for algo in SAMPLE_ALGOS:
+            S.sample_latents(pipe, y, y, shape, generator=torch.Generator(device="cuda").manual_seed(1), algo=algo,
+                             step=SAMPLE_STEPS, cfg_scale=4.5)
+    except RuntimeError:
+        import traceback
+
+        fail(f"sample: a sampler synchronised with the card:\n{traceback.format_exc()}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[sample] one {SAMPLE_STEPS}-step call of each sampler under torch.cuda.set_sync_debug_mode('error'): no "
+          "synchronising call", flush=True)
+
+    # depth-cut f32: 4 DPM-Solver steps of one prompt (DiT batch 2), card against CPU
+    cpu, gpu = depth_cut_f32(cfg_full)
+    z0 = torch.randn(1, 64, 64, 4, generator=torch.Generator().manual_seed(4))
+    cnull = cpu.dit.y_embedder.y_embedding[:300][None]
+    gnull = cnull.cuda()
+    kw = dict(algo="dpm-solver", step=4, cfg_scale=4.5)
+    got = tally_shapes(lambda: S.sample_latents(gpu, gnull, gnull, tuple(z0.shape), x_init=z0.cuda(), **kw),
+                       "sample depth-cut f32", None, None, attn_records=attn_records, conv_dtype="f32",
+                       attn_dims=(72,))
+    k1 = read_counts()["flash_attn_fwd"]
+    ref = S.sample_latents(cpu, cnull, cnull, tuple(z0.shape), x_init=z0, **kw)
+    err = (got.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    print(f"[sample] depth-cut f32 (DiT depth 2 at full width, 4 DPM-Solver steps, one prompt): card against CPU "
+          f"max error {err:.3e} of max|CPU| {ref.abs().max().item():.3e} (bound {SAMPLE_F32_BOUND:.0e}); K1 "
+          f"launches {k1} (4 x 2 x 2)", flush=True)
+    if not err <= SAMPLE_F32_BOUND or k1 != 4 * 2 * 2:
+        fail(f"sample depth-cut f32: card against CPU {err} (bound {SAMPLE_F32_BOUND}), K1 launches {k1}")
+    timing["f32_card_vs_cpu"] = dict(max_rel_err=err, bound=SAMPLE_F32_BOUND, flash_attn_fwd_f32=k1)
+    del cpu, gpu
+    return counts["dpm-solver"], timing
+
+
+def validate_phase(cfg_full, pipe, conv_records, swin_records, attn_records, filter_records):
+    """``instarevive_tpu_torch.validate``'s batch function at full v1 width in
+    bf16: two seeded 512x512 PNGs, read as the CLI reads them, degraded on the
+    card, cleaned, encoded, 20 DPM-Solver steps with 13 ControlNet-Half stages,
+    decoded; PSNR and SSIM finite. Every kernel launched as that implies (K1
+    20 x 2 x (28 + 13) + the encode's + the decode's; K4 48; K6 2 or 3 as the
+    draws say), every K1, K3, K4 and K6 shape held in the kernel phases; then
+    timed. Then one depth-cut f32 control step (2 DPM-Solver steps with one
+    stage) on the card against the CPU. Returns (the batch's launches, timing
+    record)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from instarevive_tpu_torch import validate as V
+    from instarevive_tpu_torch.data import realesrgan
+    from instarevive_tpu_torch.data.dataset import ImageFolderDataset, PrefetchLoader
+    from instarevive_tpu_torch.ops.degradation import make_generators
+    from instarevive_tpu_torch.tools.time_restore import wall
+
+    y = pipe.dit.y_embedder.y_embedding[:300][None].float()
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(5)
+        for i in range(2):
+            Image.fromarray(rng.integers(0, 256, (560, 600, 3), dtype=np.uint8)).save(os.path.join(tmp, f"{i}.png"))
+        ds = ImageFolderDataset(tmp, out_size=512, crop_type="center", use_hflip=False)
+        batch = next(iter(PrefetchLoader(ds, 2, shuffle=False, drop_last=False)))
+    hq01 = torch.from_numpy(batch["hq"]).cuda().float() / 255.0
+    cfg = realesrgan.RealESRGANDegradationConfig()
+
+    def call():
+        gens = make_generators(231, "cuda")
+        draws = realesrgan.draw_degradation(gens.host, cfg, 2)
+        return V.validate_batch(pipe, y, hq01, gens, cfg, SAMPLE_STEPS, draws=draws), draws
+
+    t = time.perf_counter()
+    out, draws = tally_shapes(call, "validate", conv_records, swin_records, "launches_validate", attn_records,
+                              attn_dims=(72, 512), filter_records=filter_records)
+    first = time.perf_counter() - t
+    for key in ("lq", "pred", "hq"):
+        check_image(out[key], (2, 512, 512, 3), f"validate {key}")
+    got, want = read_counts(), expected_counts(pipe, SAMPLE_STEPS, 1, 1, 1, control_depth=CONTROL_DEPTH)
+    want["filter2d"] = 2 + int(draws.blur2)
+    if got != want:
+        fail(f"validate: kernel launches {got}, expected {want}")
+    metrics = {k: out[k].tolist() for k in ("psnr", "ssim")}
+    if not all(np.isfinite(v) for vals in metrics.values() for v in vals):
+        fail(f"validate: metrics not finite {metrics}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = wall(call, 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timing = dict(first_call_s=first, wall_s=walls, peak_gib=peak, psnr=metrics["psnr"], ssim=metrics["ssim"],
+                  flash_attn_fwd=got["flash_attn_fwd"])
+    print(f"[validate] {card_line()}: one batch of 2 seeded 512x512 PNGs, {SAMPLE_STEPS} DPM-Solver steps with "
+          f"{CONTROL_DEPTH} ControlNet-Half stages: outputs (2, 512, 512, 3) finite in [0, 1], PSNR {metrics['psnr']} "
+          f"SSIM {metrics['ssim']}; K1 launches {got['flash_attn_fwd']} = {SAMPLE_STEPS} x 2 x ({pipe.dit.depth} + "
+          f"{CONTROL_DEPTH}) + 2, K4 {got['swin_window_attention']}, K6 {got['filter2d']} (second blur drawn: "
+          f"{bool(draws.blur2)}), every kernel as the configuration implies; wall a batch {min(walls):.4f} s (runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)}; first {first:.2f} s), peak allocated {peak:.2f} GiB", flush=True)
+
+    # one depth-cut f32 control step: 2 DPM-Solver steps with one stage, card against CPU
+    cpu, gpu = depth_cut_f32(cfg_full, control_depth=1)
+    gen = torch.Generator().manual_seed(6)
+    c, z0 = torch.randn(2, 64, 64, 4, generator=gen), torch.randn(2, 64, 64, 4, generator=gen)
+    cy = cpu.dit.y_embedder.y_embedding[:300][None]
+    gz = tally_shapes(lambda: V.control_sample(gpu, cy.cuda(), c.cuda(), z0.cuda(), 2), "validate depth-cut f32",
+                      None, None, attn_records=attn_records, conv_dtype="f32", attn_dims=(72,))
+    k1 = read_counts()["flash_attn_fwd"]
+    ref = V.control_sample(cpu, cy, c, z0, 2)
+    err = (gz.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    print(f"[validate] depth-cut f32 control step (DiT depth 2 + 1 ControlNet-Half stage at full width, random "
+          f"projections, 2 DPM-Solver steps, batch 2): card against CPU max error {err:.3e} of max|CPU| "
+          f"{ref.abs().max().item():.3e} (bound {SAMPLE_F32_BOUND:.0e}); K1 launches {k1} (2 x 2 x 3)", flush=True)
+    if not err <= SAMPLE_F32_BOUND or k1 != 2 * 2 * 3:
+        fail(f"validate depth-cut f32: card against CPU {err} (bound {SAMPLE_F32_BOUND}), K1 launches {k1}")
+    timing["f32_card_vs_cpu"] = dict(max_rel_err=err, bound=SAMPLE_F32_BOUND, flash_attn_fwd_f32=k1)
+    return got, timing
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -2423,7 +2656,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from instarevive_tpu_torch.config import load_config
     from instarevive_tpu_torch.ops import cuda_build
-    from instarevive_tpu_torch.pipelines.build import set_precision
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params, set_precision
 
     card = card_line()
     print(card, flush=True)
@@ -2470,6 +2703,14 @@ def main() -> None:
     degrade_launches, degrade_timing = degrade_phase(filter_records)
     swinir_train = swinir_train_phase(cfg, swin_records, filter_records)
     cldm = cldm_phase(held64, conv_records)
+    # the v1 pipeline in bf16 with 13 ControlNet-Half stages, its projections zero as init_params leaves them
+    sampling_pipe = init_params(build_pipeline(cfg, dtype=torch.bfloat16, device="cuda", control_depth=CONTROL_DEPTH),
+                                seed=0)
+    sample_counts, sample_timing = sample_phase(cfg, sampling_pipe, conv_records, attn_records)
+    validate_counts, validate_timing = validate_phase(cfg, sampling_pipe, conv_records, swin_records, attn_records,
+                                                      filter_records)
+    del sampling_pipe
+    torch.cuda.empty_cache()
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -2487,7 +2728,7 @@ def main() -> None:
     for entry in (swin, up):  # forward launches of the SwinIR trainer; their backward is the plain version's
         entry["launches_swinir_train_run"] = swinir_train[0][entry["name"]]
         entry["launches_swinir_train_step"] = swinir_train[1][entry["name"]]
-    print(json.dumps({"kernels": [
+    kernels = [
         fwd,
         d512_entry(attn_records, fwd_build),
         dict(kernel_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "instarevive_tpu/ops/attention.py:127",
@@ -2508,7 +2749,13 @@ def main() -> None:
                      bwd_build, {"dmd_f32_step": timing["card_vs_cpu"]["f32_launches"],
                                  "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]},
                      conv_records, conv_build, conv_grads),
-    ], "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2], "degrade": degrade_timing}), flush=True)
+    ]
+    for entry in kernels:  # a 20-step DPM-Solver sample call and a validation batch, by kernel
+        if entry["name"] in sample_counts:
+            entry["launches_sample_call"] = sample_counts[entry["name"]]
+            entry["launches_validate_batch"] = validate_counts[entry["name"]]
+    print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
+                      "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -38,12 +38,13 @@ def is_diffusers_pixart(sd: Mapping[str, Any]) -> bool:
     return any(k.startswith("transformer_blocks.") or ".base_block." in k for k in sd)
 
 
-def pixart_keys_from_diffusers(depth: int) -> Dict[str, Tuple[str, ...]]:
+def pixart_keys_from_diffusers(depth: int, control_depth: int = 0) -> Dict[str, Tuple[str, ...]]:
     """Native PixArt key -> the diffusers keys (with ``.base_block.`` already
     rewritten to ``.``) whose tensors, joined along the first axis, give it.
-    ``y_embedder.y_embedding`` is optional in a checkpoint; ControlNet-Half's
-    ``controlnet.N.*`` keys have no native counterpart in a model built without
-    it and are not named."""
+    ``y_embedder.y_embedding`` is optional in a checkpoint. With
+    ``control_depth`` the ControlNet-Half stages are named too: each copied
+    block under ``controlnet.{j}.copied_block`` in the diffusers block layout,
+    the projections under their native names."""
     keys: Dict[str, Tuple[str, ...]] = {}
 
     def linear(native: str, *parts: str) -> None:
@@ -57,8 +58,7 @@ def pixart_keys_from_diffusers(depth: int) -> Dict[str, Tuple[str, ...]]:
     keys["y_embedder.y_embedding"] = ("caption_projection.y_embedding",)
     linear("y_embedder.y_proj.fc1", "caption_projection.linear_1")
     linear("y_embedder.y_proj.fc2", "caption_projection.linear_2")
-    for i in range(depth):
-        blk, tb = f"blocks.{i}", f"transformer_blocks.{i}"
+    def block(blk: str, tb: str) -> None:
         keys[f"{blk}.scale_shift_table"] = (f"{tb}.scale_shift_table",)
         linear(f"{blk}.attn.qkv", f"{tb}.attn1.to_q", f"{tb}.attn1.to_k", f"{tb}.attn1.to_v")
         linear(f"{blk}.attn.proj", f"{tb}.attn1.to_out.0")
@@ -67,6 +67,11 @@ def pixart_keys_from_diffusers(depth: int) -> Dict[str, Tuple[str, ...]]:
         linear(f"{blk}.cross_attn.proj", f"{tb}.attn2.to_out.0")
         linear(f"{blk}.mlp.fc1", f"{tb}.ff.net.0.proj")
         linear(f"{blk}.mlp.fc2", f"{tb}.ff.net.2")
+
+    for i in range(depth):
+        block(f"blocks.{i}", f"transformer_blocks.{i}")
+    for j in range(control_depth):
+        block(f"controlnet.{j}.copied_block", f"controlnet.{j}.copied_block")
     keys["final_layer.scale_shift_table"] = ("scale_shift_table",)
     linear("final_layer.linear", "proj_out")
     return keys

@@ -57,12 +57,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_pipeline(args):
+def load_pipeline(args, control_depth: int = 0):
     """What every entry point of the port builds from its flags (``config``,
     ``device``, ``bf16``, ``random_init``, the checkpoint paths,
     ``null_embed``): the pipeline on the device, in bf16 on the card, with its
-    weights, and the (1, L, C) null-prompt embedding ``y``. Exits when asked
-    for a card that is not there."""
+    weights (and ``control_depth`` ControlNet-Half stages), and the (1, L, C)
+    null-prompt embedding ``y``. Exits when asked for a card that is not
+    there."""
     import torch
 
     from instarevive_tpu_torch.config import load_config
@@ -74,7 +75,7 @@ def load_pipeline(args):
         raise SystemExit("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
     dtype = torch.bfloat16 if (args.bf16 or args.device == "cuda") else None
-    pipe = build_pipeline(load_config(args.config), dtype=dtype, device=device)
+    pipe = build_pipeline(load_config(args.config), dtype=dtype, device=device, control_depth=control_depth)
     init_params(pipe, seed=0)
     if not args.random_init:
         if not (args.ckpt or args.swinir_ckpt or args.vae_ckpt):

@@ -13,8 +13,13 @@ key layout (``blocks.0.attn.qkv.weight`` and so on).
 ``remat_policy: full`` of the JAX package: a block's activations are
 recomputed in the backward, so its attention forward kernel runs twice).
 
-Not ported yet (they raise if configured): ControlNet-Half, KV compression,
-windowed blocks, qk-norm, micro-conditioning and ``remat_policy: dots``.
+ControlNet-Half: built with ``control_depth`` N, the model holds N copied
+blocks (``controlnet.{j}.copied_block``) with zero-initialised projections
+(``controlnet.{j}.after_proj``, ``controlnet.0.before_proj``); ``forward(...,
+c=, control_depth=)`` runs them on the condition latent.
+
+Not ported yet (they raise if configured): KV compression, windowed blocks,
+qk-norm, micro-conditioning and ``remat_policy: dots``.
 """
 
 from __future__ import annotations
@@ -168,8 +173,21 @@ _UNPORTED = {
 }
 
 
+class ControlBlock(nn.Module):
+    """One ControlNet-Half stage: a copied block and its zero-initialised skip
+    projection; the first stage also projects the condition tokens in."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, first: bool):
+        super().__init__()
+        if first:
+            self.before_proj = Linear(dim, dim)
+        self.copied_block = PixArtBlock(dim, num_heads, mlp_ratio)
+        self.after_proj = Linear(dim, dim)
+
+
 class PixArt(nn.Module):
-    """PixArt(MS) DiT with a per-input-size sincos position embedding."""
+    """PixArt(MS) DiT with a per-input-size sincos position embedding, and
+    with ``control_depth`` > 0 the ControlNet-Half branch."""
 
     def __init__(
         self,
@@ -186,6 +204,7 @@ class PixArt(nn.Module):
         class_dropout_prob: float = 0.1,
         pe_interpolation: float = 1.0,
         grad_checkpoint: bool = False,
+        control_depth: int = 0,
         **unported,
     ):
         super().__init__()
@@ -210,35 +229,65 @@ class PixArt(nn.Module):
             PixArtBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth)
         )
         self.final_layer = T2IFinalLayer(hidden_size, patch_size**2 * self.out_channels)
+        if control_depth >= depth:
+            raise ValueError(f"control_depth {control_depth} must be below depth {depth}")
+        self.controlnet = nn.ModuleList(
+            ControlBlock(hidden_size, num_heads, mlp_ratio, first=j == 0) for j in range(control_depth)
+        )
 
     @property
     def depth(self) -> int:
         return len(self.blocks)
 
+    def _block(self, blk, tokens, y_tokens, t6, y_mask, remat):
+        if remat:  # the blocks draw no random numbers: no generator state to keep
+            return checkpoint(blk, tokens, y_tokens, t6, y_mask, use_reentrant=False, preserve_rng_state=False)
+        return blk(tokens, y_tokens, t6, y_mask)
+
     def forward(self, x: torch.Tensor, timestep: torch.Tensor, y: torch.Tensor,
-                y_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y_mask: Optional[torch.Tensor] = None, c: Optional[torch.Tensor] = None,
+                control_depth: int = 0) -> torch.Tensor:
         """x: (B,H,W,C) NHWC latent; timestep: (B,); y: (B,L,caption_channels);
-        y_mask: (B,L) bool or None. Returns (B,H,W,out_channels)."""
+        y_mask: (B,L) bool or None; c: the ControlNet condition latent, shaped
+        as x, which turns on the first ``control_depth`` (at most the built
+        count) control stages. Returns (B,H,W,out_channels)."""
         b, hh, ww, _ = x.shape
         p = self.patch_size
         gh, gw = hh // p, ww // p
-        tokens = self.x_embedder.proj(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
-        pe = device_constant(sincos_pos_embed_2d,
-                             (self.hidden_size, gh, gw, self.pe_interpolation, self.base_size), tokens.device)
-        tokens = tokens + pe.to(tokens.dtype)[None]
+        pe = None
 
+        def embed(latent):
+            nonlocal pe
+            tokens = self.x_embedder.proj(latent.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+            if pe is None:
+                pe = device_constant(sincos_pos_embed_2d,
+                                     (self.hidden_size, gh, gw, self.pe_interpolation, self.base_size), tokens.device)
+            return tokens + pe.to(tokens.dtype)[None]
+
+        tokens = embed(x)
         t_emb = self.t_embedder(timestep)
         t6 = self.t_block(t_emb).reshape(b, 6, self.hidden_size)
         y_tokens = self.y_embedder(y)
         remat = self.grad_checkpoint and torch.is_grad_enabled()
-        for blk in self.blocks:
-            if remat:  # the blocks draw no random numbers: no generator state to keep
-                tokens = checkpoint(blk, tokens, y_tokens, t6, y_mask, use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                tokens = blk(tokens, y_tokens, t6, y_mask)
+        if c is None:
+            for blk in self.blocks:
+                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, remat)
+        else:
+            if control_depth > len(self.controlnet):
+                raise ValueError(f"control_depth {control_depth}: the model was built with {len(self.controlnet)}")
+            # ControlNet-Half: base block 0; stage j's skip feeds base block j + 1
+            c_tokens = embed(c)
+            tokens = self._block(self.blocks[0], tokens, y_tokens, t6, y_mask, remat)
+            for j in range(control_depth):
+                stage = self.controlnet[j]
+                if j == 0:
+                    c_tokens = tokens + stage.before_proj(c_tokens)
+                c_tokens = self._block(stage.copied_block, c_tokens, y_tokens, t6, y_mask, remat)
+                tokens = self._block(self.blocks[j + 1], tokens + stage.after_proj(c_tokens), y_tokens, t6, y_mask,
+                                     remat)
+            for blk in self.blocks[control_depth + 1:]:
+                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, remat)
 
         out = self.final_layer(tokens, t_emb)
         out = out.reshape(b, gh, gw, p, p, self.out_channels).permute(0, 1, 3, 2, 4, 5)
         return out.reshape(b, gh * p, gw * p, self.out_channels)
-

@@ -74,3 +74,19 @@ def rgb_to_ycbcr(img: torch.Tensor) -> torch.Tensor:
 def ycbcr_to_rgb(img: torch.Tensor) -> torch.Tensor:
     """JPEG full-range YCbCr->RGB, NHWC in [0, 255]."""
     return (img - constant(_CHROMA_OFFSET, img.device)) @ constant(_YCBCR2RGB_JPEG, img.device)
+
+
+# BT.601 full-range to video-range, as basicsr's rgb2ycbcr (MATLAB's convention)
+_RGB2YCBCR_MATLAB = ((65.481, -37.797, 112.0), (128.553, -74.203, -93.786), (24.966, 112.0, -18.214))
+_YCBCR_MATLAB_BIAS = (16.0, 128.0, 128.0)
+
+
+def rgb2ycbcr_matlab(img: torch.Tensor, y_only: bool = False) -> torch.Tensor:
+    """MATLAB/basicsr rgb2ycbcr on [0, 1] NHWC input, output in [0, 1]; the Y
+    channel alone (kept as a channel) with ``y_only``."""
+    m = constant(_RGB2YCBCR_MATLAB, img.device)
+    if y_only:
+        out = (img @ m[:, 0] + 16.0)[..., None]
+    else:
+        out = img @ m + constant(_YCBCR_MATLAB_BIAS, img.device)
+    return out / 255.0

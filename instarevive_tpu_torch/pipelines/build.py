@@ -53,7 +53,7 @@ def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module
 
 def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
                    device="cuda", dit_master_weights: bool = False, swinir_master_weights: bool = False,
-                   components: Optional[Sequence[str]] = None) -> RestorationPipeline:
+                   components: Optional[Sequence[str]] = None, control_depth: int = 0) -> RestorationPipeline:
     """Build the models on ``device`` (the card unless the caller asks for
     the CPU); ``dtype`` (e.g. torch.bfloat16) is the
     compute dtype of every matmul and conv. Norm statistics, softmax and the
@@ -66,8 +66,10 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
     reaches an f32 parameter; ``swinir_master_weights`` does the same for
     SwinIR; a frozen model is cast as before. ``components`` (of 'swinir',
     'vae', 'dit') builds only those models and leaves the others None, for a
-    trainer that needs one of them. Everything comes back frozen and in eval
-    mode: the trainer turns on ``requires_grad`` for what it trains."""
+    trainer that needs one of them. ``control_depth`` gives the DiT that
+    many ControlNet-Half stages, which ``process(use_control=True)`` runs.
+    Everything comes back frozen and in eval mode: the trainer turns on
+    ``requires_grad`` for what it trains."""
     set_precision()
     sw = dict(cfg.get("swinir", {}))
     vae = dict(cfg.get("vae", {}))
@@ -78,9 +80,10 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
         pipe = RestorationPipeline(
             swinir=SwinIR(**sw) if "swinir" in want else None,
             vae=AutoencoderKL(**vae) if "vae" in want else None,
-            dit=PixArt(**dit) if "dit" in want else None,
+            dit=PixArt(**dit, control_depth=control_depth) if "dit" in want else None,
             sched=make_schedule(sched_cfg.pop("name", "linear"), **sched_cfg),
             maxt=int(cfg.get("maxt", 400)),
+            control_depth=control_depth,
         )
     if dtype is not None:
         for module, masters in ((pipe.swinir, swinir_master_weights), (pipe.vae, False), (pipe.dit, dit_master_weights)):
@@ -101,7 +104,9 @@ def init_params(pipe: RestorationPipeline, seed: int = 0,
     """Seeded random init on the pipeline's device, with flax's initializer
     families: lecun-normal (truncated) weights and zero biases for every
     linear and conv layer, unit/zero norms, N(0, 1/dim) adaLN tables and
-    caption embedding, trunc-normal(0.02) relative-position tables."""
+    caption embedding, trunc-normal(0.02) relative-position tables; the
+    ControlNet-Half projections (``before_proj``, ``after_proj``) zero, so that
+    a fresh branch leaves the DiT's output as it is."""
     device = next(pipe.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
@@ -110,7 +115,9 @@ def init_params(pipe: RestorationPipeline, seed: int = 0,
             continue
         leaf = name.rsplit(".", 1)[-1]
         tmp = torch.empty(t.shape, dtype=torch.float32, device=device)
-        if leaf == "relative_position_bias_table":
+        if name.startswith("dit.controlnet.") and name.rsplit(".", 2)[-2] in ("before_proj", "after_proj"):
+            tmp.zero_()
+        elif leaf == "relative_position_bias_table":
             torch.nn.init.trunc_normal_(tmp, 0.0, 0.02, -0.04, 0.04, generator=generator)
         elif leaf in ("scale_shift_table", "y_embedding"):
             torch.nn.init.normal_(tmp, 0.0, t.shape[-1] ** -0.5, generator=generator)
@@ -138,10 +145,13 @@ def load_state_dicts(pipe: RestorationPipeline, swinir: Optional[Mapping] = None
     DiT also the diffusers layout (``convert/checkpoint_layouts.py``). Only the
     keys a model holds are taken, as the JAX importers take only the keys they
     map: buffers the port computes (relative-position indices, attention
-    masks, ``pos_embed``) and parts the config leaves out (ControlNet-Half's
-    ``controlnet.N.*``) are dropped. A key the model needs that the checkpoint
-    lacks raises and names it, apart from the DiT's caption embedding
-    ``y_embedder.y_embedding``, which keeps the model's own value."""
+    masks, ``pos_embed``) and, in a DiT built without ControlNet-Half, its
+    ``controlnet.N.*`` keys are dropped. A DiT built with it (``control_depth``)
+    loads them from a checkpoint that carries the branch and keeps its own
+    (seeded) branch from one that does not, as the JAX CLI does. A key the
+    model needs that the checkpoint lacks raises and names it, apart from the
+    DiT's caption embedding ``y_embedder.y_embedding``, which keeps the
+    model's own value."""
     for module, sd in ((pipe.swinir, swinir), (pipe.vae, vae), (pipe.dit, dit)):
         if sd is None:
             continue
@@ -149,12 +159,13 @@ def load_state_dicts(pipe: RestorationPipeline, swinir: Optional[Mapping] = None
         sources = None  # native key -> the checkpoint keys joined into it; None: the native layout
         if module is pipe.dit and is_diffusers_pixart(sd):
             sd = {k.replace(".base_block.", "."): v for k, v in sd.items()}
-            sources = pixart_keys_from_diffusers(module.depth)
+            sources = pixart_keys_from_diffusers(module.depth, len(module.controlnet))
+        own_branch = module is pipe.dit and not any(k.startswith("controlnet.") for k in sd)
         tensors = {}
         for key, own in module.state_dict().items():
             parts = (key,) if sources is None else sources.get(key, (key,))
             missing = [p for p in parts if p not in sd]
-            if missing and key == "y_embedder.y_embedding":
+            if missing and (key == "y_embedder.y_embedding" or (own_branch and key.startswith("controlnet."))):
                 tensors[key] = own
             elif missing:
                 raise KeyError(f"the checkpoint has no {missing[0]!r} (for the model's {key!r})")

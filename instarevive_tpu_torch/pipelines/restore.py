@@ -83,10 +83,10 @@ class RestorationPipeline(nn.Module):
     are the entry points. Runs under ``torch.inference_mode``."""
 
     def __init__(self, swinir: SwinIR, vae: AutoencoderKL, dit: PixArt,
-                 sched: DiffusionSchedule, maxt: int = 400):
+                 sched: DiffusionSchedule, maxt: int = 400, control_depth: int = 0):
         super().__init__()
         self.swinir, self.vae, self.dit = swinir, vae, dit
-        self.sched, self.maxt = sched, maxt
+        self.sched, self.maxt, self.control_depth = sched, maxt, control_depth
 
     @property
     def latent_factor(self) -> int:
@@ -103,21 +103,22 @@ class RestorationPipeline(nn.Module):
         """Scaled latent -> [0,1]-ish image in f32; not clamped."""
         return self.vae.decode(z / VAE_SCALE).float() / 2.0 + 0.5
 
-    def one_step(self, z_init: torch.Tensor, y: torch.Tensor,
-                 y_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """eps at t=maxt -> x0 (f32)."""
+    def one_step(self, z_init: torch.Tensor, y: torch.Tensor, y_mask: Optional[torch.Tensor] = None,
+                 c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """eps at t=maxt -> x0 (f32); ``c``: the ControlNet condition latent."""
         t = torch.full((z_init.shape[0],), self.maxt, dtype=torch.int64, device=z_init.device)
-        out = self.dit(z_init, t.float(), y, y_mask=y_mask)
+        out = self.dit(z_init, t.float(), y, y_mask=y_mask, c=c, control_depth=self.control_depth)
         return eps_to_x0(self.sched, out[..., : z_init.shape[-1]], z_init, t)
 
     @torch.inference_mode()
     def process(self, lq: torch.Tensor, y: torch.Tensor, y_mask=None, *,
-                use_swinir: bool = True, color_fix: str = "wavelet") -> torch.Tensor:
+                use_swinir: bool = True, color_fix: str = "wavelet", use_control: bool = False) -> torch.Tensor:
         """Non-tiled restoration of a x64-sized [0,1] NHWC batch; y: (B, L,
         caption_channels). The color fix applies here too, as in the JAX
         package, so tiled and untiled outputs agree."""
         stage1 = self.clean(lq) if use_swinir else lq
-        z0 = self.one_step(self.encode(stage1), y, y_mask)
+        z_init = self.encode(stage1)
+        z0 = self.one_step(z_init, y, y_mask, c=z_init if use_control else None)
         out = _color_fix(self.decode(z0), stage1.float(), color_fix)
         return out.clamp(0.0, 1.0)
 
@@ -125,7 +126,7 @@ class RestorationPipeline(nn.Module):
     def process_tiled(self, lq: torch.Tensor, y: torch.Tensor, y_mask=None, *,
                       tile_size: int = 512, tile_stride: int = 448,
                       use_swinir: bool = True, color_fix: str = "wavelet",
-                      tile_batch: int = 4) -> torch.Tensor:
+                      tile_batch: int = 4, use_control: bool = False) -> torch.Tensor:
         """Tiled restoration: latent tiles through the one-step DiT (up to
         ``tile_batch`` tiles per forward) with a sum/count overlap average,
         then each averaged latent tile decoded, color-fixed against the
@@ -144,7 +145,8 @@ class RestorationPipeline(nn.Module):
             tiles = torch.cat([z_init[:, hi : hi + lt, wi : wi + lt] for hi, wi in chunk])
             y_rep = y.repeat(len(chunk), 1, 1)
             m_rep = None if y_mask is None else y_mask.repeat(len(chunk), 1)
-            outs = self.one_step(tiles, y_rep, m_rep).reshape(len(chunk), b, lt, lt, -1)
+            outs = self.one_step(tiles, y_rep, m_rep, c=tiles if use_control else None)
+            outs = outs.reshape(len(chunk), b, lt, lt, -1)
             for (hi, wi), out in zip(chunk, outs):
                 zsum[:, hi : hi + lt, wi : wi + lt] += out
                 cnt[:, hi : hi + lt, wi : wi + lt] += 1.0
