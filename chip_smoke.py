@@ -33,20 +33,24 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    main path gives it, with a stated bound, and times the kernel, the plain
    version and, as a yardstick only, the one library call or composition for
    the same function: flash attention (K1, with ragged and masked shapes
-   and its TFLOP/s; head dim 512 at the VAE mid block's three shapes: process,
+   and its TFLOP/s; the 2K sampling call's shapes at 16,384 queries over
+   16,384, 4,096 and 300 keys and its decode's (2, 1, 65536, 65536, 512),
+   whose plain version runs in query chunks; head dim 512 at the VAE mid block's three shapes: process,
    the tiled call's encode and its tile's decode, and in f32 at the DMD step's
    encode and a ragged masked shape, where ``sdpa`` with TF32 matmuls is shown
    outside the f32 bound), the split prepass of the f32 attention
    (``tf32_planes``, bit for bit against ``tf32_planes_plain``, head dims 64,
    72 and 512), the fused GN+SiLU+conv3x3 (K3, bf16 at the restoration
-   path's shapes and f32, on split-tf32 products, at every shape an f32 run
+   path's shapes and at the 2048x2048 decode's (2^31-element tensors), and
+   f32, on split-tf32 products, at every shape an f32 run
    here launches and the f32 DMD step's encode; ragged shapes, a bitwise
    repeat, cuDNN's convolution alone on the activated input beside the
    kernel alone, a border case in both types that tells a zero halo from a
    ``silu(b)`` halo, and all five gradients against autograd through the
    plain version), the
    GroupNorm moments and fold (K5a), the GroupNorm apply (K5b), the
-   nearest 2x upsample (K5c), the Swin window attention (K4, bf16 and f32 on
+   nearest 2x upsample (K5c) (all three also at the 2048x2048 decode's
+   shapes), the Swin window attention (K4, bf16 and f32 on
    split-tf32 products, shifted, unshifted and at odd shifts, a bitwise
    repeat; each form's registers, shared memory, blocks an SM and SASS counts
    in the build report) and the per-sample reflect-padded 2-D filter (K6,
@@ -74,6 +78,9 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    from f32 master weights on 8 PNGs it writes from a seed: 3 steps of DMD
    distillation, then 1 more from the checkpoint, with the launches of K1 and
    K2 per step held to what the configuration implies; times warm steps;
+   takes a step under ``--remat_policy dots`` (launches per step as under
+   ``full``, warm steps and peak memory beside ``full``'s, and one step from
+   the same seed and batch bit for bit ``full``'s parameters);
    runs ``--lowmem`` at depth 2; and holds one depth-2 f32 train step on the
    card against the CPU, counting its f32 attention and prepass launches;
 9. runs both degradation programs (``data/realesrgan.degrade_batch``,
@@ -112,7 +119,19 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    on the card, SwinIR, encode, sample, decode, PSNR and SSIM finite; K1
    20 x 2 x (28 + 13) + 2, K4 48, K6 as the draws say, every K1, K3, K4 and K6
    shape held; wall and peak memory; then a depth-cut f32 control step on the
-   card against the CPU.
+   card against the CPU;
+15. runs the sampling CLI's functions at ``--config configs/pixart_kv2k.yaml
+   --image_size 2048`` (the pipeline as ``inference.load_pipeline`` builds
+   it, bf16, seeded random weights): two prompts, 20 steps of
+   DPM-Solver++(2M) with the DiT at batch 4 on a 128 x 128 token grid (blocks
+   0-13 over K and V compressed 2x a side by the depthwise conv), the decode
+   at 2048x2048; images checked, every kernel's launches held, K1's by shape
+   (20 x 2 x 28 + 1 = 1,121: 280 at 16,384 keys, 280 at 4,096, 560 over the
+   caption, 1 at head dim 512), every K1 and K3 shape one held in 3; wall a
+   call, ms a step, peak memory; then a depth-cut full-width f32 DiT with
+   every option on (``conv``, ``uniform`` and ``ave`` compression, qk-norm, a
+   window over a grid it does not divide, micro-conditioning with and without
+   ``data_info``) on the card against the CPU.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -124,6 +143,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -301,6 +321,11 @@ def conv_phase():
     cases = [(f"b4_{hw}_{c}_{co}", (4, hw, hw, c, co), ("bf16",)) for hw, c, co in b4]
     # the same layers at batch 2: a sample call's decode, a validation batch's encode and decode
     cases += [(f"b2_{hw}_{c}_{co}", (2, hw, hw, c, co), ("bf16",)) for hw, c, co in b4]
+    # a 2048^2 sample call's decode at batch 2 (configs/pixart_kv2k.yaml): the input of the last level's first conv
+    # is 2 x 2048 x 2048 x 256 = 2^31 elements
+    decode_2k = [(256, 512, 512), (512, 512, 512), (1024, 512, 256), (1024, 256, 256), (2048, 256, 128),
+                 (2048, 128, 128)]
+    cases += [(f"b2_2k_{hw}_{c}_{co}", (2, hw, hw, c, co), ("bf16",)) for hw, c, co in decode_2k]
     encode = [(1024, 128, 128), (512, 128, 256), (512, 256, 256), (256, 256, 512), (256, 512, 512), (128, 512, 512)]
     cases += [(f"tiled_encode_{hw}_{c}_{co}", (1, hw, hw, c, co), ("bf16",)) for hw, c, co in encode]
     tile = [(72, 512, 512), (144, 512, 512), (288, 512, 256), (288, 256, 256), (576, 256, 128), (576, 128, 128)]
@@ -465,6 +490,10 @@ def norm_phase():
         ("tiled_encode_128_512", (1, 128, 128, 512), ("bf16",)),
         ("tile576_72_512", (1, 72, 72, 512), ("bf16",)),
         ("tile576_576_128", (1, 576, 576, 128), ("bf16",)),
+        # a 2048^2 sample call's decode at batch 2: every fused conv's moments, the mid block's and the output's
+        # norms; (2, 2048, 2048, 256) is 2^31 elements
+        *((f"b2_2k_{hw}_{c}", (2, hw, hw, c), ("bf16",)) for hw, c in
+          ((256, 512), (512, 512), (1024, 512), (1024, 256), (2048, 256), (2048, 128))),
     ]
     stats, applies, ups = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -534,7 +563,10 @@ def norm_phase():
                  # SwinIR's upsampler, 64 features: process at 4 x 512 x 512, then the tiled call's whole image
                  ("swinir_b4_64_64", (4, 64, 64, 64)), ("swinir_b4_128_64", (4, 128, 128, 64)),
                  ("swinir_b4_256_64", (4, 256, 256, 64)), ("swinir_b1_128_64", (1, 128, 128, 64)),
-                 ("swinir_b1_256_64", (1, 256, 256, 64)), ("swinir_b1_512_64", (1, 512, 512, 64))]
+                 ("swinir_b1_256_64", (1, 256, 256, 64)), ("swinir_b1_512_64", (1, 512, 512, 64)),
+                 # a 2048^2 decode at batch 2; the last one's output is 2^31 elements
+                 ("b2_2k_256_512", (2, 256, 256, 512)), ("b2_2k_512_512", (2, 512, 512, 512)),
+                 ("b2_2k_1024_256", (2, 1024, 1024, 256))]
     for name, (n, h, w, c) in up_shapes:
         x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(torch.bfloat16)
         x_cl = x.permute(0, 3, 1, 2)
@@ -692,6 +724,39 @@ def bwd_build_report(log: str):
     return report
 
 
+# The plain attention holds its (B, H, Nq, Nk) f32 scores in device memory;
+# above this many bytes it runs in query chunks (a 2K self-attention's
+# scores would take 69 GB at once).
+PLAIN_SCORES_BYTES = 2**32
+
+
+def sdpa_by_query_chunks(q, k, v, mask=None):
+    """``sdpa`` over chunks of query rows whose scores stay under
+    PLAIN_SCORES_BYTES: a row's output reads its own scores only."""
+    import torch
+
+    from instarevive_tpu_torch.ops.attention import sdpa
+
+    b, h, nq, _ = q.shape
+    rows = max(1, PLAIN_SCORES_BYTES // (4 * b * h * k.shape[2]))
+    if rows >= nq:
+        return sdpa(q, k, v, kv_mask=mask)
+    return torch.cat([sdpa(q[:, :, i:i + rows], k, v, kv_mask=mask) for i in range(0, nq, rows)], dim=2)
+
+
+def library_sdpa_ms(q, k, v, attn_mask, large):
+    """ms of one ``F.scaled_dot_product_attention`` on these inputs; at a
+    large shape only its fused backends (the math one would hold the whole
+    score matrix)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if not large:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), iters=5)
+
+
 def kernel_phase():
     """K1 against sdpa at the main-path shapes; returns per-shape records.
     At the f32 DMD encode's shape ``sdpa`` with TF32 matmuls is held too and
@@ -718,6 +783,17 @@ def kernel_phase():
         ("dit_self_b2", (2, 16, 1024, 1024, 72), None, ("bf16", "f32")),
         ("dit_cross_b2", (2, 16, 1024, 300, 72), None, ("bf16", "f32")),
         ("vae_mid_b2", (2, 1, 4096, 4096, 512), None, ("bf16",)),               # a sample call's decode, validate's
+        # configs/pixart_kv2k.yaml at 2048x2048, two prompts under guidance (DiT batch 4, a 128 x 128 token grid):
+        # blocks 14-27 over every key, blocks 0-13 over K and V compressed 2x a side, the cross attention; its decode
+        ("dit2k_self", (4, 16, 16384, 16384, 72), None, ("bf16",)),
+        ("dit2k_self_kv_compressed", (4, 16, 16384, 4096, 72), None, ("bf16",)),
+        ("dit2k_cross", (4, 16, 16384, 300, 72), None, ("bf16",)),
+        ("vae_mid_2k_b2", (2, 1, 65536, 65536, 512), None, ("bf16",)),
+        # the f32 DiT with every option, card against CPU (phase 15): a 12 x 20 token grid, its compressed keys, an
+        # 8-token window over the grid padded to 16 x 24, the cross attention
+        ("options_self_kv_compressed", (2, 16, 240, 60, 72), None, ("f32",)),
+        ("options_window", (12, 16, 64, 64, 72), None, ("f32",)),
+        ("options_cross", (2, 16, 240, 300, 72), None, ("f32",)),
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -729,18 +805,19 @@ def kernel_phase():
             k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtypes[dt])
             v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtypes[dt])
             mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
+            large = 4 * b * h * nq * nk > PLAIN_SCORES_BYTES  # the plain version in query chunks, fewer timed runs
             with torch.no_grad():
                 out = flash_attention(q, k, v, kv_mask=mask)
                 torch.cuda.synchronize()
-                ref = sdpa(q, k, v, kv_mask=mask)
+                ref = sdpa_by_query_chunks(q, k, v, mask)
                 err = (out.float() - ref.float()).abs().max().item()
                 ref_max = ref.float().abs().max().item()
                 if not torch.isfinite(out).all():
                     fail(f"{name} {dt}: kernel output is not finite")
-                ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=mask))
-                plain_ms = cuda_ms(lambda: sdpa(q, k, v, kv_mask=mask))
+                ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=mask), iters=5 if large else 20)
+                plain_ms = cuda_ms(lambda: sdpa_by_query_chunks(q, k, v, mask), *((2, 1) if large else ()))
                 attn_mask = None if mask is None else mask[:, None, None, :]
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+                lib_ms = library_sdpa_ms(q, k, v, attn_mask, large)
             # the work this run's data needs: masked keys take no product
             keys = b * nk if mask is None else int(mask.sum().item())
             flops = 4.0 * h * nq * keys * d
@@ -1622,6 +1699,8 @@ def train_phase(cfg_full, conv_records):
               + f"; peak allocated {timing['peak_allocated_gib']:.2f} GiB", flush=True)
         del again
         free()
+        timing["remat_dots"] = dots_steps(config, data, os.path.join(tmp, "dots"), extra, per_step, timing, finite,
+                                          free)
 
         # --lowmem (bf16 moments, EMA and teacher) once, at depth 2
         small = os.path.join(tmp, "depth2.yaml")
@@ -1643,6 +1722,60 @@ def train_phase(cfg_full, conv_records):
 
         err = train_step_card_against_cpu(cfg_full, data, null, conv_records)
     return counts, per_step, dict(timing, three_steps_s=seconds, peak_allocated_first_run_gib=peak, card_vs_cpu=err)
+
+
+def dots_steps(config, data, out, extra, per_step, full_timing, finite, free):
+    """``--remat_policy dots`` (a checkpointed block keeps its Linears'
+    outputs and recomputes the rest) through the launcher: one step with
+    every kernel's launches as under ``full`` (the attention kernels run again
+    in the recompute all the same), then warm steps timed beside ``full``'s.
+    Then one step of a task built under each policy from the same seed on
+    the same batch: the trained parameters of both models bit for bit equal.
+    (The launcher's own runs cannot be compared so: its loader's threads
+    share one generator for the crops, so two runs may crop differently.)
+    Returns the record."""
+    import torch
+
+    from instarevive_tpu_torch.config import load_config
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    reset_counts()
+    run = launcher.main(T.train_argv(config, data, out, 1, extra + ["--remat_policy", "dots"]))
+    counts = read_counts()
+    finite(run, "train --remat_policy dots")
+    want = dict(per_step, filter2d=run.task.degrade.filter_calls)
+    if run.task.gen.remat_policy != "dots" or counts != want:
+        fail(f"train --remat_policy dots: policy {run.task.gen.remat_policy}, launches of a step {counts}, expected {want}")
+    timing = T.time_steps(run.task, T.load_batches(data, 3))
+    if timing["launches_per_step"] != T.expected_launches(len(run.task.gen.blocks)):
+        fail(f"train --remat_policy dots: timed steps launched {timing['launches_per_step']}")
+    del run
+    shutil.rmtree(out)  # its checkpoint: as large as the full run's
+    free()
+
+    batch = T.load_batches(data, 1)[0]
+    trained = {}
+    for policy in ("full", "dots"):
+        args = launcher.parse_args(T.train_argv(config, data, out, 1, extra + ["--remat_policy", policy]))
+        task = launcher.DMDTask(args, load_config(config), torch.device("cuda"))
+        task.run_step(batch)
+        trained[policy] = [p.detach().cpu() for m in (task.gen, task.fake) for p in m.parameters()]
+        del task
+        free()
+    differ = sum(not torch.equal(a, b) for a, b in zip(trained["dots"], trained["full"]))
+    if differ:
+        fail(f"train --remat_policy dots: after one step {differ} of {len(trained['full'])} parameter tensors differ "
+             "from full's")
+    print(f"[train] {card_line()}: --remat_policy dots: launches per step as under full (K1 "
+          f"{per_step['flash_attn_fwd']}, K2 {per_step['flash_attn_bwd_dq']} + {per_step['flash_attn_bwd_dkv']}); one "
+          f"step from the same seed and batch leaves all {len(trained['full'])} parameter tensors of both models bit "
+          f"for bit full's; warm s/step {timing['step_median_s']:.4f} (steps "
+          f"{', '.join(f'{t:.4f}' for t in timing['step_s'])}) against full's {full_timing['step_median_s']:.4f}; peak "
+          f"allocated over the timed steps {timing['peak_allocated_gib']:.2f} GiB against full's "
+          f"{full_timing['peak_allocated_gib']:.2f}", flush=True)
+    return dict(timing, launches_per_step={k: v for k, v in per_step.items() if v},
+                one_step_bitwise_equal_to_full=True)
 
 
 def train_step_card_against_cpu(cfg_full, data, null, conv_records):
@@ -2473,6 +2606,129 @@ def validate_phase(cfg_full, pipe, conv_records, swin_records, attn_records, fil
     return got, timing
 
 
+# The 2K sampling phase: configs/pixart_kv2k.yaml through the sampling CLI's
+# functions, two prompts at 2048x2048. Its depth-cut f32 DiT with every
+# option, card against CPU, is held as the depth-cut sampling runs are.
+SAMPLE_2K_STEPS = 20
+OPTIONS_F32_BOUND = 1e-3
+
+
+def sample_2k_phase(conv_records, attn_records):
+    """``instarevive_tpu_torch.sample`` at ``--config configs/pixart_kv2k.yaml
+    --image_size 2048``: the pipeline as ``inference.load_pipeline`` builds
+    it (bf16, seeded random weights), two prompts (the null embedding,
+    guidance 4.5: the DiT at batch 4 on a 128 x 128 token grid, blocks 0-13
+    over K and V compressed 2x a side by the depthwise conv), 20 steps of
+    DPM-Solver++(2M), the decode at 2048x2048. Images checked; every kernel
+    launched as 20 DiT calls and one decode imply, K1 by shape (at 16,384
+    keys, 4,096 keys and the 300 caption keys, one at head dim 512), every K1
+    and K3 shape one the kernel phases held; wall a call, ms a step, peak
+    memory. Then ``options_card_against_cpu``. Returns (the call's launches,
+    timing record)."""
+    import torch
+
+    from instarevive_tpu_torch import sample as S
+    from instarevive_tpu_torch.inference import load_pipeline
+    from instarevive_tpu_torch.tools.time_restore import wall
+
+    prompts = ["a photo", "a red panda"]
+    args = S.parse_args(["--config", os.path.join(REPO, "configs", "pixart_kv2k.yaml"), "--image_size", "2048",
+                         "--random_init", "--step", str(SAMPLE_2K_STEPS), "--prompt", *prompts])
+    pipe, null = load_pipeline(args)
+    y = null.expand(len(prompts), -1, -1)
+    shape = S.latent_shape(args.prompt, args.image_size, pipe.latent_factor)
+
+    def call(latents=False):
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        return (S.sample_latents if latents else S.sample_images)(
+            pipe, y, y, shape, algo=args.sampling_algo, step=args.step, cfg_scale=args.cfg_scale, generator=gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    imgs = tally_shapes(call, "sample 2K", conv_records, None, "launches_sample_2k", attn_records, attn_dims=(72, 512))
+    first = time.perf_counter() - t
+    check_image(imgs, (2, 2048, 2048, 3), "sample 2K")
+    if imgs.std().item() < 1e-3:
+        fail("sample 2K: the images are flat")
+    counts = check_counts("sample 2K", pipe, SAMPLE_2K_STEPS, 0, 1, cleans=0)
+    by_name = {r["name"]: r.get("launches_sample_2k", 0) for r in attn_records if r["dtype"] == "bf16"}
+    blocks = pipe.dit.depth
+    compressed = sum(blk.attn.sampling is not None for blk in pipe.dit.blocks)
+    want = {"dit2k_self": SAMPLE_2K_STEPS * (blocks - compressed),
+            "dit2k_self_kv_compressed": SAMPLE_2K_STEPS * compressed,
+            "dit2k_cross": SAMPLE_2K_STEPS * blocks, "vae_mid_2k_b2": 1}
+    got = {name: by_name[name] for name in want}
+    if got != want or sum(by_name.values()) != counts["flash_attn_fwd"] or compressed != 14:
+        fail(f"sample 2K: K1 launches by shape {got}, expected {want} ({counts['flash_attn_fwd']} in all)")
+    del imgs
+    walls = wall(call, 2)
+    latent_walls = wall(lambda: call(latents=True), 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timing = dict(first_call_s=first, wall_s=walls, latents_wall_s=latent_walls,
+                  ms_per_step=min(latent_walls) / SAMPLE_2K_STEPS * 1e3, peak_gib=peak, k1_by_shape=got,
+                  flash_attn_fwd=counts["flash_attn_fwd"])
+    print(f"[sample 2K] {card_line()}: configs/pixart_kv2k.yaml, dpm-solver x {SAMPLE_2K_STEPS} steps, 2 prompts at "
+          f"2048x2048 (DiT batch 4 under guidance 4.5, 16,384 tokens an image): images (2, 2048, 2048, 3) finite in "
+          f"[0, 1]; K1 launches {counts['flash_attn_fwd']} = {SAMPLE_2K_STEPS} x 2 x {blocks} + 1, by shape {got}, "
+          f"every kernel as the configuration implies; wall a call {min(walls):.4f} s (runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)}; first {first:.2f} s), sampling alone {timing['ms_per_step']:.2f} ms "
+          f"a step, peak allocated {peak:.2f} GiB", flush=True)
+    del pipe, null, y
+    torch.cuda.empty_cache()
+    timing["options_f32_card_vs_cpu"] = options_card_against_cpu(args.config, attn_records)
+    return counts, timing
+
+
+def options_card_against_cpu(config, attn_records):
+    """A DiT at full width cut to depth 2 with every option of the JAX
+    package on, f32, the same seeded weights (norms drawn off (1, 0)) on the
+    card and the CPU: block 0 over K and V compressed 2x a side (``conv``,
+    ``uniform`` and ``ave`` in turn), block 1 in 8-token windows over a 12 x 20
+    token grid (padded to 16 x 24), qk-norm in both, micro-conditioning with
+    the latent's sizes and with ``data_info``. Each output within
+    OPTIONS_F32_BOUND of the CPU's largest magnitude, 4 K1 launches a
+    forward, every K1 shape one the kernel phase held in f32."""
+    import torch
+
+    from instarevive_tpu_torch.config import load_config, merge
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+
+    gen = torch.Generator().manual_seed(8)
+    z = torch.randn(2, 24, 40, 4, generator=gen)
+    t = torch.tensor([999.0, 250.0])
+    y = torch.randn(2, 300, 4096, generator=gen) * 4096**-0.5
+    info = {"img_hw": torch.tensor([[192.0, 320.0], [1024.0, 2048.0]]), "aspect_ratio": torch.tensor([[0.6], [0.5]])}
+    errs = {}
+    for sampling in ("conv", "uniform", "ave"):
+        cfg = merge(load_config(config), {"dit": dict(
+            depth=2, kv_compress_sampling=sampling, kv_compress_ratio=2, kv_compress_layers=[0], qk_norm=True,
+            window_size=8, window_block_indexes=[1], micro_condition=True)})
+        cpu = init_params(build_pipeline(cfg, device="cpu", components=("dit",)), seed=9).dit
+        with torch.no_grad():
+            for name, p in cpu.named_parameters():
+                if "norm" in name:
+                    p.add_(0.2 * torch.randn(p.shape, generator=gen))
+        gpu = build_pipeline(cfg, device="cuda", components=("dit",)).dit
+        gpu.load_state_dict(cpu.state_dict())
+        for label, data_info in (("latent sizes", None), ("data_info", info)):
+            with torch.inference_mode():
+                ref = cpu(z, t, y, data_info=data_info)
+                got = tally_shapes(lambda: gpu(z.cuda(), t.cuda(), y.cuda(), data_info=data_info),
+                                   f"options f32 {sampling}, {label}", None, None, attn_records=attn_records,
+                                   conv_dtype="f32", attn_dims=(72,))
+            k1 = read_counts()["flash_attn_fwd"]
+            err = (got.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+            errs[f"{sampling}, {label}"] = err
+            if not err <= OPTIONS_F32_BOUND or k1 != 4 or not torch.isfinite(got).all():
+                fail(f"options f32 {sampling}, {label}: card against CPU {err} (bound {OPTIONS_F32_BOUND}), K1 {k1}")
+        del cpu, gpu
+    print(f"[sample 2K] depth-cut f32 DiT with every option (KV compression by conv, uniform and ave; qk-norm; an "
+          f"8-token window over a 12 x 20 grid; micro-conditioning), card against CPU, max error of max|CPU|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {OPTIONS_F32_BOUND:.0e}); 4 K1 launches "
+          "a forward", flush=True)
+    return dict(max_rel_err=errs, bound=OPTIONS_F32_BOUND)
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -2711,6 +2967,7 @@ def main() -> None:
                                                       filter_records)
     del sampling_pipe
     torch.cuda.empty_cache()
+    sample_2k_counts, sample_2k_timing = sample_2k_phase(conv_records, attn_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -2754,8 +3011,10 @@ def main() -> None:
         if entry["name"] in sample_counts:
             entry["launches_sample_call"] = sample_counts[entry["name"]]
             entry["launches_validate_batch"] = validate_counts[entry["name"]]
+            entry["launches_sample_2k_call"] = sample_2k_counts[entry["name"]]
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
-                      "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing}), flush=True)
+                      "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
+                      "sample_2k": sample_2k_timing}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -131,8 +131,28 @@ class Conv2d(DerivedCache, nn.Conv2d):
                        lambda: weight_planes(self.weight.detach().permute(2, 3, 1, 0)))
 
 
+class TokenGridConv(Conv2d):
+    """Depthwise stride-r convolution over a (B, gh * gw, C) token grid, row
+    major: ``Conv2d(c, c, r, stride=r, groups=c)`` without padding, so
+    (B, gh/r * gw/r, C) comes out. Where r divides the grid it agrees with
+    flax's ``SAME`` padding; elsewhere the two differ, so that raises."""
+
+    def __init__(self, channels: int, ratio: int):
+        super().__init__(channels, channels, ratio, stride=ratio, groups=channels)
+
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        (b, n, c), (gh, gw), r = x.shape, hw, self.stride[0]
+        if gh % r or gw % r:
+            raise ValueError(f"a {gh}x{gw} token grid: the stride-{r} convolution needs a grid that {r} divides")
+        y = super().forward(x.reshape(b, gh, gw, c).permute(0, 3, 1, 2))
+        return y.flatten(2).transpose(1, 2)
+
+
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last dim with f32 statistics; output in x.dtype."""
+    """LayerNorm over the last dim with f32 statistics; output in x.dtype,
+    which is the compute dtype wherever x comes out of a ``Linear`` or a
+    ``Conv2d`` (the DiT's qk-norm and KV-compression norms, flax's
+    ``LayerNorm(dtype=...)``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = None if self.weight is None else self.weight.float()

@@ -102,8 +102,10 @@ def build_pipeline(cfg: Mapping[str, Any], dtype: Optional[torch.dtype] = None,
 def init_params(pipe: RestorationPipeline, seed: int = 0,
                 generator: Optional[torch.Generator] = None) -> RestorationPipeline:
     """Seeded random init on the pipeline's device, with flax's initializer
-    families: lecun-normal (truncated) weights and zero biases for every
-    linear and conv layer, unit/zero norms, N(0, 1/dim) adaLN tables and
+    families: lecun-normal (truncated) weights with the fan-in of one output
+    and zero biases for every linear and conv layer (the DiT's depthwise KV
+    compression ``sr``: fan-in r * r; the size embedders' Linears), unit/zero
+    norms (qk-norm and the compression's too), N(0, 1/dim) adaLN tables and
     caption embedding, trunc-normal(0.02) relative-position tables; the
     ControlNet-Half projections (``before_proj``, ``after_proj``) zero, so that
     a fresh branch leaves the DiT's output as it is."""

@@ -98,7 +98,8 @@ def parse_args(argv=None):
     p.add_argument("--lowmem", action="store_true",
                    help="bf16 optimizer moments, bf16 EMA shadow, bf16 frozen teacher")
     p.add_argument("--remat_policy", default=None, choices=["full", "dots"],
-                   help="DiT block checkpointing policy (default: the config's; 'dots' is not ported)")
+                   help="DiT block checkpointing policy (default: the config's): 'full' recomputes a block's "
+                        "forward in the backward, 'dots' keeps its Linears' outputs and recomputes the rest")
     p.add_argument("--bf16", action="store_true", help="bf16 compute from f32 master weights")
     p.add_argument("--maxt", type=int, default=400)
     p.add_argument("--cfg_scale", type=float, default=3.0)

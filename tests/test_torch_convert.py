@@ -55,6 +55,39 @@ def test_own_exporters_equal_the_jax_packages(params, model):
         np.testing.assert_array_equal(a, b, err_msg=key)
 
 
+def test_own_dit_exporter_equals_the_jax_packages_with_every_option():
+    """A DiT tree with every optional leaf: ``uniform`` compression, qk-norm and
+    micro-conditioning as the JAX package builds them, plus the ``conv``
+    compression's ``sr`` and ``norm`` added by hand to two blocks (the JAX
+    package cannot build that form), bit for bit."""
+    from instarevive_tpu.models.pixart import PixArt as JaxPixArt
+
+    cfg = dict(TINY["dit"], kv_compress_sampling="uniform", kv_compress_ratio=2, kv_compress_layers=[0],
+               qk_norm=True, micro_condition=True)
+    y = jnp.zeros((1, cfg["model_max_length"], cfg["caption_channels"]))
+    shapes = jax.eval_shape(JaxPixArt(**cfg).init, jax.random.key(0), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                            y)["params"]
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    c, r = cfg["hidden_size"], 2
+    for i in range(cfg["depth"]):
+        params[f"blocks_{i}"]["attn"]["sr"] = {"kernel": rng.standard_normal((r, r, 1, c)).astype(np.float32),
+                                               "bias": rng.standard_normal(c).astype(np.float32)}
+        params[f"blocks_{i}"]["attn"]["norm"] = {"scale": rng.standard_normal(c).astype(np.float32),
+                                                 "bias": rng.standard_normal(c).astype(np.float32)}
+    want = jax_export.pixart_params_to_torch(params, depth=cfg["depth"])
+    got = from_jax.state_dicts_from_jax({"dit": params}, {"dit": cfg})["dit"]
+    assert list(got) == list(want)
+    for key in ("blocks.1.attn.sr.weight", "blocks.0.attn.norm.bias", "blocks.0.attn.q_norm.weight",
+                "blocks.1.attn.k_norm.bias", "csize_embedder.mlp.0.weight", "ar_embedder.mlp.2.bias"):
+        assert key in got
+    assert got["blocks.0.attn.sr.weight"].shape == (c, 1, r, r)
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        np.testing.assert_array_equal(a, b, err_msg=key)
+
+
 CLDM_TINY = load_config(os.path.join(REPO, "configs", "cldm_tiny.yaml"))
 
 

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -636,8 +637,61 @@ def test_grad_checkpoint_changes_no_gradient():
         assert torch.equal(a, b)
     with torch.no_grad():  # no recompute machinery without grad
         assert torch.equal(remat_model(z, t, y), _torch_dit(params)(z, t, y))
-    with pytest.raises(NotImplementedError):
-        PixArt(**DIT, grad_checkpoint=True, remat_policy="dots")
+    # remat_policy "dots" keeps the products' outputs and recomputes the rest: the same bits again
+    dots = _loss_and_grads(_torch_dit(params, grad_checkpoint=True, remat_policy="dots"), z, t, y, mask)
+    for a, b in zip(plain, dots):
+        assert torch.equal(a, b)
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the 2-D products (``aten.mm``, ``aten.addmm``) dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.products = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.products += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+        return func(*args, **(kwargs or {}))
+
+
+def test_dots_recomputes_no_product_in_the_backward():
+    """The backward's products, counted at the dispatcher: under ``full`` the
+    plain backward's plus one for every Linear of the blocks (their
+    recomputed forward), under ``dots`` the plain backward's alone."""
+    _, params, _ = _jax_dit()
+    rng = np.random.default_rng(3)
+    z, y = _t(rng.standard_normal((2, 8, 8, 4), dtype=np.float32)), _t(rng.standard_normal((2, 8, 32)).astype(np.float32))
+    t = torch.tensor([400.0, 20.0])
+    products = {}
+    for policy in ("none", "full", "dots"):
+        model = _torch_dit(params, **({} if policy == "none" else dict(grad_checkpoint=True, remat_policy=policy)))
+        loss = model(z, t, y).pow(2).mean()
+        with _CountProducts() as mode:
+            torch.autograd.grad(loss, list(model.parameters()))
+        products[policy] = mode.products
+    linears = sum(isinstance(m, torch.nn.Linear) for m in model.blocks.modules())
+    assert linears == 7 * DIT["depth"] and products["none"] > 0
+    assert products["dots"] == products["none"] and products["full"] == products["none"] + linears
+
+
+def test_dots_gradients_match_jax_grad():
+    """A tiny DiT checkpointed under ``dots``: its parameter gradients against
+    ``jax.grad`` through the JAX package's ``PixArt(grad_checkpoint=True,
+    remat_policy="dots")``, within 1e-4 of the largest gradient."""
+    _, params, _ = _jax_dit()
+    rng = np.random.default_rng(4)
+    z, y = rng.standard_normal((2, 8, 8, 4), dtype=np.float32), rng.standard_normal((2, 8, 32)).astype(np.float32)
+    t = np.array([400.0, 20.0], np.float32)
+    jdit = JaxPixArt(**DIT, grad_checkpoint=True, remat_policy="dots")
+    want = jax.jit(jax.grad(lambda p: jnp.mean(jdit.apply({"params": p}, jnp.asarray(z), jnp.asarray(t),
+                                                          jnp.asarray(y)) ** 2)))(params)
+    want = pixart_params_to_torch(_np(want), depth=DIT["depth"])
+    model = _torch_dit(params, grad_checkpoint=True, remat_policy="dots")
+    grads = _loss_and_grads(model, _t(z), _t(t), _t(y))
+    top = max(np.abs(w).max() for w in want.values())
+    for (name, _), g in zip(model.named_parameters(), grads):
+        assert np.abs(g.numpy() - want[name]).max() <= 1e-4 * top, name
 
 
 def test_bf16_compute_from_f32_masters_leaves_f32_gradients():
