@@ -68,7 +68,8 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    kernel was launched exactly as often as the configuration says (K1 at
    head dim 512 by shape, each shape one held in 3), and
    prints seconds, MP/s and peak memory;
-6. runs the CLI (``python -m instarevive_tpu_torch.inference``) on two PNGs;
+6. runs the CLI (``python -m instarevive_tpu_torch.inference``) on two PNGs,
+   whose restorations 16 scores;
 7. starts the port's server (``instarevive_tpu_torch.serve``) in this process
    at full width in bf16, sends it concurrent ``POST /restore`` requests in
    two shape buckets, checks every answer and ``/healthz``, runs the demo's
@@ -90,7 +91,8 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    against the CPU under one set of handed-in draws, wall and split per call;
 10. runs the trainer with ``--task swinir`` at the full v1 SwinIR width in
    bf16 from f32 masters, batch 2 at 512x512: 3 steps, then 1 more from the
-   checkpoint, K4, K5c and K6 launches per step held; times warm steps; and
+   checkpoint under ``--trace_steps 1 --trace_at 3`` (the torch trace 16
+   reads), K4, K5c and K6 launches per step held; times warm steps; and
    holds one depth-cut f32 step on the card against the CPU;
 11. holds the flash-attention kernels at head dim 64 (K1 with and without the
    log-sum-exp, K2's dq and dk/dv) against their plain versions at every
@@ -131,7 +133,20 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    call, ms a step, peak memory; then a depth-cut full-width f32 DiT with
    every option on (``conv``, ``uniform`` and ``ave`` compression, qk-norm, a
    window over a grid it does not divide, micro-conditioning with and without
-   ``data_info``) on the card against the CPU.
+   ``data_info``) on the card against the CPU;
+16. evaluates images (``instarevive_tpu_torch.evaluate_img``): LPIPS
+   (AlexNet), MUSIQ, MANIQA, CLIP RN50 (a stub tokenizer: the card machine has
+   no ``transformers``) and RetinaFace built at their published widths from
+   seeded official-layout state dicts through the port's loaders; 6's
+   restorations scored against their inputs (PSNR, SSIM, LPIPS, NIQE on the
+   host, MUSIQ, MANIQA, CLIP-IQA), every value finite and in its range, no
+   kernel of the port launched, wall per image per metric, peak memory; each
+   network in f32 on the card against the CPU on one image (1e-5 of
+   max|CPU|); one RetinaFace detection and one align -> paste round trip on a
+   512x512 image; one forward of the full-width v1 SwinIR with the residual
+   head (``upsampler: ""``, no unshuffle) on 4x512x512 in bf16, K4 48 times
+   at the shapes 3 held (``residual_b4_512x512``) and K5c not at all; and
+   10's trace, which must name K4's ``swin16::kernel``.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -140,6 +155,7 @@ before that last line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import re
@@ -1117,6 +1133,7 @@ def swin_phase():
         ("nonsquare_b1_64x48", (1, 64, 48), both, (0, win // 2)),
         ("nonsquare_b2_64x48", (2, 64, 48), both, (0, win // 2)),
         ("small_b2_16x16", (2, 16, 16), both, (0, win // 2)),
+        ("residual_b4_512x512", (4, 512, 512), ("bf16",), (0, win // 2)),  # phase 16's SwinIR without unshuffle
     ]
     records = []
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1446,27 +1463,28 @@ def pipeline_phase(conv_records, swin_records, attn_records):
     return launches, tiled_launches
 
 
-def cli_phase():
+def cli_phase(work):
+    """The restoration CLI on two seeded PNGs under ``work/in``, writing
+    ``work/out`` (which phase 16 scores)."""
     import numpy as np
     from PIL import Image
 
     from instarevive_tpu_torch import inference
 
-    with tempfile.TemporaryDirectory() as tmp:
-        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
-        os.makedirs(src)
-        rng = np.random.default_rng(0)
-        sizes = {"a": (256, 256), "b": (200, 320)}  # (h, w)
-        for name, (h, w) in sizes.items():
-            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(os.path.join(src, f"{name}.png"))
-        t = time.time()
-        inference.main(["--input", src, "--output", dst, "--random_init", "--device", "cuda",
-                        "--config", os.path.join(REPO, "configs", "instarevive_v1.yaml")])
-        made = sorted(os.listdir(dst))
-        if made != ["a.png", "b.png"]:
-            fail(f"CLI wrote {made}, expected a.png and b.png")
-        got = {n: Image.open(os.path.join(dst, f"{n}.png")).size for n in sizes}
-        print(f"[cli] wrote {made} in {time.time() - t:.1f}s, sizes (w, h) {got}", flush=True)
+    src, dst = os.path.join(work, "in"), os.path.join(work, "out")
+    os.makedirs(src)
+    rng = np.random.default_rng(0)
+    sizes = {"a": (256, 256), "b": (200, 320)}  # (h, w)
+    for name, (h, w) in sizes.items():
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(os.path.join(src, f"{name}.png"))
+    t = time.time()
+    inference.main(["--input", src, "--output", dst, "--random_init", "--device", "cuda",
+                    "--config", os.path.join(REPO, "configs", "instarevive_v1.yaml")])
+    made = sorted(os.listdir(dst))
+    if made != ["a.png", "b.png"]:
+        fail(f"CLI wrote {made}, expected a.png and b.png")
+    got = {n: Image.open(os.path.join(dst, f"{n}.png")).size for n in sizes}
+    print(f"[cli] wrote {made} in {time.time() - t:.1f}s, sizes (w, h) {got}", flush=True)
 
 
 def serve_phase(cfg_full, swin_records, process_launches, conv_records):
@@ -1933,10 +1951,12 @@ def degrade_phase(filter_records):
     return launches, timing
 
 
-def swinir_train_phase(cfg_full, swin_records, filter_records):
+def swinir_train_phase(cfg_full, swin_records, filter_records, work):
     """The trainer with ``--task swinir`` through its entry point at the full
     v1 SwinIR width (embed 180, 8 x 6 blocks) in bf16 from f32 masters, batch
-    2 at 512x512: 3 steps, then 1 more from the checkpoint; K4 once a block,
+    2 at 512x512: 3 steps, then 1 more from the checkpoint under
+    ``--trace_steps 1 --trace_at 3`` (the trace is copied to
+    ``work/trace.json`` for phase 16 to read); K4 once a block,
     K5c once a step of the upsampler and K6 as the draws imply, per step, all
     in the forward (their backward is the plain version's). Then timed steps,
     and one depth-cut f32 step on the card against the CPU. Returns (launches
@@ -2010,14 +2030,16 @@ def swinir_train_phase(cfg_full, swin_records, filter_records):
         torch.cuda.empty_cache()
 
         reset_counts()
-        again = launcher.main(T.train_argv(config, data, out, 4, ["--resume", os.path.join(out, "final")], task="swinir"))
+        again = launcher.main(T.train_argv(config, data, out, 4, ["--resume", os.path.join(out, "final"),
+                                                                  "--trace_steps", "1", "--trace_at", "3"], task="swinir"))
+        shutil.copy(os.path.join(out, "trace", "trace.json"), os.path.join(work, "trace.json"))
         finite(again, "train swinir, resumed")
         if (again.start_step, again.end_step, len(again.history)) != (3, 4, 1) \
                 or read_counts() != dict(per_step, filter2d=again.task.degrade.filter_calls) \
                 or again.task.states[0].step != 4 or again.task.states[0].opt_state["inner"]["count"] != 4:
             fail(f"train swinir, resumed: ran steps {again.start_step}..{again.end_step}, launches {read_counts()}")
-        print(f"[train swinir] resumed from 'final' at step 3, took 1 step with the same launches: {again.history[-1]}",
-              flush=True)
+        print(f"[train swinir] resumed from 'final' at step 3, took 1 step with the same launches under "
+              f"--trace_steps 1 --trace_at 3: {again.history[-1]}", flush=True)
 
         timing = T.time_steps(again.task, T.load_batches(data, 5), T.SWINIR_PHASES)
         print(f"[train swinir] warm s/step {timing['step_median_s']:.4f} (steps {', '.join(f'{t:.4f}' for t in timing['step_s'])}); "
@@ -2729,6 +2751,193 @@ def options_card_against_cpu(config, attn_records):
     return dict(max_rel_err=errs, bound=OPTIONS_F32_BOUND)
 
 
+# Phase 16, the evaluation networks: each in f32 on the card against itself
+# on the CPU for one image, every output relative to its largest magnitude
+# on the CPU. The CPU tests hold the port to the JAX package at the same 1e-5
+# (tests/test_torch_iqa.py, test_torch_clip_rn50.py, test_torch_face.py):
+# summation order only, the port in f32 being within 1.1e-6 of itself in
+# float64 at these weights; TF32 is off.
+EVAL_CARD_CPU_BOUND = 1e-5
+# What each score can be: PSNR positive, SSIM a correlation, LPIPS, NIQE and
+# MANIQA (a weighted mean of ReLU'd scores) non-negative, CLIP-IQA a
+# probability; MUSIQ regresses a score and is held to finite.
+EVAL_RANGES = {"psnr": (0.0, float("inf")), "ssim": (-1.0, 1.0), "lpips": (0.0, float("inf")),
+               "niqe": (0.0, float("inf")), "clipiqa": (0.0, 1.0), "musiq": (-float("inf"), float("inf")),
+               "maniqa": (0.0, float("inf"))}
+
+
+def evaluation_phase(cfg_full, work, swin_records):
+    """Phase 16: image-quality evaluation on the card. Builds LPIPS
+    (AlexNet), MUSIQ, MANIQA, CLIP RN50 (with a stub tokenizer) and
+    RetinaFace at their published widths from seeded official-layout state
+    dicts through the port's loaders; scores phase 6's restored PNGs against
+    their inputs with ``evaluate_img.evaluate`` (NIQE fitted on the inputs,
+    on the host), every value finite and in its range, wall per image per
+    metric, peak memory; holds each network on the card against the CPU;
+    runs one RetinaFace detection and one align -> paste round trip on a
+    512x512 image; one forward of the full-width v1 SwinIR with the residual
+    head (``upsampler: ""``, no unshuffle) on 4x512x512, 48 K4 launches at
+    a shape phase 3 held and no K5c; and reads phase 10's trace for K4's
+    kernel. Returns the phase's record."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from instarevive_tpu_torch import evaluate_img
+    from instarevive_tpu_torch.config import merge
+    from instarevive_tpu_torch.models import clip_rn50
+    from instarevive_tpu_torch.nn.layers import load_built
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+    from instarevive_tpu_torch.tools import iqa_checkpoints as C
+    from instarevive_tpu_torch.utils import face_helper, maniqa, musiq, niqe, retinaface
+    from instarevive_tpu_torch.utils.clipiqa import CLIPIQA
+    from instarevive_tpu_torch.utils.image_io import list_image_files
+    from instarevive_tpu_torch.utils.metrics import LPIPS, lpips_state_dict
+
+    t_phase = time.perf_counter()
+    src, dst = os.path.join(work, "in"), os.path.join(work, "out")
+    clip_sd = C.clip_rn50(3)
+    meta = clip_rn50.clip_meta(clip_sd)
+    sds = {"lpips": lpips_state_dict(*C.lpips(0)), "musiq": musiq.state_dict_from_torch(C.musiq(1)),
+           "maniqa": maniqa.state_dict_from_torch(C.maniqa(2)), "clip": clip_rn50.state_dict_from_torch(clip_sd),
+           "retinaface": retinaface.state_dict_from_torch(C.retinaface(4))}
+    del clip_sd
+
+    def build(name, device):
+        sd = sds[name]
+        if name == "musiq":
+            return musiq.MUSIQ.from_state_dict(sd, device)
+        if name == "clip":
+            return clip_rn50.from_state_dict(sd, device, meta)
+        if name == "retinaface":
+            return retinaface.from_state_dict(sd, device).net
+        return load_built({"lpips": LPIPS, "maniqa": maniqa.MANIQA}[name], sd, device)
+
+    nets = {name: build(name, "cuda") for name in sds}
+    params = {name: sum(p.numel() for p in net.parameters()) for name, net in nets.items()}
+    build_s = time.perf_counter() - t_phase
+    print(f"[evaluate] {card_line()}: built from seeded official-layout state dicts through the port's loaders in "
+          f"{build_s:.1f}s: parameters {params}; CLIP RN50 {meta}", flush=True)
+
+    # scoring: phase 6's restored PNGs against their inputs, every network on the card in f32
+    pris = niqe.fit_pristine_model([np.asarray(Image.open(f).convert("L"), np.float64) for f in list_image_files(src)])
+    clip = CLIPIQA(model=nets["clip"], tokenizer=C.StubTokenizer())
+    metrics = {"lpips": nets["lpips"], "niqe": lambda img: niqe.niqe(img[0], pris),
+               "clipiqa": lambda img: float(clip(img)[0]), "musiq": lambda img: float(nets["musiq"].score(img)[0]),
+               "maniqa": lambda img: float(nets["maniqa"].score(img)[0])}
+    files = list_image_files(dst)
+    evaluate_img.evaluate(files[:1], metrics, "cuda", src)  # first calls (cuDNN's plans) before the timed pass
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds = {}
+    results = evaluate_img.evaluate(files, metrics, "cuda", src, seconds=seconds)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(read_counts().values()):  # the networks are plain torch ops and cuDNN: no kernel of the port
+        fail(f"evaluate: scoring launched the port's kernels {read_counts()}")
+    for name, values in results.items():
+        lo, hi = EVAL_RANGES[name]
+        if len(values) != len(files) or not all(np.isfinite(v) and lo <= v <= hi for v in values):
+            fail(f"evaluate: {name} gave {values} over {len(files)} images, outside [{lo}, {hi}] or not finite")
+    per_image = {name: float(np.median(v)) for name, v in seconds.items()}
+    for line in evaluate_img.report(results):
+        print(f"[evaluate] {line}", flush=True)
+    print(f"[evaluate] {[os.path.basename(f) for f in files]} against their inputs: values "
+          + ", ".join(f"{k} {[round(v, 6) for v in vals]}" for k, vals in results.items())
+          + "; wall s per image (median, to a synchronise): " + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items())
+          + f"; peak allocated {peak:.2f} GiB", flush=True)
+
+    # each network in f32 on the card against the CPU, on one image
+    img = np.asarray(Image.open(files[0]).convert("RGB"), np.float32)[None] / 255.0  # 512x512
+    ref = np.asarray(Image.open(evaluate_img.find_reference(files[0], src)).convert("RGB"), np.float32)[None] / 255.0
+    hh, ww = min(img.shape[1], ref.shape[1]), min(img.shape[2], ref.shape[2])
+    prepped = musiq.musiq_prepare(img[0])
+    ids = C.StubTokenizer()(["Good photo.", "Bad photo."])["input_ids"]
+
+    def probe(name, net, dev):
+        with torch.no_grad():
+            if name == "lpips":
+                a, b = (torch.from_numpy(np.ascontiguousarray(x[:, :hh, :ww])).to(dev) * 2 - 1 for x in (img, ref))
+                return [net(a, b)]
+            if name == "musiq":
+                return [net(*(torch.from_numpy(v[None]).to(dev) for v in prepped))]
+            if name == "maniqa":
+                return [net(torch.from_numpy(np.ascontiguousarray(img[:, 144:368, 144:368])).to(dev))]
+            if name == "clip":
+                return [net.get_image_features(clip._preprocess(img).to(dev)), net.get_text_features(ids)]
+            bgr = np.ascontiguousarray(img[..., ::-1]) * 255.0 - np.array([104.0, 117.0, 123.0], np.float32)
+            return list(net(torch.from_numpy(bgr).to(dev)))
+
+    errs = {}
+    for name in sds:
+        got = [t.float().cpu() for t in probe(name, nets[name], "cuda")]
+        want = probe(name, build(name, "cpu"), "cpu")
+        errs[name] = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    print("[evaluate] card against CPU in f32 (one image, same weights; each output relative to its largest "
+          "magnitude on the CPU): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {EVAL_CARD_CPU_BOUND:.0e})", flush=True)
+    if not max(errs.values()) <= EVAL_CARD_CPU_BOUND:
+        fail(f"evaluate: a network on the card differs from the CPU by {errs}")
+
+    # the face tools on a 512x512 image: one detection, one align -> paste round trip
+    detector = retinaface.RetinaFace(nets["retinaface"])
+    t = time.perf_counter()
+    boxes, marks = detector(img[0], conf_thresh=0.5)
+    detect_s = time.perf_counter() - t
+    landmarks = marks[0] if len(marks) else face_helper.FFHQ_TEMPLATE_512 * 0.5 + 128.0
+    helper = face_helper.FaceRestoreHelper(face_size=512)
+    x = torch.from_numpy(img[0]).cuda()
+    t = time.perf_counter()
+    faces = helper.align_all(x, [landmarks])
+    back = helper.paste_all(x, faces)
+    torch.cuda.synchronize()
+    round_trip_s = time.perf_counter() - t
+    corners = torch.stack([back[0, 0], back[0, -1], back[-1, 0], back[-1, -1]])
+    if faces[0].shape != (512, 512, 3) or back.shape != x.shape or not torch.isfinite(back).all() \
+            or back.min().item() < 0 or back.max().item() > 1:
+        fail(f"evaluate: align -> paste gave a face {tuple(faces[0].shape)}, an image {tuple(back.shape)} "
+             f"in [{back.min().item()}, {back.max().item()}]")
+    round_trip_err = (back - x).abs().max().item()
+    print(f"[evaluate] RetinaFace on 512x512: {len(boxes)} faces over 0.5 after NMS in {detect_s:.3f}s; align -> paste "
+          f"round trip of {'the first detection' if len(marks) else 'template landmarks'} in {round_trip_s:.3f}s, "
+          f"max change {round_trip_err:.4f}, corners unchanged: "
+          f"{torch.equal(corners, torch.stack([x[0, 0], x[0, -1], x[-1, 0], x[-1, -1]]))}", flush=True)
+    del nets, clip, detector, x, back, faces
+    torch.cuda.empty_cache()
+
+    # SwinIR's residual head at full v1 width on 4x512x512 (no unshuffle: 512x512 tokens an image)
+    cfg = merge(cfg_full, {"swinir": {"upsampler": "", "unshuffle": False, "sf": 1}})
+    sw = init_params(build_pipeline(cfg, dtype=torch.bfloat16, device="cuda", components=("swinir",)), seed=0).swinir
+    lq = torch.rand(4, 512, 512, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = tally_shapes(lambda: sw(lq), "evaluate: residual SwinIR", None, swin_records)
+    swin_s = time.perf_counter() - t
+    counts = read_counts()
+    want = dict(dict.fromkeys(counters(), 0), swin_window_attention=sum(cfg["swinir"]["depths"]))
+    if counts != want or tuple(out.shape) != (4, 512, 512, 3) or not torch.isfinite(out).all():
+        fail(f"evaluate: residual SwinIR gave {tuple(out.shape)}, launches {counts}, expected {want}")
+    print(f"[evaluate] SwinIR upsampler '' at full v1 width (embed {cfg['swinir']['embed_dim']}, no unshuffle), bf16, "
+          f"4x512x512: {swin_s:.3f}s (first call), launches {({k: v for k, v in counts.items() if v})}, no upsample2x",
+          flush=True)
+    del sw, lq, out
+    torch.cuda.empty_cache()
+
+    # phase 10's trace of the resumed SwinIR step
+    with open(os.path.join(work, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k4 = sum("swin16::kernel" in e.get("name", "") for e in events)
+    if not k4:
+        fail(f"evaluate: the trainer's trace holds {len(events)} events, {len(kernels)} kernels, none of K4's")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[evaluate] trainer trace (--trace_steps 1 --trace_at 3): {len(events)} events, {len(kernels)} kernel "
+          f"launches, {k4} of K4's swin16::kernel; phase wall {phase_s:.1f}s", flush=True)
+    return {"values": results, "s_per_image": per_image, "peak_gib": peak, "card_vs_cpu": errs,
+            "card_vs_cpu_bound": EVAL_CARD_CPU_BOUND, "faces": len(boxes), "detect_s": detect_s,
+            "round_trip_s": round_trip_s, "residual_swinir_s": swin_s, "residual_swinir_launches": counts,
+            "trace_kernels": len(kernels), "trace_k4": k4, "build_s": build_s, "phase_s": phase_s}
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -2952,12 +3161,14 @@ def main() -> None:
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
     small_pipeline_phase(cfg, conv_records)
     launches, tiled = pipeline_phase(conv_records, swin_records, attn_records)
-    cli_phase()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6's images and phase 10's trace, for phase 16
+    atexit.register(shutil.rmtree, work, True)
+    cli_phase(work)
     serve_phase(cfg, swin_records, launches, conv_records)
     train = train_phase(cfg, conv_records)
     timing = train[2]
     degrade_launches, degrade_timing = degrade_phase(filter_records)
-    swinir_train = swinir_train_phase(cfg, swin_records, filter_records)
+    swinir_train = swinir_train_phase(cfg, swin_records, filter_records, work)
     cldm = cldm_phase(held64, conv_records)
     # the v1 pipeline in bf16 with 13 ControlNet-Half stages, its projections zero as init_params leaves them
     sampling_pipe = init_params(build_pipeline(cfg, dtype=torch.bfloat16, device="cuda", control_depth=CONTROL_DEPTH),
@@ -2968,6 +3179,8 @@ def main() -> None:
     del sampling_pipe
     torch.cuda.empty_cache()
     sample_2k_counts, sample_2k_timing = sample_2k_phase(conv_records, attn_records)
+    torch.cuda.empty_cache()
+    evaluation = evaluation_phase(cfg, work, swin_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -2982,6 +3195,7 @@ def main() -> None:
     conv = kernel_entry("gn_silu_conv3x3", "gn_conv.cu", "instarevive_tpu/ops/gn_conv.py:112",
                         launches, tiled, conv_records, "b4_512_128_128", train)
     conv["build"] = {k: v for k, v in conv_build.items() if not k.startswith("f32_")}
+    swin["launches_evaluation_residual_swinir"] = evaluation["residual_swinir_launches"]["swin_window_attention"]
     for entry in (swin, up):  # forward launches of the SwinIR trainer; their backward is the plain version's
         entry["launches_swinir_train_run"] = swinir_train[0][entry["name"]]
         entry["launches_swinir_train_step"] = swinir_train[1][entry["name"]]
@@ -3014,7 +3228,7 @@ def main() -> None:
             entry["launches_sample_2k_call"] = sample_2k_counts[entry["name"]]
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
                       "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
-                      "sample_2k": sample_2k_timing}), flush=True)
+                      "sample_2k": sample_2k_timing, "evaluate": evaluation}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -14,13 +14,17 @@ port's modules hold).
   ``to_q``/``to_k``/``to_v``, and the embedders, adaLN and final layer
   renamed. It names keys only; ``pipelines.build.load_state_dicts`` joins the
   tensors.
+* ``TakeKeys``: the official checkpoints of the evaluation networks (LPIPS,
+  MUSIQ, MANIQA, CLIP RN50, RetinaFace), taken one key at a time, so that a
+  loader raises on a key it needs and does not find, and on a key it did not
+  use.
 
 Plain Python: nothing here imports torch, JAX or the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 
 def strip_prefixes(sd: Mapping[str, Any], prefixes=("module.", "model.")) -> Dict[str, Any]:
@@ -75,3 +79,24 @@ def pixart_keys_from_diffusers(depth: int, control_depth: int = 0) -> Dict[str, 
     keys["final_layer.scale_shift_table"] = ("scale_shift_table",)
     linear("final_layer.linear", "proj_out")
     return keys
+
+
+class TakeKeys:
+    """A checkpoint's state dict (wrapper prefixes stripped) that a loader
+    empties key by key: ``take`` raises naming a key that is missing, and
+    ``done`` raises naming every key left that no prefix or suffix of
+    ``ignore`` covers (heads and buffers the network does not use)."""
+
+    def __init__(self, sd: Mapping[str, Any], what: str):
+        self.sd, self.what = strip_prefixes(sd), what
+
+    def take(self, key: str):
+        if key not in self.sd:
+            raise KeyError(f"{self.what} checkpoint: missing key {key!r}; it holds {sorted(self.sd)[:20]}")
+        return self.sd.pop(key)
+
+    def done(self, ignore: Iterable[str] = ()) -> None:
+        ignore = tuple(ignore)
+        left = sorted(k for k in self.sd if not (k.startswith(ignore) or k.endswith(ignore)))
+        if left:
+            raise KeyError(f"{self.what} checkpoint: keys the loader did not use: {left[:20]}")

@@ -409,3 +409,163 @@ def cldm_train_state_from_jax(
         flat = as_dict(ema)
         state["ema"] = {n: flat[n] for n in names}
     return state
+
+
+# ------------------------------------------------------ evaluation networks
+# The JAX package keeps these as flat {"a/b/kernel": array} dicts (CLIP RN50:
+# flax trees); each map below gives the port's module its state dict, one
+# tensor for one, with conv HWIO -> OIHW and dense (in, out) -> (out, in).
+
+
+def _flat_conv(sd, torch_path, p, name, bias=True):
+    sd[f"{torch_path}.weight"] = _np(p[f"{name}/kernel"]).transpose(3, 2, 0, 1)
+    if bias:
+        sd[f"{torch_path}.bias"] = _np(p[f"{name}/bias"])
+
+
+def _flat_dense(sd, torch_path, p, name):
+    sd[f"{torch_path}.weight"] = _np(p[f"{name}/kernel"]).transpose(1, 0)
+    sd[f"{torch_path}.bias"] = _np(p[f"{name}/bias"])
+
+
+def _flat_norm(sd, torch_path, p, name):
+    sd[f"{torch_path}.weight"] = _np(p[f"{name}/scale"])
+    sd[f"{torch_path}.bias"] = _np(p[f"{name}/bias"])
+
+
+def lpips_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``LPIPS.params`` -> ``utils.metrics.LPIPS``."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(5):
+        _flat_conv(sd, f"convs.{i}", p, f"conv{i}")
+        sd[f"lins.{i}"] = _np(p[f"lin{i}"])
+    return sd
+
+
+def musiq_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX MUSIQ params (``utils/musiq.py``, what its ``.npz`` holds) ->
+    ``utils.musiq.MUSIQ``. The embedding's input axis goes from the JAX
+    package's (H, W, C) flattening to the port's (C, H, W)."""
+    sd: Dict[str, np.ndarray] = {}
+    _flat_conv(sd, "conv_root", p, "conv_root", bias=False)
+    _flat_norm(sd, "gn_root", p, "gn_root")
+    for c in ("conv1", "conv2", "conv3", "downsample"):
+        _flat_conv(sd, f"block1.unit1.{c}", p, f"unit1/{c}", bias=False)
+    for g in ("gn1", "gn2", "gn3", "gn_proj"):
+        _flat_norm(sd, f"block1.unit1.{g}", p, f"unit1/{g}")
+    kernel = _np(p["embed/kernel"])  # (8 * 8 * 256, D), rows (h, w, c)
+    hw = int(round((kernel.shape[0] // 256) ** 0.5))
+    sd["embedding.weight"] = kernel.reshape(hw, hw, 256, -1).transpose(3, 2, 0, 1).reshape(kernel.shape[1], -1)
+    sd["embedding.bias"] = _np(p["embed/bias"])
+    enc = "transformer_encoder"
+    sd[f"{enc}.cls_token"] = _np(p["cls"])[None]
+    sd[f"{enc}.pos_emb"] = _np(p["spatial_embed"])[None]
+    sd[f"{enc}.scale_emb"] = _np(p["scale_embed"])
+    i = 0
+    while f"block{i}/qkv/kernel" in p:
+        t, b = f"{enc}.layers.{i}", f"block{i}"
+        _flat_norm(sd, f"{t}.attention_norm", p, f"{b}/norm1")
+        qkv, qkv_b = _np(p[f"{b}/qkv/kernel"]), _np(p[f"{b}/qkv/bias"])
+        d = qkv.shape[0]
+        for j, name in enumerate(("query", "key", "value")):
+            sd[f"{t}.attn.{name}.weight"] = qkv[:, j * d:(j + 1) * d].T
+            sd[f"{t}.attn.{name}.bias"] = qkv_b[j * d:(j + 1) * d]
+        _flat_dense(sd, f"{t}.attn.out", p, f"{b}/proj")
+        _flat_norm(sd, f"{t}.ffn_norm", p, f"{b}/norm2")
+        _flat_dense(sd, f"{t}.ffn.fc1", p, f"{b}/mlp1")
+        _flat_dense(sd, f"{t}.ffn.fc2", p, f"{b}/mlp2")
+        i += 1
+    _flat_norm(sd, f"{enc}.encoder_norm", p, "norm")
+    _flat_dense(sd, "head", p, "head")
+    return sd
+
+
+def maniqa_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX MANIQA params (``utils/maniqa.py``) -> ``utils.maniqa.MANIQA``."""
+    sd: Dict[str, np.ndarray] = {}
+    _flat_conv(sd, "vit.patch_embed.proj", p, "vit/patch_embed")
+    sd["vit.cls_token"] = _np(p["vit/cls_token"])[None]
+    sd["vit.pos_embed"] = _np(p["vit/pos_embed"])
+    for i in range(12):
+        t, b = f"vit.blocks.{i}", f"vit/block{i}"
+        _flat_norm(sd, f"{t}.norm1", p, f"{b}/norm1")
+        _flat_dense(sd, f"{t}.attn.qkv", p, f"{b}/attn/qkv")
+        _flat_dense(sd, f"{t}.attn.proj", p, f"{b}/attn/proj")
+        _flat_norm(sd, f"{t}.norm2", p, f"{b}/norm2")
+        _flat_dense(sd, f"{t}.mlp.fc1", p, f"{b}/mlp1")
+        _flat_dense(sd, f"{t}.mlp.fc2", p, f"{b}/mlp2")
+    for i in range(2):
+        for t, b in (("tablock1", "tab1"), ("tablock2", "tab2")):
+            for qkv in ("c_q", "c_k", "c_v"):
+                _flat_dense(sd, f"{t}.{i}.{qkv}", p, f"{b}_{i}/{qkv}")
+    _flat_conv(sd, "conv1", p, "conv1")
+    _flat_conv(sd, "conv2", p, "conv2")
+    for t, b in (("swintransformer1", "swin1"), ("swintransformer2", "swin2")):
+        for layer in range(2):
+            for d in range(2):
+                tb, bb = f"{t}.layers.{layer}.blocks.{d}", f"{b}/layer{layer}/block{d}"
+                _flat_norm(sd, f"{tb}.norm1", p, f"{bb}/norm1")
+                _flat_dense(sd, f"{tb}.attn.qkv", p, f"{bb}/attn/qkv")
+                _flat_dense(sd, f"{tb}.attn.proj", p, f"{bb}/attn/proj")
+                sd[f"{tb}.attn.relative_position_bias_table"] = _np(p[f"{bb}/attn/rel_bias_table"])
+                _flat_norm(sd, f"{tb}.norm2", p, f"{bb}/norm2")
+                _flat_dense(sd, f"{tb}.mlp.fc1", p, f"{bb}/mlp1")
+                _flat_dense(sd, f"{tb}.mlp.fc2", p, f"{bb}/mlp2")
+    for head in ("fc_score", "fc_weight"):
+        _flat_dense(sd, f"{head}.0", p, f"{head}1")
+        _flat_dense(sd, f"{head}.3", p, f"{head}2")
+    return sd
+
+
+def clip_rn50_params_to_torch(visual: Mapping[str, Any], text: Mapping[str, Any],
+                              logit_scale: float) -> Dict[str, np.ndarray]:
+    """The JAX CLIP RN50 towers (``models/clip_rn50.py``: the
+    ``ModifiedResNet`` and ``CLIPTextTower`` param trees, BatchNorm already
+    folded) and the log logit scale -> ``models.clip_rn50.CLIP``."""
+    sd: Dict[str, np.ndarray] = {}
+    for ci in (1, 2, 3):
+        _conv(sd, f"visual.conv{ci}", visual, f"conv{ci}")
+    for name in sorted(visual):
+        if name.startswith("layer"):  # layer{L}_block{B}
+            layer, block = name[5:].split("_block")
+            for conv in ("conv1", "conv2", "conv3", "downsample"):
+                if conv in visual[name]:
+                    _conv(sd, f"visual.layer{layer}.{block}.{conv}", visual, f"{name}/{conv}")
+    sd["visual.attnpool.positional_embedding"] = _np(_get(visual, "attnpool/positional_embedding"))
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(sd, f"visual.attnpool.{proj}", visual, f"attnpool/{proj}")
+    sd["token_embedding.weight"] = _np(text["token_embedding"])
+    sd["positional_embedding"] = _np(text["positional_embedding"])
+    i = 0
+    while f"resblock_{i}" in text:
+        t, b = f"transformer.resblocks.{i}", f"resblock_{i}"
+        _norm(sd, f"{t}.ln_1", text, f"{b}/ln_1")
+        _norm(sd, f"{t}.ln_2", text, f"{b}/ln_2")
+        sd[f"{t}.attn.in_proj_weight"] = _np(_get(text, f"{b}/in_proj/kernel")).transpose(1, 0)
+        sd[f"{t}.attn.in_proj_bias"] = _np(_get(text, f"{b}/in_proj/bias"))
+        _dense(sd, f"{t}.attn.out_proj", text, f"{b}/out_proj")
+        _dense(sd, f"{t}.mlp.c_fc", text, f"{b}/c_fc")
+        _dense(sd, f"{t}.mlp.c_proj", text, f"{b}/c_proj")
+        i += 1
+    _norm(sd, "ln_final", text, "ln_final")
+    sd["text_projection"] = _np(text["text_projection"])
+    sd["logit_scale"] = np.asarray(logit_scale, np.float32)
+    return sd
+
+
+def retinaface_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX RetinaFace params (``utils/retinaface.py``, BatchNorm folded)
+    -> ``utils.retinaface.RetinaFaceNet``: a body conv ``stage{s}/{i}`` (or
+    its ``_dw``/``_pw`` pair) to ``body.stage{s}.{i}.0`` (and ``.3``), the
+    FPN's and SSH's convs to index 0 of their Sequential."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in {k.rsplit("/", 1)[0] for k in p}:
+        parts = name.split("/")
+        if parts[0].startswith("stage"):
+            i, _, kind = parts[1].partition("_")
+            _flat_conv(sd, f"body.{parts[0]}.{i}.{3 if kind == 'pw' else 0}", p, name)
+        elif parts[0].endswith("Head"):
+            _flat_conv(sd, f"{parts[0]}.{parts[1]}.conv1x1", p, name)
+        else:
+            _flat_conv(sd, f"{'.'.join(parts)}.0", p, name)
+    return sd

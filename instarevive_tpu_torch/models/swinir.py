@@ -2,6 +2,8 @@
 
 The InstaRevive configuration: 8x pixel-unshuffle input, embed 180, 8 RSTB x
 6 blocks, window 8, mlp_ratio 2, ``nearest+conv`` upsampler x8, so net 1x.
+``upsampler=""`` is SwinIR's residual head instead (no unshuffle, sf 1):
+``conv_last`` maps the features straight to 3 channels, added to the input.
 
 Tokens stay a spatial NHWC map from end to end. A block's attention is
 ``qkv`` Linear -> the fused window-attention op (``ops/swin_attention.py``: on
@@ -155,8 +157,9 @@ class SwinIR(nn.Module):
         num_feat: int = 64,
     ):
         super().__init__()
-        if upsampler != "nearest+conv":
-            raise NotImplementedError(f"SwinIR upsampler {upsampler!r} is not ported yet")
+        if upsampler not in ("nearest+conv", ""):
+            raise ValueError(f"SwinIR upsampler {upsampler!r}: 'nearest+conv' or '' (the residual head)")
+        self.upsampler = upsampler
         self.window, self.sf, self.img_range = window, sf, img_range
         self.us = unshuffle_scale if unshuffle else 1
         conv_first = Conv2d(3 * self.us**2, embed_dim, 3, padding=1)
@@ -169,6 +172,9 @@ class SwinIR(nn.Module):
         )
         self.norm = LayerNorm(embed_dim, eps=1e-5)
         self.conv_after_body = Conv2d(embed_dim, embed_dim, 3, padding=1)
+        if not upsampler:  # the residual head: conv_last on the features, added to the input
+            self.conv_last = Conv2d(embed_dim, 3, 3, padding=1)
+            return
         self.conv_before_upsample = nn.Sequential(
             Conv2d(embed_dim, num_feat, 3, padding=1), nn.LeakyReLU(0.01)
         )
@@ -197,11 +203,14 @@ class SwinIR(nn.Module):
         deep = _nhwc_conv(self.conv_after_body, self.norm(deep))
         feat = (feat + deep).permute(0, 3, 1, 2)  # NCHW in shape, channels-last in memory, for the upsampler
 
-        feat = self.conv_before_upsample(feat)
-        for name in self.ups:
-            up = upsample2x_nearest(feat.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            feat = F.leaky_relu(getattr(self, name)(up), 0.2)
-        feat = F.leaky_relu(self.conv_hr(feat), 0.2)
-        out = self.conv_last(feat).permute(0, 2, 3, 1)
+        if self.upsampler:
+            feat = self.conv_before_upsample(feat)
+            for name in self.ups:
+                up = upsample2x_nearest(feat.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                feat = F.leaky_relu(getattr(self, name)(up), 0.2)
+            feat = F.leaky_relu(self.conv_hr(feat), 0.2)
+            out = self.conv_last(feat).permute(0, 2, 3, 1)
+        else:  # the input (net scale 1: no unshuffle, sf 1) plus the head's residual
+            out = x + self.conv_last(feat).permute(0, 2, 3, 1)
         out = out.float() / self.img_range + mean.float()
         return out[:, : h0 * net_scale, : w0 * net_scale, :].to(x.dtype)

@@ -78,6 +78,19 @@ class DerivedCache:
         return super()._load_from_state_dict(*args, **kwargs)
 
 
+def load_built(make: Callable[[], nn.Module], sd, device="cuda") -> nn.Module:
+    """``make()`` built on the meta device (no weights drawn), given the
+    tensors of the state dict ``sd`` as f32 on ``device``, frozen and in eval
+    mode: how the evaluation networks, whose every parameter comes from a
+    checkpoint, are made. A module built so holds no buffers that ``sd``
+    does not."""
+    with torch.device("meta"):
+        net = make()
+    net.load_state_dict({k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))).float()
+                         for k, v in sd.items()}, assign=True)
+    return net.to(device).eval().requires_grad_(False)
+
+
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
     """Make every ``Linear`` and ``Conv2d`` under ``module`` compute in
     ``dtype`` from weights kept in their own dtype (None: back to the

@@ -59,14 +59,15 @@ def build_v1(repo: str):
 
 def wall(fn, runs: int):
     """Seconds on the host clock of each of ``runs`` calls, each ending in a
-    synchronise."""
+    synchronise when the card is in use."""
     import torch
 
     out = []
     for _ in range(runs):
         t = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         out.append(time.perf_counter() - t)
     return out
 

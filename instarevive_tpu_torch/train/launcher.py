@@ -9,10 +9,13 @@ LDM/ControlNet stack (ControlLDM and Reflow).
     python -m instarevive_tpu_torch.train --task cldm --data /path/hq --out runs/cldm \
         --config configs/cldm.yaml --bf16 --batch_size 2 [--t_sampler loss_second_moment] [--context_npz ctx.npz]
 
-The flags are those of the JAX package's ``train.py`` (without ``--fsdp`` and
-the trace flags). Every batch of every task goes through the degradation
-synthesis on the device (``--degradation``: the Real-ESRGAN two-stage program
-or the CodeFormer one), which turns the clean crops into the pair
+The flags are those of the JAX package's ``train.py`` (without ``--fsdp``).
+``--trace_steps N --trace_at S`` profiles steps S to S+N-1 with
+``torch.profiler`` into the Chrome trace ``<out>/trace/trace.json``
+(``utils/profiling.trace``; the JAX package writes a ``jax.profiler`` trace).
+Every batch of every task goes through the degradation synthesis on the
+device (``--degradation``: the Real-ESRGAN two-stage program or the
+CodeFormer one), which turns the clean crops into the pair
 ``{"hq" in [-1, 1], "lq" in [0, 1]}`` the step trains on.
 
 ``--task swinir`` trains the SwinIR cleaner to map ``lq`` to the clean image
@@ -51,6 +54,7 @@ the step it has just launched.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 import sys
@@ -76,6 +80,7 @@ from instarevive_tpu_torch.train.optim import build_optimizer, constant_with_war
 from instarevive_tpu_torch.train.state import TrainState
 from instarevive_tpu_torch.utils.debug import SimpleTimer, nan_guard
 from instarevive_tpu_torch.utils.logging import LogBuffer, MetricWriter, close_logger, get_root_logger
+from instarevive_tpu_torch.utils.profiling import trace
 
 
 def parse_args(argv=None):
@@ -112,6 +117,9 @@ def parse_args(argv=None):
                    help="the synthesis every batch goes through: the Real-ESRGAN two-stage program or the "
                         "CodeFormer single-stage one")
     p.add_argument("--t_sampler", default="uniform", choices=["uniform", "loss_second_moment"])
+    p.add_argument("--trace_steps", type=int, default=0,
+                   help="profile N steps from --trace_at into the Chrome trace <out>/trace/trace.json")
+    p.add_argument("--trace_at", type=int, default=10)
     p.add_argument("--queue_size", type=int, default=256)
     p.add_argument("--dmd_noise_dir", default=None,
                    help="paired-noise dir; with --dmd_latent_dir, regression pairs come from disk "
@@ -465,33 +473,40 @@ def main(argv=None) -> TrainRun:
     # wait for the step it has just launched; step i-1's are read after step i
     # is launched, so the device queue stays fed while the host loads a batch.
     pending = None
-    while step_i < args.steps:
-        for batch in loader:
-            if step_i >= args.steps:
-                break
-            try:
-                step_metrics = task.run_step(batch)
-                metrics, pending = fetch(pending), step_metrics
-            except Exception:
-                try:  # an emergency full-state checkpoint before the error goes up
-                    ckpt.save_train_state(os.path.join(args.out, f"crash_step_{step_i}"),
-                                          task.states, task.generators(), step_i)
-                    logger.exception(f"step {step_i} failed; emergency checkpoint saved")
+    with contextlib.ExitStack() as tracer:  # the profiler, while --trace_steps runs
+        while step_i < args.steps:
+            for batch in loader:
+                if step_i >= args.steps:
+                    break
+                if args.trace_steps and step_i == args.trace_at:
+                    trace_path = tracer.enter_context(trace(os.path.join(args.out, "trace")))
+                    logger.info(f"trace started at step {step_i} ({args.trace_steps} steps)")
+                try:
+                    step_metrics = task.run_step(batch)
+                    metrics, pending = fetch(pending), step_metrics
                 except Exception:
-                    logger.exception(f"step {step_i} failed; emergency checkpoint unavailable")
-                raise
-            if metrics is not None:
-                buf.update(metrics)
-                run.history.append(metrics)
-            step_i += 1
-            msg = timer.update()
-            if msg:
-                avg = buf.average()
-                logger.info(f"{msg}  {avg}")
-                writer.scalars(step_i, avg)
-            if step_i % args.checkpointing_steps == 0:
-                ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generators(), step_i)
-                logger.info(f"checkpoint at step {step_i}")
+                    try:  # an emergency full-state checkpoint before the error goes up
+                        ckpt.save_train_state(os.path.join(args.out, f"crash_step_{step_i}"),
+                                              task.states, task.generators(), step_i)
+                        logger.exception(f"step {step_i} failed; emergency checkpoint saved")
+                    except Exception:
+                        logger.exception(f"step {step_i} failed; emergency checkpoint unavailable")
+                    raise
+                if metrics is not None:
+                    buf.update(metrics)
+                    run.history.append(metrics)
+                step_i += 1
+                if args.trace_steps and step_i == args.trace_at + args.trace_steps:
+                    tracer.close()
+                    logger.info(f"trace stopped at step {step_i}: {trace_path}")
+                msg = timer.update()
+                if msg:
+                    avg = buf.average()
+                    logger.info(f"{msg}  {avg}")
+                    writer.scalars(step_i, avg)
+                if step_i % args.checkpointing_steps == 0:
+                    ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generators(), step_i)
+                    logger.info(f"checkpoint at step {step_i}")
 
     if pending is not None:  # drain the late fetch
         run.history.append(fetch(pending))

@@ -6,6 +6,7 @@
   one fused check;
 * ``nan_guard``: applies a gradient step only where every gradient is finite,
   selecting on the device (no flag is read on the host);
+* ``activation_stats``: the abs-min/max line of one tensor, with inf/nan flags;
 * ``SimpleTimer``: progress and ETA lines.
 """
 
@@ -76,3 +77,14 @@ class SimpleTimer:
             f"{self.desc}[{self.count}/{self.total}] "
             f"{rate:.2f} it/s, elapsed {elapsed:.0f}s, ETA {eta:.0f}s"
         )
+
+
+def activation_stats(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Print ``[activation] name: absmin=.. absmax=..`` for ``x``, flagged
+    ``[INF]`` or ``[NAN]``, the JAX package's line; returns ``x``. Reading the
+    four values waits for the device: on the card this synchronises."""
+    ax = x.detach().abs()
+    mn, mx, has_inf, has_nan = (v.item() for v in (ax.min(), ax.max(), torch.isinf(x).any(), torch.isnan(x).any()))
+    flag = " [INF]" if has_inf else (" [NAN]" if has_nan else "")
+    print(f"[activation] {name}: absmin={mn:.3e} absmax={mx:.3e}{flag}")
+    return x
