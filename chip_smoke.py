@@ -135,8 +135,8 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    window over a grid it does not divide, micro-conditioning with and without
    ``data_info``) on the card against the CPU;
 16. evaluates images (``instarevive_tpu_torch.evaluate_img``): LPIPS
-   (AlexNet), MUSIQ, MANIQA, CLIP RN50 (a stub tokenizer: the card machine has
-   no ``transformers``) and RetinaFace built at their published widths from
+   (AlexNet), MUSIQ, MANIQA, CLIP RN50 (with a stub tokenizer, no file read)
+   and RetinaFace built at their published widths from
    seeded official-layout state dicts through the port's loaders; 6's
    restorations scored against their inputs (PSNR, SSIM, LPIPS, NIQE on the
    host, MUSIQ, MANIQA, CLIP-IQA), every value finite and in its range, no
@@ -146,7 +146,23 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    512x512 image; one forward of the full-width v1 SwinIR with the residual
    head (``upsampler: ""``, no unshuffle) on 4x512x512 in bf16, K4 48 times
    at the shapes 3 held (``residual_b4_512x512``) and K5c not at all; and
-   10's trace, which must name K4's ``swin16::kernel``.
+   10's trace, which must name K4's ``swin16::kernel``;
+17. runs the text encoders, the data-preparation CLIs, RRDBNet, depth and the
+   captioner at the published widths of their configurations, each built on
+   the card in f32 with seeded weights (``aux_phase``): T5 v1.1 XXL's encoder
+   on two prompts at 300 tokens, then a prompted 20-step DPM-Solver++(2M)
+   sample at 512x512 (guidance 4.5, every kernel's launches held, images
+   other than the null prompt's); ``tools/extract_features.py`` over 8 seeded
+   512x512 PNGs at batch 8 with T5 captions (the f32 VAE encode: K3, K5a/b
+   and K1 at head dim 512, every shape held in 3); the OpenCLIP ViT-H/14 text
+   tower (penultimate layer); ``tools/lq.py`` on 2 images (K6 at 41 x 41
+   taps); RRDBNet x4 (64 features, 23 blocks) tiled over 256x256; DPT-Hybrid
+   and DPT-Large at 384x384 (K1 at (2, 12 | 16, 577, 577, 64) in f32, one
+   launch a ViT block, held in 3), MiDaS v2.1 at 384 and v2.1-small at 256,
+   each ``depth_fn`` into the depth2image conditioning; LLaVA-MPT-7B with a
+   CLIP ViT-L/14 tower at 224 decoding 32 greedy tokens. Each prints its wall
+   to a synchronise, peak memory and kernel launches, and a depth-cut copy at
+   full width in f32 on the card against the CPU (``AUX_CARD_CPU_BOUND``).
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -156,6 +172,7 @@ before that last line; without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import json
 import os
 import re
@@ -366,6 +383,8 @@ def conv_phase():
               (512, 128, 128), (512, 256, 128)]
     cases += [(f"serve_{hw}_{c}_{co}", (1, hw, hw * 5 // 4, c, co), ("f32",)) for hw, c, co in served]
     cases += [("ragged_" + "_".join(map(str, shape)), shape, ("f32",)) for shape in ragged]
+    # phase 17: extract_features' f32 VAE encode of 8 images at 512^2
+    cases += [(f"extract_b8_{hw}_{c}_{co}", (8, hw, hw, c, co), ("f32",)) for hw, c, co in dmd_encode]
     records = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, (n, h, w, c, co), dts in cases:
@@ -810,6 +829,11 @@ def kernel_phase():
         ("options_self_kv_compressed", (2, 16, 240, 60, 72), None, ("f32",)),
         ("options_window", (12, 16, 64, 64, 72), None, ("f32",)),
         ("options_cross", (2, 16, 240, 300, 72), None, ("f32",)),
+        # phase 17: the ViT of DPT-Hybrid and DPT-Large at 384^2 (577 tokens, head dim 64; f32 on the path, bf16 for
+        # the table), and extract_features' f32 VAE encode of 8 images at 512^2
+        ("dpt_hybrid_self", (2, 12, 577, 577, 64), None, ("bf16", "f32")),
+        ("dpt_large_self", (2, 16, 577, 577, 64), None, ("bf16", "f32")),
+        ("vae_mid_extract_b8", (8, 1, 4096, 4096, 512), None, ("f32",)),
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -2938,6 +2962,380 @@ def evaluation_phase(cfg_full, work, swin_records):
             "trace_kernels": len(kernels), "trace_k4": k4, "build_s": build_s, "phase_s": phase_s}
 
 
+# Phase 17: the text encoders and prompted sampling, the data-preparation CLIs,
+# RRDBNet, MiDaS/DPT depth and the LLaVA-MPT captioner, each at the published
+# width of its configuration with seeded weights built on the card, and a
+# depth-cut copy at full width in f32 on the card against the CPU: f32 GEMMs
+# and convolutions (TF32 off) and, in DPT, K1's split-tf32 products sum in
+# other orders than the CPU over one to four layers.
+AUX_CARD_CPU_BOUND = 1e-4  # of max|CPU|
+AUX_DEPTH_CUTS = {"dpt_hybrid": "4 ViT blocks", "dpt_large": "4 ViT blocks", "midas_v21": "one block a stage",
+                  "midas_v21_small": "full depth"}
+AUX_PROMPTS = ["a photo of a red panda in the snow, high quality", "portrait of an old man with a detailed face"]
+
+
+def sync_walls(call, runs=2):
+    """(the last output, host seconds to a synchronise for each of ``runs``
+    calls, peak GiB allocated over them)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, out = [], None
+    for _ in range(runs):
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return out, walls, torch.cuda.max_memory_allocated() / 2**30
+
+
+def kernel_split(what, call, top=3):
+    """One more ``call`` under ``torch.profiler``: its device time by kernel
+    (memory copies included), the launches, the ``top`` kernels by time;
+    printed and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0 and e.self_cpu_time_total == 0),
+                     key=lambda e: -e.self_device_time_total)
+    out = dict(kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3, launches=sum(e.count for e in kernels),
+               top=[(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in kernels[:top]])
+    print(f"[aux] {what}: {out['kernel_ms']:.2f} ms of device time in {out['launches']} launches; the most: "
+          + "; ".join(f"{name} {ms:.2f} ms in {n}" for name, ms, n in out["top"]), flush=True)
+    return out
+
+
+def card_vs_cpu(what, cpu_model, run):
+    """``run(model, device)`` on the CPU model and on a copy on the card; the
+    largest difference over the largest CPU magnitude, held to
+    ``AUX_CARD_CPU_BOUND``."""
+    import copy
+
+    import torch
+
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    with torch.no_grad():
+        ref = run(cpu_model, "cpu").float()
+        got = run(gpu_model, "cuda").float().cpu()
+    if ref.abs().max().item() == 0:
+        fail(f"{what}: the CPU's output is all zeros, nothing to compare")
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    print(f"[aux] {what}: card against CPU in f32 max error {err:.3e} of max|CPU| {ref.abs().max().item():.3e} "
+          f"(bound {AUX_CARD_CPU_BOUND:.0e})", flush=True)
+    if not (torch.isfinite(got).all() and err <= AUX_CARD_CPU_BOUND):
+        fail(f"{what}: card against CPU {err} > {AUX_CARD_CPU_BOUND}")
+    del gpu_model
+    torch.cuda.empty_cache()
+    return err
+
+
+def no_kernel_launched(what):
+    got = read_counts()
+    if any(got.values()):
+        fail(f"{what}: launched kernels of the port {got}; its path has none")
+
+
+def aux_phase(cfg_full, conv_records, attn_records, filter_records):
+    """Phase 17 (see the module docstring). Returns its record."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from transformers import CLIPTextModel, CLIPVisionModel, T5EncoderModel
+
+    from instarevive_tpu_torch import sample as S
+    from instarevive_tpu_torch.models import clip, dpt, llava_mpt, rrdbnet, t5
+    from instarevive_tpu_torch.ops.degradation import make_generators
+    from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
+    from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params
+    from instarevive_tpu_torch.tools import extract_features, lq
+    from instarevive_tpu_torch.tools import text_checkpoints as tc
+    from instarevive_tpu_torch.train.ldm_tasks import LatentDiffusionTask
+
+    t_phase = time.perf_counter()
+    card, rec = card_line(), {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_aux_")
+    atexit.register(shutil.rmtree, work, True)
+
+    # -- T5 v1.1 XXL's encoder: 2 prompts at 300 tokens ----------------------------------------------------------
+    t = time.perf_counter()
+    t5_model = tc.seeded_model(lambda: T5EncoderModel(tc.t5_config()), 0, "cuda")
+    build_s = time.perf_counter() - t
+    t5_tok = tc.word_tokenizer(32128, 300, "t5")
+    embedder = t5.T5Embedder(model=t5_model, tokenizer=t5_tok, model_max_length=300)
+    reset_counts()
+    (y, mask), walls, peak = sync_walls(lambda: embedder.encode(AUX_PROMPTS))
+    no_kernel_launched("T5 encode")
+    if tuple(y.shape) != (2, 300, 4096) or not torch.isfinite(y).all():
+        fail(f"T5: embeddings {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+    params = sum(p.numel() for p in t5_model.parameters())
+    print(f"[aux] {card}: T5 v1.1 XXL encoder ({params / 1e9:.3f} B parameters, f32, built on the card in "
+          f"{build_s:.1f}s): 2 prompts at 300 tokens -> {tuple(y.shape)} finite, {int(mask.sum())} real tokens; "
+          f"wall {walls[-1]:.4f} s (first {walls[0]:.4f}), peak allocated {peak:.2f} GiB; no kernel of the port",
+          flush=True)
+    ids = t5_tok(AUX_PROMPTS, max_length=300, padding="max_length", truncation=True, return_tensors="pt")
+    err = card_vs_cpu("T5 encoder at depth 1",
+                      tc.seeded_model(lambda: T5EncoderModel(tc.t5_config(num_layers=1)), 1, "cpu"),
+                      lambda m, dev: m(input_ids=ids["input_ids"].to(dev),
+                                       attention_mask=ids["attention_mask"].to(dev)).last_hidden_state)
+    rec["t5"] = dict(parameters=params, build_s=build_s, wall_s=walls, peak_gib=peak, card_vs_cpu=err)
+
+    # -- a prompted 20-step DPM-Solver++(2M) sample at 512^2, guidance 4.5 ----------------------------------------
+    pipe = init_params(build_pipeline(cfg_full, dtype=torch.bfloat16, device="cuda"), seed=0)
+    null = pipe.dit.y_embedder.y_embedding[:300][None].float().expand(2, -1, -1)
+    shape = S.latent_shape(AUX_PROMPTS, 512)
+
+    def prompted(y_):
+        return S.sample_images(pipe, y_, null, shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                               algo="dpm-solver", step=SAMPLE_STEPS, cfg_scale=4.5)
+
+    imgs = tally_shapes(lambda: prompted(y), "prompted sample", conv_records, None, None, attn_records,
+                        attn_dims=(72, 512))
+    check_image(imgs, (2, 512, 512, 3), "prompted sample")
+    counts = {"prompted_sample": check_counts("prompted sample", pipe, SAMPLE_STEPS, 0, 1, cleans=0)}
+    if torch.equal(imgs, prompted(null)):
+        fail("prompted sample: the T5 prompts gave the null prompt's images")
+    _, walls, peak = sync_walls(lambda: prompted(y))
+    print(f"[aux] {card}: prompted sample (T5 y, the null embedding unconditional, DPM-Solver++(2M) x {SAMPLE_STEPS} "
+          f"at 512x512, guidance 4.5): images (2, 512, 512, 3) finite in [0, 1], other than the null prompt's; K1 "
+          f"{counts['prompted_sample']['flash_attn_fwd']} launches, every kernel as {SAMPLE_STEPS} DiT calls and a "
+          f"decode imply, every shape held; wall {min(walls):.4f} s, peak allocated {peak:.2f} GiB", flush=True)
+    rec["prompted_sample"] = dict(wall_s=walls, peak_gib=peak, launches=counts["prompted_sample"])
+    del pipe
+    torch.cuda.empty_cache()
+
+    # -- extract_features at configs/instarevive_v1.yaml: 8 seeded 512^2 PNGs at batch 8, T5 captions -------------
+    src, out = os.path.join(work, "ef_in"), os.path.join(work, "ef_out")
+    os.makedirs(src)
+    rng = np.random.default_rng(17)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)).save(os.path.join(src, f"{i}.png"))
+    caps = os.path.join(work, "captions.json")
+    with open(caps, "w") as f:
+        _json.dump({f"{i}.png": AUX_PROMPTS[i % 2] for i in range(8)}, f)
+    cap_embedder = t5.T5Embedder(model=t5_model, tokenizer=tc.word_tokenizer(32128, 120, "t5"), model_max_length=120)
+    v1 = os.path.join(REPO, "configs", "instarevive_v1.yaml")
+    argv = ["--input", src, "--output", out, "--config", v1, "--captions", caps, "--batch_size", "8",
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    written = tally_shapes(lambda: extract_features.main(argv, embedder=cap_embedder), "extract_features",
+                           conv_records, None, None, attn_records, conv_dtype="f32", attn_dims=(512,))
+    ef_s, peak = time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**30
+    counts["extract_features"] = got = read_counts()
+    vae = extract_features.vae_encoder(v1, None, "cuda").vae
+    convs = 2 * (len(vae.ch_mult) * len(vae.encoder.down[0].block) + 2)
+    want = dict({k: 0 for k in got}, flash_attn_fwd=1, gn_silu_conv3x3=convs, gn_stats_fold=convs + 2, gn_apply=2)
+    if written != {"latents": 8, "t5": 8} or got != want:
+        fail(f"extract_features: wrote {written}, launches {got}, expected {want}")
+    for i in range(8):
+        z = np.load(os.path.join(out, "vae_feat", f"{i}.npz"))["latent"]
+        f = np.load(os.path.join(out, "t5_feat", f"{i}.npz"))
+        if z.shape != (64, 64, 4) or not np.isfinite(z).all() or f["caption_feature"].shape != (120, 4096) \
+                or f["attention_mask"].shape != (120,):
+            fail(f"extract_features: image {i}: latent {z.shape}, caption {f['caption_feature'].shape}")
+    print(f"[aux] {card}: extract_features (f32 VAE encode of 8 x 512^2 at batch 8 on K3's f32 form, K5a/b and K1 "
+          f"at head dim 512, every shape held; T5 captions at 120 tokens; the saver thread): 8 latents (64, 64, 4) "
+          f"and 8 caption features (120, 4096) written; launches {got}; wall {ef_s:.2f} s with the VAE's build, peak "
+          f"allocated {peak:.2f} GiB", flush=True)
+    cpu_pipe = extract_features.vae_encoder(v1, None, "cpu")
+    cpu_pipe.vae.load_state_dict(vae.state_dict())
+    img = torch.from_numpy(np.asarray(Image.open(os.path.join(src, "0.png")), np.float32)[None, :256, :256] / 255.0)
+    err = card_vs_cpu("extract_features' VAE encode, one 256^2 crop", cpu_pipe,
+                      lambda p, dev: p.encode(img.to(dev)))
+    rec["extract_features"] = dict(wall_s=ef_s, peak_gib=peak, launches=got, card_vs_cpu=err)
+    del t5_model, embedder, cap_embedder, vae, cpu_pipe
+    torch.cuda.empty_cache()
+
+    # -- the OpenCLIP ViT-H/14 text tower, penultimate layer ----------------------------------------------------
+    t = time.perf_counter()
+    clip_model = tc.seeded_model(lambda: CLIPTextModel(tc.clip_text_config()), 2, "cuda")
+    build_s = time.perf_counter() - t
+    tok = tc.word_tokenizer(49408, 77, "clip")
+    cond = clip.FrozenCLIPEmbedder(model=clip_model, tokenizer=tok, layer="penultimate")
+    reset_counts()
+    ctx, walls, peak = sync_walls(lambda: cond.encode_tensor(AUX_PROMPTS))
+    no_kernel_launched("CLIP text encode")
+    if tuple(ctx.shape) != (2, 77, 1024) or not torch.isfinite(ctx).all():
+        fail(f"OpenCLIP text tower: context {tuple(ctx.shape)}")
+    print(f"[aux] {card}: OpenCLIP ViT-H/14 text tower ({sum(p.numel() for p in clip_model.parameters()) / 1e6:.1f} M "
+          f"parameters, built in {build_s:.1f}s): 2 prompts -> penultimate layer {tuple(ctx.shape)} finite; wall "
+          f"{walls[-1]:.4f} s (first {walls[0]:.4f}), peak allocated {peak:.2f} GiB; no kernel of the port", flush=True)
+    ids = tok(AUX_PROMPTS, max_length=77, padding="max_length", truncation=True, return_tensors="pt")
+    err = card_vs_cpu("OpenCLIP text tower at depth 2, penultimate layer",
+                      tc.seeded_model(lambda: CLIPTextModel(tc.clip_text_config(num_hidden_layers=2)), 3, "cpu"),
+                      lambda m, dev: m(input_ids=ids["input_ids"].to(dev), attention_mask=ids["attention_mask"].to(dev),
+                                       output_hidden_states=True).hidden_states[-2])
+    rec["openclip_text"] = dict(wall_s=walls, peak_gib=peak, card_vs_cpu=err)
+    del clip_model, cond
+    torch.cuda.empty_cache()
+
+    # -- lq on 2 seeded images -------------------------------------------------------------------------------
+    src, out = os.path.join(work, "lq_in"), os.path.join(work, "lq_out")
+    os.makedirs(src)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)).save(os.path.join(src, f"{i}.png"))
+    t = time.perf_counter()
+    paths = tally_shapes(lambda: lq.main(["--input", src, "--output", out, "--device", "cuda"]), "lq", None, None,
+                         filter_records=filter_records)
+    lq_s = time.perf_counter() - t
+    counts["lq"] = got = read_counts()
+    if got["filter2d"] != 2 or len(paths) != 2:
+        fail(f"lq: filter2d launches {got['filter2d']} for 2 images, {len(paths)} written")
+    for p in paths:
+        a = np.asarray(Image.open(p))
+        if a.shape != (512, 512, 3) or a.std() == 0:
+            fail(f"lq: {p} is {a.shape}, std {a.std()}")
+    print(f"[aux] {card}: lq on 2 x 512^2 (the 41^2 mixed kernel through K6, held in its phase; bilinear down and "
+          f"up, noise, DiffJPEG): 2 PNGs written; filter2d launches {got['filter2d']}; wall {lq_s:.3f} s", flush=True)
+    gens = make_generators(5, "cpu")
+    draws = lq.draw_lq(gens)
+    hq = torch.from_numpy(np.asarray(Image.open(os.path.join(src, "0.png")), np.float32)[None] / 255.0)
+    draws.fields = (torch.randn(1, 170, 170, 3, generator=gens.device),
+                    torch.randn(1, 170, 170, 1, generator=gens.device))
+    with torch.no_grad():
+        ref = lq.blur_down_noise(hq, (170, 170), draws)
+        dev_draws = lq.LQDraws(kernel=draws.kernel, sigma=draws.sigma, fields=tuple(f.cuda() for f in draws.fields))
+        stage = lq.blur_down_noise(hq.cuda(), (170, 170), dev_draws).cpu()
+        err = (stage - ref).abs().max().item()
+        lvl = (torch.round(lq.jpeg_up(stage.cuda(), (512, 512), 80.0) * 255).cpu()
+               - torch.round(lq.jpeg_up(ref, (512, 512), 80.0) * 255)).abs()
+    share, worst = (lvl <= 1).float().mean().item(), lvl.max().item()
+    print(f"[aux] lq card against CPU, one draw handed to both: blur, downsample and noise max error {err:.3e} "
+          f"(bound 1e-5); after JPEG and the resize back {share:.4f} of the levels within 1, the largest {worst:.0f} "
+          "(bounds 0.99 and 52, one JPEG rounding flip)", flush=True)
+    if not (err <= 1e-5 and share >= 0.99 and worst <= 52):
+        fail(f"lq card against CPU: stage {err}, levels {share} within 1, worst {worst}")
+    rec["lq"] = dict(wall_s=lq_s, launches=got, card_vs_cpu=err, levels_within_1=share)
+
+    # -- RRDBNet x4 (64 features, 23 blocks, grow 32), tiled over a 256^2 input -----------------------------------
+    net = tc.seeded_model(lambda: rrdbnet.RRDBNet(scale=4, num_feat=64, num_block=23, num_grow=32), 4, "cuda")
+    x = torch.rand(1, 256, 256, 3, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    reset_counts()
+    with torch.no_grad():
+        up, walls, peak = sync_walls(lambda: rrdbnet.tile_process(net, x, 4))
+    no_kernel_launched("RRDBNet")
+    if tuple(up.shape) != (1, 1024, 1024, 3) or not torch.isfinite(up).all():
+        fail(f"RRDBNet: {tuple(up.shape)}")
+    print(f"[aux] {card}: RRDBNet x4 (64, 23 blocks, grow 32; {sum(p.numel() for p in net.parameters()) / 1e6:.2f} M "
+          f"parameters, f32, cuDNN) tiled (400 + 10) over 1 x 256^2 -> {tuple(up.shape)} finite; wall "
+          f"{walls[-1]:.4f} s (first {walls[0]:.4f}), peak allocated {peak:.2f} GiB", flush=True)
+    # profiled last: once the profiler has run, host-bound calls slow down
+    profiled = {"rrdbnet": ("RRDBNet tiled call", torch.no_grad()(lambda: rrdbnet.tile_process(net, x, 4)))}
+    xc = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(7))
+    err = card_vs_cpu("RRDBNet x4 at 1 block, 64^2",
+                      tc.seeded_model(lambda: rrdbnet.RRDBNet(scale=4, num_block=1), 5, "cpu"),
+                      lambda m, dev: m(xc.to(dev)))
+    rec["rrdbnet"] = dict(wall_s=walls, peak_gib=peak, card_vs_cpu=err)
+    del up
+    torch.cuda.empty_cache()
+
+    # -- MiDaS: DPT-Hybrid, DPT-Large (K1 at head dim 64, 577 tokens), v2.1 at 384, v2.1-small at 256 ---------------
+    x01 = torch.rand(2, 384, 384, 3, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+    rec["depth"], counts["depth"] = {}, {}
+    for i, model_type in enumerate(("dpt_hybrid", "dpt_large", "midas_v21", "midas_v21_small")):
+        model = tc.seeded_model(lambda: dpt.build_midas(model_type), 10 + i, "cuda")
+        midas = dpt.MiDaSInference(model, model_type)
+        depth = tally_shapes(lambda: midas(x01), f"depth {model_type}", None, None, f"launches_{model_type}_call",
+                             attn_records, conv_dtype="f32", attn_dims=(64,))
+        got, planes = read_counts(), tf32_planes.launches
+        blocks = model.cfg.vit_depth if model_type.startswith("dpt") else 0
+        if got["flash_attn_fwd"] != blocks or planes != 3 * blocks or sum(got.values()) != blocks:
+            fail(f"depth {model_type}: launches {got}, prepass {planes}; expected K1 {blocks}, prepass {3 * blocks}")
+        counts["depth"][model_type] = got
+        if tuple(depth.shape) != (2, 384, 384, 1) or not torch.isfinite(depth).all():
+            fail(f"depth {model_type}: {tuple(depth.shape)}")
+        _, walls, peak = sync_walls(lambda: midas(x01))
+        positive = (depth > 0).float().mean().item()
+        cond = LatentDiffusionTask.depth_conditioning(midas.depth_fn()(x01 * 2 - 1), (48, 48))
+        if tuple(cond.shape) != (2, 48, 48, 1) or not (cond.abs() <= 1 + 1e-6).all():
+            fail(f"depth {model_type}: depth2image conditioning {tuple(cond.shape)} outside [-1, 1]")
+        print(f"[aux] {card}: {model_type} ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, f32) "
+              f"on 2 x 384^2 at net size {midas.net_size}: depth (2, 384, 384, 1) finite, {positive:.3f} of it above 0 "
+              f"(the head's ReLU at torch's init); K1 {blocks} launches (one a "
+              f"ViT block, split-tf32 at head dim 64, each shape held) and the prepass {planes}; depth_fn -> the "
+              f"depth2image conditioning (2, 48, 48, 1) in [-1, 1]; wall a call {min(walls):.4f} s, peak allocated "
+              f"{peak:.2f} GiB", flush=True)
+        profiled[model_type] = (f"{model_type} call", lambda midas=midas: midas(x01))
+        del model
+        # the copies end without the head's last ReLU: at torch's init it can zero every pixel
+        if model_type.startswith("dpt"):
+            cut = dataclasses.replace(dpt.VARIANTS[dpt.DPT_TYPES[model_type]], vit_depth=4, hooks=(0, 1, 2, 3),
+                                      non_negative=False)
+            cpu_model = tc.seeded_model(lambda: dpt.DPTDepthModel(cut), 20 + i, "cpu")
+        elif model_type == "midas_v21":
+            cpu_model = tc.seeded_model(lambda: dpt.MidasNet(layers=(1, 1, 1, 1), non_negative=False), 20 + i,
+                                        "cpu")
+        else:
+            cpu_model = tc.seeded_model(lambda: dpt.MidasNetSmall(non_negative=False), 20 + i, "cpu")
+        xc = x01[:1].cpu()
+        err = card_vs_cpu(f"{model_type} cut to {AUX_DEPTH_CUTS[model_type]}, no final ReLU", cpu_model,
+                          lambda m, dev: dpt.MiDaSInference(m, model_type)(xc.to(dev)))
+        rec["depth"][model_type] = dict(wall_s=walls, peak_gib=peak, launches=got, prepass=planes, card_vs_cpu=err,
+                                        positive_share=positive)
+        torch.cuda.empty_cache()
+
+    # -- LLaVA-MPT-7B with a CLIP ViT-L/14 tower at 224 (layer -2): 32 greedy tokens ------------------------------
+    t = time.perf_counter()
+    tower = tc.seeded_model(lambda: CLIPVisionModel(tc.clip_vision_config()), 30, "cuda")
+    cfg7b = dataclasses.replace(llava_mpt.MPT_7B, mm_hidden_size=1024)
+    lm = tc.seeded_model(lambda: llava_mpt.MPTModel(cfg7b), 31, "cuda")
+    build_s = time.perf_counter() - t
+    tok = tc.word_tokenizer(cfg7b.vocab_size, cfg7b.max_seq_len, "plain")
+    im_patch = tok.convert_tokens_to_ids("<im_patch>")
+    n_patches = (224 // 14) ** 2
+
+    def captioner(model, vision):
+        def vision_fn(px):
+            return llava_mpt.clip_select_features(vision(pixel_values=px, output_hidden_states=True).hidden_states, -2)
+        return llava_mpt.LlavaMPT(model, vision_fn, im_patch)
+
+    prompt = tok("describe this image and its style in a very detailed manner").input_ids + [im_patch] * n_patches
+    px = torch.randn(2, 3, 224, 224, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    ids = torch.tensor([prompt] * 2, device="cuda")
+    llava = captioner(lm, tower)
+    reset_counts()
+    toks, walls, peak = sync_walls(lambda: llava.generate(ids, px, torch.ones_like(ids, dtype=torch.bool), 32))
+    no_kernel_launched("LLaVA-MPT generate")
+    if tuple(toks.shape) != (2, 32) or int(toks.min()) < 0 or int(toks.max()) >= cfg7b.vocab_size:
+        fail(f"LLaVA-MPT: tokens {tuple(toks.shape)} in [{int(toks.min())}, {int(toks.max())}]")
+    params = sum(p.numel() for p in lm.parameters())
+    print(f"[aux] {card}: LLaVA-MPT-7B ({params / 1e9:.3f} B parameters, f32; CLIP ViT-L/14 tower at 224, layer -2, "
+          f"{n_patches} patches; built in {build_s:.1f}s): 2 images, a prompt of {len(prompt)} tokens, 32 greedy "
+          f"tokens with the KV cache -> {tuple(toks.shape)}; wall {walls[-1]:.4f} s (first {walls[0]:.4f}; "
+          f"{walls[-1] / 32 * 1e3:.2f} ms a token with the prefill), peak allocated {peak:.2f} GiB; no kernel of the "
+          "port", flush=True)
+    profiled["llava_mpt"] = ("LLaVA-MPT generate",
+                             lambda: llava.generate(ids, px, torch.ones_like(ids, dtype=torch.bool), 32))
+    cpu_lm = tc.seeded_model(lambda: llava_mpt.MPTModel(dataclasses.replace(cfg7b, n_layers=1)), 32, "cpu")
+    cpu_tower = tc.seeded_model(lambda: CLIPVisionModel(tc.clip_vision_config(num_hidden_layers=2)), 33, "cpu")
+    pxc, idc = px[:1].cpu(), ids[:1].cpu()
+
+    class Pair(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm, self.tower = cpu_lm, cpu_tower
+
+    err = card_vs_cpu("LLaVA-MPT at 1 layer with the tower at 2, caption logits", Pair(),
+                      lambda m, dev: captioner(m.lm, m.tower).caption_logits(idc.to(dev), pxc.to(dev)))
+    rec["llava_mpt"] = dict(parameters=params, build_s=build_s, wall_s=walls, peak_gib=peak, card_vs_cpu=err)
+    for key, (what, call) in profiled.items():  # where the device time goes, by kernel
+        (rec["depth"][key] if key in rec["depth"] else rec[key])["kernels"] = kernel_split(what, call)
+    del profiled, llava, lm, tower, net
+    torch.cuda.empty_cache()
+
+    rec["launches"] = counts
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[aux] phase 17 wall {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -3181,6 +3579,8 @@ def main() -> None:
     sample_2k_counts, sample_2k_timing = sample_2k_phase(conv_records, attn_records)
     torch.cuda.empty_cache()
     evaluation = evaluation_phase(cfg, work, swin_records)
+    torch.cuda.empty_cache()
+    aux = aux_phase(cfg, conv_records, attn_records, filter_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -3221,6 +3621,12 @@ def main() -> None:
                                  "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]},
                      conv_records, conv_build, conv_grads),
     ]
+    fwd["launches_depth_call"] = {t: c["flash_attn_fwd"] for t, c in aux["launches"]["depth"].items()}
+    for entry in kernels:  # phase 17's calls that launch the kernel, by kernel
+        calls = {call: c[entry["name"]] for call, c in aux["launches"].items()
+                 if call != "depth" and c.get(entry["name"])}
+        if calls:
+            entry["launches_phase17"] = calls
     for entry in kernels:  # a 20-step DPM-Solver sample call and a validation batch, by kernel
         if entry["name"] in sample_counts:
             entry["launches_sample_call"] = sample_counts[entry["name"]]
@@ -3228,7 +3634,7 @@ def main() -> None:
             entry["launches_sample_2k_call"] = sample_2k_counts[entry["name"]]
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
                       "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
-                      "sample_2k": sample_2k_timing, "evaluate": evaluation}), flush=True)
+                      "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

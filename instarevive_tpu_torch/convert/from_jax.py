@@ -569,3 +569,154 @@ def retinaface_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         else:
             _flat_conv(sd, f"{'.'.join(parts)}.0", p, name)
     return sd
+
+
+# ----------------------------------------------- RRDBNet, MiDaS, LLaVA-MPT
+# The inverses of the JAX importers' key maps (``rrdbnet`` keeps flax's own
+# names; ``dpt_params_from_torch``, ``midas_v21_params_from_torch``,
+# ``midas_v21_small_params_from_torch``, ``mpt_params_from_torch``): the JAX
+# params -> the port's modules, whose names are the official checkpoints'
+# (folded convolutions keep the bias the fold gave them).
+
+
+def _conv_nobias(sd, torch_path, tree, flax_path):
+    sd[torch_path + ".weight"] = _np(_get(tree, flax_path + "/kernel")).transpose(3, 2, 0, 1)
+
+
+def rrdbnet_params_to_torch(p: Mapping[str, Any], num_block: int) -> Dict[str, np.ndarray]:
+    """The JAX ``RRDBNet`` params -> ``models.rrdbnet.RRDBNet``."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _conv(sd, name, p, name)
+    for i in range(num_block):
+        for r in (1, 2, 3):
+            for c in range(1, 6):
+                _conv(sd, f"body.{i}.rdb{r}.conv{c}", p, f"body_{i}/rdb{r}/conv{c}")
+    return sd
+
+
+def _midas_scratch(sd, p, out_conv: bool):
+    for li in range(1, 5):
+        _conv_nobias(sd, f"scratch.layer{li}_rn", p, f"layer{li}_rn")
+    for ri in range(1, 5):
+        units = (2,) if ri == 4 else (1, 2)
+        for u in units:
+            for c in (1, 2):
+                _conv(sd, f"scratch.refinenet{ri}.resConfUnit{u}.conv{c}", p, f"refinenet{ri}/rcu{u}/conv{c}")
+        if out_conv:
+            _conv(sd, f"scratch.refinenet{ri}.out_conv", p, f"refinenet{ri}/out_conv")
+    for idx, name in ((0, "head_conv1"), (2, "head_conv2"), (4, "head_conv3")):
+        _conv(sd, f"scratch.output_conv.{idx}", p, name)
+
+
+def dpt_params_to_torch(p: Mapping[str, Any], cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``DPTDepthModel`` params -> ``models.dpt.DPTDepthModel``
+    (``cfg`` a ``DPTConfig`` of either package). The dense up-projection and
+    depth-to-space go back to a ``ConvTranspose2d`` (I, O, k, k)."""
+    vit, sd = "pretrained.model.", {}
+    sd[vit + "cls_token"], sd[vit + "pos_embed"] = _np(p["cls_token"]), _np(p["pos_embed"])
+    kernel, d = _np(p["patch_proj"]["kernel"]), cfg.vit_dim
+    if cfg.hybrid:
+        bb = vit + "patch_embed.backbone."
+        _conv_nobias(sd, bb + "stem.conv", p, "backbone/stem_conv")
+        _norm(sd, bb + "stem.norm", p, "backbone/stem_norm/gn")
+        for si, depth in enumerate(cfg.rn_layers):
+            for bi in range(depth):
+                tb, fb = f"{bb}stages.{si}.blocks.{bi}.", f"backbone/stage{si}_block{bi}"
+                for c in (1, 2, 3):
+                    _conv_nobias(sd, f"{tb}conv{c}", p, f"{fb}/conv{c}")
+                    _norm(sd, f"{tb}norm{c}", p, f"{fb}/norm{c}/gn")
+                if _has(p, f"{fb}/downsample_conv"):
+                    _conv_nobias(sd, tb + "downsample.conv", p, f"{fb}/downsample_conv")
+                    _norm(sd, tb + "downsample.norm", p, f"{fb}/downsample_norm/gn")
+        sd[vit + "patch_embed.proj.weight"] = kernel.T[:, :, None, None]
+    else:
+        k = cfg.patch
+        sd[vit + "patch_embed.proj.weight"] = kernel.reshape(k, k, -1, d).transpose(3, 2, 0, 1)
+    sd[vit + "patch_embed.proj.bias"] = _np(p["patch_proj"]["bias"])
+    for i in range(cfg.vit_depth):
+        tb, fb = f"{vit}blocks.{i}.", f"block{i}"
+        for n in ("norm1", "norm2"):
+            _norm(sd, tb + n, p, f"{fb}/{n}")
+        for t, f in (("attn.qkv", "qkv"), ("attn.proj", "proj"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            _dense(sd, tb + t, p, f"{fb}/{f}")
+    for li in range(2 if cfg.hybrid else 0, 4):
+        ap, fb = f"pretrained.act_postprocess{li + 1}.", f"post{li + 1}"
+        if cfg.readout == "project":
+            _dense(sd, ap + "0.project.0", p, f"{fb}/readout/project")
+        _conv(sd, ap + "3", p, f"{fb}/conv")
+        if li < 2:
+            up, c = _np(_get(p, f"{fb}/up/kernel")), cfg.layer_chs[li]
+            k = 4 // (li + 1)
+            sd[ap + "4.weight"] = up.reshape(c, k, k, c).transpose(0, 3, 1, 2)
+            sd[ap + "4.bias"] = _np(_get(p, f"{fb}/up/bias"))[:c]
+        elif li == 3:
+            _conv(sd, ap + "4", p, f"{fb}/down")
+    _midas_scratch(sd, p, out_conv=True)
+    return sd
+
+
+def midas_v21_params_to_torch(p: Mapping[str, Any], layers=(3, 4, 23, 3)) -> Dict[str, np.ndarray]:
+    """The JAX ``MidasNet`` params (BatchNorms folded) -> ``models.dpt.MidasNet``."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "pretrained.layer1.0", p, "backbone/stem_conv")
+    for si, depth in enumerate(layers):
+        base = f"pretrained.layer{si + 1}." + ("4." if si == 0 else "")
+        for bi in range(depth):
+            fb = f"backbone/layer{si + 1}_block{bi}"
+            for c in (1, 2, 3):
+                _conv(sd, f"{base}{bi}.conv{c}", p, f"{fb}/conv{c}")
+            if _has(p, f"{fb}/downsample"):
+                _conv(sd, f"{base}{bi}.downsample.0", p, f"{fb}/downsample")
+    _midas_scratch(sd, p, out_conv=False)
+    return sd
+
+
+def midas_v21_small_params_to_torch(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``MidasNetSmall`` params -> ``models.dpt.MidasNetSmall``."""
+    from instarevive_tpu_torch.models.dpt import LITE3_SLOTS, LITE3_STAGES
+
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "pretrained.layer1.0", p, "backbone/conv_stem")
+    for si, (reps, _, _, _, e) in enumerate(LITE3_STAGES):
+        for bi in range(reps):
+            for name in (("conv_dw", "conv_pw") if e == 1 else ("conv_pw", "conv_dw", "conv_pwl")):
+                _conv(sd, f"pretrained.{LITE3_SLOTS[si]}.{bi}.{name}", p, f"backbone/stage{si}_block{bi}/{name}")
+    _midas_scratch(sd, p, out_conv=True)
+    return sd
+
+
+def mpt_params_to_torch(p: Mapping[str, Any], n_layers: int) -> Dict[str, np.ndarray]:
+    """The JAX ``MPTModel`` params -> ``models.llava_mpt.MPTModel`` (the
+    MPT checkpoint's names: ``wte``, ``blocks.N.norm_1``, ``attn.Wqkv``,
+    ``ffn.up_proj``, ...); biases and the LayerNorms' shifts only where the
+    JAX params hold them (``no_bias``), RMSNorm's ``scale`` as ``weight``."""
+    sd: Dict[str, np.ndarray] = {"wte.weight": _np(p["wte"]["embedding"])}
+    if "wpe" in p:
+        sd["wpe.weight"] = _np(p["wpe"]["embedding"])
+
+    def norm(torch_path, tree):
+        sd[torch_path + ".weight"] = _np(tree["scale"])
+        if "bias" in tree:
+            sd[torch_path + ".bias"] = _np(tree["bias"])
+
+    def dense(torch_path, tree):
+        sd[torch_path + ".weight"] = _np(tree["kernel"]).T
+        if "bias" in tree:
+            sd[torch_path + ".bias"] = _np(tree["bias"])
+
+    for i in range(n_layers):
+        blk, tb = p[f"block{i}"], f"blocks.{i}."
+        norm(tb + "norm_1", blk["norm1"])
+        norm(tb + "norm_2", blk["norm2"])
+        dense(tb + "attn.Wqkv", blk["attn"]["Wqkv"])
+        dense(tb + "attn.out_proj", blk["attn"]["out_proj"])
+        for ln in ("q_ln", "k_ln"):
+            if ln in blk["attn"]:
+                norm(f"{tb}attn.{ln}", blk["attn"][ln])
+        dense(tb + "ffn.up_proj", blk["up_proj"])
+        dense(tb + "ffn.down_proj", blk["down_proj"])
+    norm("norm_f", p["norm_f"])
+    if "mm_projector" in p:
+        dense("mm_projector", p["mm_projector"])
+    return sd

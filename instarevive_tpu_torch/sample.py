@@ -14,9 +14,11 @@ on a prompt picks the aspect bucket of the latent. On the card the DiT and
 the VAE compute in bf16 (``--bf16`` asks for it on the CPU too); the solver
 state, its coefficients and the guidance mix stay float32.
 
-Prompts are not encoded yet (T5 is not ported): every sample uses the
-checkpoint's learned null caption embedding, and ``--t5_dir`` is refused, as
-are the mesh flags ``--seq_parallel`` and ``--pipeline_parallel``.
+With ``--t5_dir`` (a T5 encoder directory, ``models/t5.py``) the prompts
+are encoded at the DiT's ``model_max_length``; the mask is computed and, as
+in the JAX package's ``sample.py``, not handed to the DiT. Without it every
+sample uses the checkpoint's learned null caption embedding. The mesh flags
+``--seq_parallel`` and ``--pipeline_parallel`` are refused.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     add_model_args(p)
     p.add_argument("--prompt", nargs="+", default=["a photo"])
-    p.add_argument("--t5_dir", default=None, help="refused: T5 text encoding is not ported yet")
+    p.add_argument("--t5_dir", default=None, help="local T5 encoder directory (config, weights, tokenizer)")
     p.add_argument("--output", default="samples")
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--sampling_algo", default="dpm-solver", choices=ALGOS)
@@ -49,8 +51,6 @@ def parse_args(argv=None):
     p.add_argument("--seq_parallel", type=int, default=0, help="refused: the mesh is not ported yet")
     p.add_argument("--pipeline_parallel", type=int, default=0, help="refused: the mesh is not ported yet")
     args = p.parse_args(argv)
-    if args.t5_dir:
-        p.error("--t5_dir: T5 text encoding is not ported yet; sampling takes the null caption embedding")
     for flag in ("seq_parallel", "pipeline_parallel"):
         if getattr(args, flag) > 1:
             p.error(f"--{flag}: the device mesh is not ported yet; sampling runs on one device")
@@ -68,6 +68,14 @@ def latent_shape(prompts: Sequence[str], image_size: int, latent_factor: int = 8
     else:
         hh = ww = image_size
     return (len(prompts), hh // latent_factor, ww // latent_factor, 4)
+
+
+def caption_embeddings(t5_dir: str, prompts: Sequence[str], max_length: int, device):
+    """(y (B, L, D) float32, mask (B, L)) of the prompts from the T5 encoder
+    at ``t5_dir``, on ``device``."""
+    from instarevive_tpu_torch.models.t5 import T5Embedder
+
+    return T5Embedder(t5_dir, model_max_length=max_length, device=device).encode(list(prompts))
 
 
 def guided_model(pipe, y, null, cfg_scale: float):
@@ -147,12 +155,17 @@ def main(argv=None) -> Optional[list]:
     from instarevive_tpu_torch.utils.image_io import save_image
 
     pipe, null = load_pipeline(args)
-    print("[warn] T5 is not ported: sampling with the null caption embedding", file=sys.stderr)
     b = len(args.prompt)
-    y = null.expand(b, -1, -1)
+    null = null.expand(b, -1, -1)
+    if args.t5_dir:
+        # the mask is unused, as in the JAX package (ROADMAP C16)
+        y, _ = caption_embeddings(args.t5_dir, args.prompt, pipe.dit.model_max_length, null.device)
+    else:
+        print("[warn] no --t5_dir: sampling with the null embedding", file=sys.stderr)
+        y = null
     shape = latent_shape(args.prompt, args.image_size, pipe.latent_factor)
     generator = torch.Generator(device=y.device).manual_seed(args.seed)
-    imgs = sample_images(pipe, y, y, shape, algo=args.sampling_algo, step=args.step, cfg_scale=args.cfg_scale,
+    imgs = sample_images(pipe, y, null, shape, algo=args.sampling_algo, step=args.step, cfg_scale=args.cfg_scale,
                          solver_order=args.solver_order, solver_method=args.solver_method, sa_tau=args.sa_tau,
                          generator=generator).cpu().numpy()
     os.makedirs(args.output, exist_ok=True)

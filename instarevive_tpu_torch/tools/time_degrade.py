@@ -73,6 +73,7 @@ FILTER_CASES = [
     ("ragged_gray_b3_100x36_k21", (3, 100, 36, 1), (21, 21), True),
     ("rectangular_b2_90x130_k5x13", (2, 90, 130, 3), (5, 13), True),
     ("wide_c64_b1_64x96_k41", (1, 64, 96, 64), (41, 41), True),       # 16 bands of 4 channels in one launch
+    ("lq_b1_512_k41", (1, 512, 512, 3), (41, 41), True),              # tools/lq.py's blur, one image a call
 ]
 # The card tests' shapes that the tiling makes hard: bands of 4, 2 and 1 channels, ragged H and W, reflect at its
 # limit. Held and timed beside FILTER_CASES; no degradation program sends them.

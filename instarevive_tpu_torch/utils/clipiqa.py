@@ -54,7 +54,7 @@ class CLIPIQA:
             if tokenizer is None and not tokenizer_dir:
                 raise ValueError("RN50 checkpoints need --clipiqa_tokenizer (a local HF CLIP tokenizer dir)")
         elif model is None:
-            model = _transformers().CLIPModel.from_pretrained(model_dir).to(device).eval()
+            model = _transformers().CLIPModel.from_pretrained(model_dir).to(device).eval().requires_grad_(False)
         if tokenizer is None:
             tokenizer = _transformers().AutoTokenizer.from_pretrained(tokenizer_dir or model_dir)
         self.model, self.tokenizer = model, tokenizer

@@ -19,8 +19,12 @@ from PIL import Image
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
 
 
-def list_image_files(folder: str) -> List[str]:
-    """The images directly in ``folder``, sorted."""
+def list_image_files(folder: str, recursive: bool = False) -> List[str]:
+    """The images directly in ``folder`` (or, ``recursive``, anywhere under
+    it), sorted."""
+    if recursive:
+        return sorted(os.path.join(root, f) for root, _, files in os.walk(folder)
+                      for f in files if f.lower().endswith(IMG_EXTS))
     return sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.lower().endswith(IMG_EXTS))
 
 

@@ -11,6 +11,7 @@ no weights. Bound 1e-5 of max|JAX| in f32 (measured ~1e-6)."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax
 

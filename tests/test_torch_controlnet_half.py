@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax
 import jax.numpy as jnp

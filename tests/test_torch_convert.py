@@ -2,6 +2,7 @@
 exporters, bit for bit, and a static check that the port imports neither JAX
 nor the JAX package."""
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import ast
 import os
 

@@ -2,6 +2,7 @@
 library is rebuilt when one of its sources, or a header they include from
 ``csrc``, changes, and only then. Runs on the CPU: nothing is compiled."""
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import shutil
 
 import pytest

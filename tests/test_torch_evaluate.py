@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from PIL import Image
 
 import evaluate_img as jax_cli

@@ -11,6 +11,7 @@ loader, which the JAX importer reads too): 1e-5 of max|JAX| in f32."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ port there."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ package on the CPU, on numpy-seeded [0, 1] batches; 1e-5 * max(1, max|ref|)
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax.numpy as jnp
 

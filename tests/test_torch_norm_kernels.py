@@ -11,6 +11,7 @@ rounding boundary, one bf16 step at |y| < 8: 3.2e-2.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax.numpy as jnp
 

@@ -19,6 +19,7 @@ leaves.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import flax.linen as fnn
 import jax

@@ -10,7 +10,8 @@ the control latent, decode), each against the same composition of the JAX
 package; f32, atol 1e-5 * max(1, max|ref|) (random weights under guidance
 take the latents to hundreds). Then
 ``python -m instarevive_tpu_torch.sample`` and ``.validate`` run in-process
-with ``--device cpu``, and the sample CLI refuses its three unported flags.
+with ``--device cpu``, and the sample CLI refuses its two unported flags
+(``--t5_dir``: ``tests/test_torch_text_encoders.py``).
 """
 
 import os
@@ -18,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from PIL import Image
 
 import jax
@@ -133,7 +135,7 @@ def test_aspect_suffix_picks_the_bucket():
     assert sample.latent_shape(["a photo"], 256, 4) == (1, 64, 64, 4)
 
 
-@pytest.mark.parametrize("flag", [["--t5_dir", "t5"], ["--seq_parallel", "2"], ["--pipeline_parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--seq_parallel", "2"], ["--pipeline_parallel", "2"]])
 def test_sample_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         sample.parse_args(["--device", "cpu"] + flag)

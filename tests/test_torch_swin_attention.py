@@ -10,6 +10,7 @@ and the rule that sizes the kernel's work items."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax.numpy as jnp
 

@@ -13,6 +13,7 @@ the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 
 import jax
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
@@ -28,7 +29,6 @@ from instarevive_tpu_torch.convert.from_jax import (
     pixart_params_to_torch, swinir_params_to_torch, swinir_train_state_from_jax, train_state_from_jax,
 )
 from instarevive_tpu_torch.diffusion import gaussian
-from instarevive_tpu_torch.diffusion.one_step import eps_to_x0
 from instarevive_tpu_torch.diffusion.schedules import make_schedule
 from instarevive_tpu_torch.models.pixart import PixArt
 from instarevive_tpu_torch.nn.layers import set_compute_dtype
@@ -521,27 +521,6 @@ def _loop(cfg, lr, warmup, seed=0, batch=2, **opt):
               TrainState.create(fake, tx(), ema=False))
     step = distill.make_dmd_train_step(make_schedule("linear", 1000), _fn(gen), _fn(teacher), _fn(fake))
     return states, step, gen
-
-
-def test_dmd_loop_learns():
-    sched = make_schedule("linear", 1000)
-    states, step, gen = _loop(DIT, 2e-4, 20, batch=8)
-    y = torch.zeros(8, 8, 32)
-    rng = np.random.default_rng(1)
-    batch = {"noise": _t(rng.standard_normal((8, 8, 8, 4), dtype=np.float32)),
-             "latent": _t(0.3 * rng.standard_normal((8, 8, 8, 4), dtype=np.float32))}
-    generator = torch.Generator().manual_seed(3)
-    first = None
-    for i in range(120):
-        m = step(*states, batch, generator, {"y": y})
-        if i == 0:
-            first = float(m["regression"])
-    t = torch.full((8,), 400)
-    with torch.no_grad():
-        x0 = eps_to_x0(sched, _fn(gen)(batch["noise"], t, y=y), batch["noise"], t)
-    final = float(torch.mean((x0 - batch["latent"]) ** 2))
-    assert math.isfinite(final) and final < first * 0.6, (first, final)
-    assert not torch.allclose(states[0].ema_params[0], states[0].params[0])  # the EMA tracks but lags
 
 
 def _state_tensors(states):

@@ -13,6 +13,7 @@ another order), the schedules within 1e-7."""
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import yaml
 
 import jax
