@@ -162,7 +162,23 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    each ``depth_fn`` into the depth2image conditioning; LLaVA-MPT-7B with a
    CLIP ViT-L/14 tower at 224 decoding 32 greedy tokens. Each prints its wall
    to a synchronise, peak memory and kernel launches, and a depth-cut copy at
-   full width in f32 on the card against the CPU (``AUX_CARD_CPU_BOUND``).
+   full width in f32 on the card against the CPU (``AUX_CARD_CPU_BOUND``);
+18. runs the parallel paths (``parallel_phase``) on the full-width v1
+   pipeline (bf16, 4x512x512) through a real NCCL group of one rank:
+   ``sharded``, ``tp``, ``sp`` and ``pp`` of ``process``, each bit for bit
+   against the one-card call of the same arithmetic (``process``; for pp the
+   blocks run on each of the 2 microbatches), K1's shapes held in 3; then 3
+   bf16 DMD steps (batch 2 at 512x512) unwrapped, under DDP(1) and under
+   FSDP2(1), bit for bit with the same launches, each one's walls and peak
+   memory; then two gloo ranks sharing the card, twice in processes of
+   their own: the first pair probes which collectives gloo takes on CUDA
+   tensors (a refused one may end its process), the second runs each mode
+   whose collectives were all taken, at full width against the one-rank
+   output; only a refused probe makes a mode print as refused, any other
+   failure on either rank fails the phase (sharded and pp bit for bit against
+   the same arithmetic, tp and sp within ``PARALLEL_TWO_RANK_BOUND``), with
+   K1 at the new shapes (``tp2_*``, ``sp2_*``) held in 3; their walls go
+   through host memory and measure no speed.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -834,6 +850,12 @@ def kernel_phase():
         ("dpt_hybrid_self", (2, 12, 577, 577, 64), None, ("bf16", "f32")),
         ("dpt_large_self", (2, 16, 577, 577, 64), None, ("bf16", "f32")),
         ("vae_mid_extract_b8", (8, 1, 4096, 4096, 512), None, ("f32",)),
+        # phase 18, two ranks: tensor parallelism (8 of the 16 heads a rank), sequence parallelism (512 local queries
+        # over 1,024 gathered keys); pipeline parallelism's two microbatches are dit_self_b2 and dit_cross_b2
+        ("tp2_self", (4, 8, 1024, 1024, 72), None, ("bf16",)),
+        ("tp2_cross", (4, 8, 1024, 300, 72), None, ("bf16",)),
+        ("sp2_self", (4, 16, 512, 1024, 72), None, ("bf16",)),
+        ("sp2_cross", (4, 16, 512, 300, 72), None, ("bf16",)),
     ]
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
@@ -3336,6 +3358,391 @@ def aux_phase(cfg_full, conv_records, attn_records, filter_records):
 
 
 
+# Phase 18: the parallel paths. One NCCL rank in this process (a real group of one: the script needs one card, and NCCL
+# takes no two ranks on one device), then two gloo ranks sharing that card, each a process of its own.
+PARALLEL_MODES = ("sharded", "tp", "sp", "pp")
+PARALLEL_GLOO_TIMEOUT_S = 60  # a collective that one rank gives up on fails on the other within a minute
+# The two-rank runs of tp and sp, against the one-rank output: the tensor-parallel projections sum two bf16 partial
+# products in f32 and round once more, the local queries' projections run at half the rows (other GEMM tiles), and
+# random weights carry such one-step bf16 differences through 28 blocks, the VAE decode and the color fix; 5e-2 of
+# the [0, 1] image, about 13 8-bit levels.
+PARALLEL_TWO_RANK_BOUND = 5e-2
+
+
+def same_arithmetic(pipe, mode, microbatches):
+    """The parallel entry point ``mode`` of ``pipe`` over ``group``, and the
+    one-card call of the same arithmetic at one rank: ``process`` itself, or
+    for pp ``process`` with the blocks run on each microbatch as the stage
+    does (the embedders and the final layer on the whole batch)."""
+    import torch
+
+    if mode == "pp":
+        def dit_forward(z, t, yy, mask):
+            dit = pipe.dit
+            tokens, y_tokens, t6, t_emb, hw, _ = dit.prepare(z, t, yy)
+            mb, outs = tokens.shape[0] // microbatches, []
+            for m in range(microbatches):
+                h = tokens[m * mb:(m + 1) * mb]
+                for blk in dit.blocks:
+                    h = blk(h, y_tokens[m * mb:(m + 1) * mb], t6[m * mb:(m + 1) * mb], mask, hw)
+                outs.append(h)
+            return dit.finish(torch.cat(outs), t_emb, hw)
+
+        same = lambda lq, y: pipe.process(lq, y, dit_forward=dit_forward)  # noqa: E731
+    else:
+        same = pipe.process
+    return same
+
+
+def parallel_entry(pipe, mode, group, microbatches):
+    return {"sharded": lambda: pipe.sharded(group), "tp": lambda: pipe.tp(group), "sp": lambda: pipe.sp(group),
+            "pp": lambda: pipe.pp(group, microbatches)}[mode]()
+
+
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor", "send_recv")  # send_recv last: it may abort
+
+
+def probe_gloo_rank(rank, port, out_dir):
+    """One of two gloo ranks on the one card that probe which collectives
+    gloo takes on CUDA tensors of the sizes the modes move (64 MB), each in a
+    group of its own. A rank writes each probe's outcome as it comes (None:
+    taken; else the error), and "started" before it: gloo may end the process
+    on a refused one (an ``IoException`` thrown in its transport thread)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    timeout = datetime.timedelta(seconds=PARALLEL_GLOO_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2, timeout=timeout)
+    n = 1 << 24
+    probes = {
+        "all_reduce": lambda g: dist.all_reduce(torch.ones(n, device="cuda"), group=g),
+        "broadcast": lambda g: dist.broadcast(torch.ones(n, device="cuda"), src=0, group=g),
+        "all_gather_into_tensor": lambda g: dist.all_gather_into_tensor(
+            torch.empty(2 * n, device="cuda"), torch.ones(n, device="cuda"), group=g),
+        "send_recv": lambda g: (dist.send(torch.ones(n, device="cuda"), dst=1, group=g) if rank == 0
+                                else dist.recv(torch.empty(n, device="cuda"), src=0, group=g)),
+    }
+    out, path = {}, os.path.join(out_dir, f"probe.rank{rank}.json")
+
+    def write():
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+
+    for name in GLOO_PROBES:
+        out[name] = "started"
+        write()
+        try:
+            probes[name](dist.new_group([0, 1], timeout=timeout))
+            torch.cuda.synchronize()
+            out[name] = None
+        except RuntimeError as exc:
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+        write()
+    dist.destroy_process_group()
+
+
+def probe_gloo_cuda():
+    """Which collectives gloo takes on CUDA tensors, from two probing
+    processes: name -> None (taken on both ranks) or why not. A probe counts
+    as refused only where a rank raised in it, or where its process ended
+    inside it; anything else (a rank raising outside a probe, a probe not
+    reached, a process ending with every probe taken) fails the phase."""
+    import torch.multiprocessing as mp
+
+    from instarevive_tpu_torch.parallel.dist import free_port
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    atexit.register(shutil.rmtree, work, True)
+    ended = None
+    try:
+        mp.start_processes(probe_gloo_rank, args=(free_port(), work), nprocs=2, start_method="spawn")
+    except mp.ProcessExitedException as exc:  # a signal or a C++ abort, not a Python exception
+        ended = str(exc)
+    recs = []
+    for r in range(2):
+        path = os.path.join(work, f"probe.rank{r}.json")
+        recs.append({})
+        if os.path.exists(path):
+            with open(path) as f:
+                recs[r] = json.load(f)
+    out = {}
+    for name in GLOO_PROBES:
+        got = [rec.get(name, "not reached") for rec in recs]
+        if "not reached" in got:
+            fail(f"parallel gloo probe {name}: not reached on rank {got.index('not reached')} ({ended})")
+        why = [g for g in got if g not in (None, "started")]
+        if "started" in got:
+            why.insert(0, f"rank {got.index('started')}'s process ended inside the probe ({ended})")
+        out[name] = "; ".join(why) or None
+    if ended and all(v is None for v in out.values()):
+        fail(f"parallel gloo probes: every collective was taken, but a probing process ended: {ended}")
+    return out, ended
+
+
+def parallel_gloo_rank(rank, port, out_dir, probes):
+    """One of the two gloo ranks on the one card: every mode whose
+    collectives gloo takes on CUDA tensors (``probes``, from
+    ``probe_gloo_cuda``), at full width (v1 in bf16, 4x512x512), each in a
+    group of its own, against the one-rank arithmetic; K1's launches by
+    shape; the walls (through host memory: no measure of speed)."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from instarevive_tpu_torch.ops.attention import flash_attention
+    from instarevive_tpu_torch.parallel.pp import MICROBATCHES
+    from instarevive_tpu_torch.pipelines.build import set_precision
+    from instarevive_tpu_torch.tools.time_restore import build_v1, wall
+
+    torch.cuda.set_device(0)
+    set_precision()
+    timeout = datetime.timedelta(seconds=PARALLEL_GLOO_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2, timeout=timeout)
+
+    def pair():
+        return dist.new_group([0, 1], timeout=timeout)
+
+    result = {"rank": rank, "modes": {}}
+    needs = {"sharded": ("all_gather_into_tensor",), "tp": ("all_reduce",),
+             "sp": ("all_gather_into_tensor",), "pp": ("send_recv", "broadcast")}
+    try:
+        base = build_v1(REPO)
+        y = base.pipe.dit.y_embedder.y_embedding[:300][None].float().repeat(base.batch, 1, 1)
+        lq = base.lq
+        with torch.inference_mode():
+            plain = base.pipe.process(lq, y)
+            halves = torch.cat([base.pipe.process(lq[:2], y[:2]), base.pipe.process(lq[2:], y[2:])])
+            micro = same_arithmetic(base.pipe, "pp", MICROBATCHES)(lq, y)
+        for mode in PARALLEL_MODES:
+            group = pair()
+            refused = [probes[c] for c in needs[mode] if probes[c]]
+            if refused:
+                result["modes"][mode] = {"refused": refused}
+                continue
+            pipe = copy.deepcopy(base.pipe) if mode in ("tp", "pp") else base.pipe
+            try:
+                fn = parallel_entry(pipe, mode, group, MICROBATCHES)
+                flash_attention.launches, flash_attention.shapes = 0, {}
+                with torch.inference_mode():
+                    out = fn(lq, y)
+                torch.cuda.synchronize()
+                shapes, flash_attention.shapes = dict(flash_attention.shapes), None  # one call's launches
+                with torch.inference_mode():
+                    walls = wall(lambda: fn(lq, y), 2)
+            except Exception as exc:  # a real failure: the probe took every collective this mode needs
+                result["modes"][mode] = {"failed": f"{type(exc).__name__}: {str(exc).splitlines()[0]}"}
+                break  # the other rank's next collective times out, and it stops too
+            finally:
+                flash_attention.shapes = None
+            ref = {"sharded": halves, "pp": micro}.get(mode, plain)
+            result["modes"][mode] = {
+                "same_bits_as": {"sharded": "process on each rank's half", "pp": "process, blocks per microbatch"}.get(
+                    mode, "process"),
+                "bitwise": bool(torch.equal(out, ref)), "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                "max_abs_err_vs_process": (out.float() - plain.float()).abs().max().item(),
+                "finite": bool(torch.isfinite(out).all()), "shape": list(out.shape),
+                "k1_shapes": {",".join(map(str, k)): v for k, v in shapes.items()},
+                "wall_s_through_host": walls, "blocks_held": len(pipe.dit.blocks)}
+            if mode in ("tp", "pp"):
+                del pipe
+                torch.cuda.empty_cache()
+    except Exception as exc:
+        result["error"] = f"{type(exc).__name__}: {exc}"
+    finally:
+        with open(os.path.join(out_dir, f"gloo.rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.destroy_process_group()
+
+
+def dmd_parallel_steps(cfg_path, mesh, batch, steps=3):
+    """``steps`` bf16 DMD steps at full width (batch 2 at 512x512, as phase 8)
+    of a task laid out by ``mesh`` (None: unwrapped) on one loader batch:
+    the metrics, the walls, peak memory, launches and the generator's
+    weights, EMA and the fake score's weights after the steps."""
+    import gc
+
+    import torch
+
+    from instarevive_tpu_torch.config import load_config
+    from instarevive_tpu_torch.train import launcher
+    from instarevive_tpu_torch.tools.time_train import train_argv
+
+    gc.collect()  # a task is a reference cycle (its step's hooks): free the last one before this one's peak
+    torch.cuda.empty_cache()
+    args = launcher.parse_args(train_argv(cfg_path, "unused", "unused", steps))
+    task = launcher.DMDTask(args, load_config(cfg_path), torch.device("cuda"), mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, walls = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = task.run_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    gen, fake = task.states
+    out = {"metrics": metrics, "walls": walls, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": read_counts()}
+    # the weights leave the card, so the next run's peak is its own
+    for name, sd in (("gen", gen.module_state_dict()), ("ema", gen.ema_state_dict()), ("fake", fake.module_state_dict())):
+        out[name] = {k: v.detach().cpu() for k, v in sd.items()}
+    del task, gen, fake
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(conv_records, swin_records, attn_records):
+    """Phase 18 (module docstring): sharded, tp, sp and pp of ``process`` and
+    the DMD step under DDP and FSDP2 through a real NCCL group of one rank,
+    bit for bit against the one-card arithmetic; then two gloo ranks on the
+    one card, each mode (or its refusal) against the one-rank output."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from instarevive_tpu_torch.parallel.dist import free_port
+    from instarevive_tpu_torch.parallel.mesh import TrainMesh
+    from instarevive_tpu_torch.parallel.pp import MICROBATCHES
+    from instarevive_tpu_torch.tools.time_restore import build_v1, wall
+
+    card = card_line()
+    timing = {"card": card, "nccl1": {}, "gloo2": {}}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        base = build_v1(REPO)
+        lq = base.lq
+        y = base.pipe.dit.y_embedder.y_embedding[:300][None].float().repeat(base.batch, 1, 1)
+        for mode in PARALLEL_MODES:
+            pipe = copy.deepcopy(base.pipe) if mode in ("tp", "pp") else base.pipe
+            fn = parallel_entry(pipe, mode, group, MICROBATCHES)
+            with torch.inference_mode():
+                ref = same_arithmetic(base.pipe, mode, MICROBATCHES)(lq, y)
+                out = tally_shapes(lambda: fn(lq, y), f"parallel {mode} (NCCL, 1 rank)", conv_records, swin_records,
+                                   f"launches_parallel_{mode}", attn_records, attn_dims=(72, 512))
+                launches = read_counts()
+                plain = base.pipe.process(lq, y)
+                walls = wall(lambda: fn(lq, y), 3)
+                plain_walls = wall(lambda: base.pipe.process(lq, y), 3)
+            check_image(out, (base.batch, base.size, base.size, 3), f"parallel {mode}")
+            bitwise = bool(torch.equal(out, ref))
+            diff = (out.float() - plain.float()).abs().max().item()
+            rec = {"bitwise": bitwise, "same_bits_as": "process, blocks per microbatch" if mode == "pp" else "process",
+                   "max_abs_err_vs_process": diff, "launches": launches, "wall_s": walls, "process_wall_s": plain_walls,
+                   "blocks_held": len(pipe.dit.blocks)}
+            timing["nccl1"][mode] = rec
+            print(f"[parallel] {mode} NCCL 1 rank 4x512x512: bit for bit {bitwise} against {rec['same_bits_as']}, "
+                  f"max|out - process| {diff:.3e}, launches {launches}, warm s {', '.join(f'{t:.4f}' for t in walls)} "
+                  f"(process {', '.join(f'{t:.4f}' for t in plain_walls)}) [{card}]", flush=True)
+            if not bitwise:
+                fail(f"parallel {mode} at one NCCL rank is not bit for bit {rec['same_bits_as']}")
+            if mode in ("tp", "pp"):
+                del pipe
+                torch.cuda.empty_cache()
+        del base
+        torch.cuda.empty_cache()
+
+        # the DMD step unwrapped, under DDP(1) and under FSDP2(1): the same draws, the same batch
+        cfg_path = os.path.join(REPO, "configs", "instarevive_v1.yaml")
+        batch = {"hq": np.random.default_rng(18).integers(0, 256, (2, 512, 512, 3), dtype=np.uint8)}
+        want = dmd_parallel_steps(cfg_path, None, batch)
+        for kind, names in (("ddp1", ("data",)), ("fsdp1", ("fsdp",))):
+            got = dmd_parallel_steps(cfg_path, TrainMesh(init_device_mesh("cuda", (1,), mesh_dim_names=names)), batch)
+            same = got["metrics"] == want["metrics"] and all(
+                torch.equal(got[t][k], want[t][k]) for t in ("gen", "ema", "fake") for k in want[t])
+            worst = max((got[t][k].float() - want[t][k].float()).abs().max().item()
+                        for t in ("gen", "ema", "fake") for k in want[t])
+            rec = {"bitwise": same, "max_abs_weight_err": worst, "metrics": got["metrics"], "walls_s": got["walls"],
+                   "plain_walls_s": want["walls"], "peak_gib": got["peak_gib"], "plain_peak_gib": want["peak_gib"],
+                   "launches": got["launches"], "plain_launches": want["launches"]}
+            timing["nccl1"][f"dmd_{kind}"] = rec
+            print(f"[parallel] DMD step bf16 batch 2 at 512^2 under {kind}: bit for bit {same} against the unwrapped "
+                  f"step (largest weight difference {worst:.3e}); s/step {', '.join(f'{t:.4f}' for t in got['walls'])} "
+                  f"against {', '.join(f'{t:.4f}' for t in want['walls'])}; peak {got['peak_gib']:.2f} GiB against "
+                  f"{want['peak_gib']:.2f}; launches {got['launches']} [{card}]", flush=True)
+            if not same:
+                fail(f"the DMD step under {kind} is not bit for bit the unwrapped step")
+            if got["launches"] != want["launches"]:
+                fail(f"the DMD step under {kind} launched {got['launches']}, unwrapped {want['launches']}")
+            del got
+            torch.cuda.empty_cache()
+        del want
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # two gloo ranks sharing the card, in processes of their own
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    atexit.register(shutil.rmtree, work, True)
+    t0 = time.time()
+    probes, ended = probe_gloo_cuda()
+    print(f"[parallel] two gloo ranks on the one card: collectives on CUDA tensors "
+          f"{ {k: ('taken' if v is None else v) for k, v in probes.items()} }"
+          + (f"; a probing process ended: {ended}" if ended else "")
+          + f" ({time.time() - t0:.1f}s with the start)", flush=True)
+    try:
+        mp.start_processes(parallel_gloo_rank, args=(free_port(), work, probes), nprocs=2, start_method="spawn")
+    except mp.ProcessExitedException as exc:  # every collective it ran was taken by the probe: a real failure
+        fail(f"parallel two gloo ranks: {exc}")
+    ranks = []
+    for r in range(2):
+        path = os.path.join(work, f"gloo.rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"parallel two gloo ranks: rank {r} wrote no result")
+        with open(path) as f:
+            ranks.append(json.load(f))
+        if "error" in ranks[r]:
+            fail(f"parallel two gloo ranks: rank {r}: {ranks[r]['error']}")
+    held = {(*r["shape"], r["masked"], False): r for r in attn_records if r["dtype"] == "bf16"}
+    for mode in PARALLEL_MODES:
+        recs = [rk["modes"].get(mode) for rk in ranks]
+        # only a collective that failed the probe on a rank makes a refusal; any other failure fails the phase
+        for r, rec in enumerate(recs):
+            if rec is None or "failed" in rec:
+                fail(f"parallel {mode} at two gloo ranks: rank {r}: "
+                     f"{'did not run it' if rec is None else rec['failed']}")
+        if "refused" in recs[0]:
+            print(f"[parallel] {mode} two gloo ranks: refused by gloo on CUDA tensors: {recs[0]['refused']} "
+                  f"(held on the CPU only: tests/test_torch_parallel.py)", flush=True)
+            continue
+        rec = recs[0]
+        shapes = {tuple(int(v) if v.isdigit() else v == "True" for v in k.split(",")): n
+                  for k, n in rec["k1_shapes"].items()}
+        missing = sorted(set(shapes) - set(held))
+        if missing:
+            fail(f"parallel {mode} two gloo ranks: K1 ran at shapes the kernel phase did not hold: {missing}")
+        for shape, r in held.items():
+            r[f"launches_parallel_gloo2_{mode}"] = shapes.get(shape, 0)
+        exact = mode in ("sharded", "pp")
+        oks = [r["finite"] and (r["bitwise"] if exact else r["max_abs_err"] <= PARALLEL_TWO_RANK_BOUND)
+               for r in recs]
+        errs = ", ".join(f"{r['max_abs_err']:.3e}" for r in recs)
+        print(f"[parallel] {mode} two gloo ranks 4x512x512: "
+              + (f"bit for bit {[r['bitwise'] for r in recs]} (ranks 0, 1) against {rec['same_bits_as']}" if exact
+                 else f"max_abs_err {errs} (ranks 0, 1) against process (bound {PARALLEL_TWO_RANK_BOUND})")
+              + f", max|out - process| {rec['max_abs_err_vs_process']:.3e}, K1 by shape {rec['k1_shapes']}, "
+              f"blocks held {rec['blocks_held']}; walls {rec['wall_s_through_host']} s through host memory "
+              f"(no measure of speed) [{card}]", flush=True)
+        for r, ok in enumerate(oks):
+            if not ok:
+                fail(f"parallel {mode} at two gloo ranks: rank {r}: {recs[r]}")
+    timing["gloo2"] = {"probes": probes, "probe_process_ended": ended, "rank0": ranks[0], "rank1": ranks[1]}
+    return timing
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -3581,6 +3988,8 @@ def main() -> None:
     evaluation = evaluation_phase(cfg, work, swin_records)
     torch.cuda.empty_cache()
     aux = aux_phase(cfg, conv_records, attn_records, filter_records)
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(conv_records, swin_records, attn_records)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -3622,6 +4031,12 @@ def main() -> None:
                      conv_records, conv_build, conv_grads),
     ]
     fwd["launches_depth_call"] = {t: c["flash_attn_fwd"] for t, c in aux["launches"]["depth"].items()}
+    # phase 18's runs by mode: one NCCL rank (the main path's shapes) and two gloo ranks (the new shapes), by K1 shape
+    fwd["launches_parallel"] = {
+        f"{world}_{mode}": {r["name"]: r[f"launches_parallel_{'' if world == 'nccl1' else 'gloo2_'}{mode}"]
+                            for r in attn_records if r["dtype"] == "bf16"
+                            and r.get(f"launches_parallel_{'' if world == 'nccl1' else 'gloo2_'}{mode}")}
+        for world in ("nccl1", "gloo2") for mode in PARALLEL_MODES}
     for entry in kernels:  # phase 17's calls that launch the kernel, by kernel
         calls = {call: c[entry["name"]] for call, c in aux["launches"].items()
                  if call != "depth" and c.get(entry["name"])}
@@ -3634,7 +4049,8 @@ def main() -> None:
             entry["launches_sample_2k_call"] = sample_2k_counts[entry["name"]]
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
                       "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
-                      "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux}), flush=True)
+                      "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux, "parallel": parallel}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

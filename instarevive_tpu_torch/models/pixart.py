@@ -34,6 +34,15 @@ backward, so its attention forward kernel runs twice. Under ``dots`` (JAX's
 ``Linear``, are kept from the forward and the rest is recomputed: the
 attention kernels run twice all the same, the products once.
 
+Parallel forms (``parallel/``): a process group given to an attention module
+as ``tp_group`` makes it compute only its rank's H/t heads of q, k and v (the
+packed projections stay whole, and its ``proj`` is the row-parallel one that
+``parallel/tp.py`` puts in); ``sp_group`` on a self-attention makes it gather
+K and V of every rank's tokens before its local queries attend. With no
+group (the default) nothing changes. ``prepare`` and ``finish`` are the
+forward before and after the block stack, which the sequence- and
+pipeline-parallel forwards share.
+
 ControlNet-Half: built with ``control_depth`` N, the model holds N copied
 blocks (``controlnet.{j}.copied_block``, with block j's options) with
 zero-initialised projections (``controlnet.{j}.after_proj``,
@@ -55,6 +64,7 @@ from instarevive_tpu_torch.nn.layers import (
     Conv2d, LayerNorm, Linear, Mlp, TokenGridConv, device_constant, timestep_embedding,
 )
 from instarevive_tpu_torch.ops.attention import attention
+from instarevive_tpu_torch.parallel.mesh import gather_tokens, local_heads
 from instarevive_tpu_torch.ops.window import pad_to_multiple, window_partition, window_reverse
 
 KV_SAMPLINGS = ("uniform", "ave", "conv")
@@ -97,6 +107,9 @@ class SelfAttention(nn.Module):
     """qkv, then optionally qk-norm, and either windows or KV compression
     (the module docstring); ``hw`` is the token grid."""
 
+    tp_group = None  # tensor parallelism: this rank's heads only
+    sp_group = None  # sequence parallelism: K and V gathered over the group's token shards
+
     def __init__(self, dim: int, num_heads: int, sampling: Optional[str] = None, sr_ratio: int = 1,
                  qk_norm: bool = False, window_size: int = 0):
         super().__init__()
@@ -123,7 +136,10 @@ class SelfAttention(nn.Module):
             return self.proj(self._windowed(q, k, v, hw, scale))
         if self.sampling is not None:
             k, v = self._compress(k, hw), self._compress(v, hw)
-        return self.proj(_merge(attention(_heads(q, h), _heads(k, h), _heads(v, h), scale=scale)))
+        if self.sp_group is not None:
+            k, v = gather_tokens(k, self.sp_group), gather_tokens(v, self.sp_group)
+        q, k, v = (local_heads(_heads(t, h), self.tp_group) for t in (q, k, v))
+        return self.proj(_merge(attention(q, k, v, scale=scale)))
 
     def _compress(self, t: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         if self.sampling == "conv":
@@ -147,6 +163,8 @@ class SelfAttention(nn.Module):
 class CrossAttention(nn.Module):
     """Image-token queries over the caption tokens, with a padded key mask."""
 
+    tp_group = None  # tensor parallelism: this rank's heads only
+
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
@@ -158,9 +176,8 @@ class CrossAttention(nn.Module):
         h = self.num_heads
         k, v = self.kv_linear(cond).chunk(2, dim=-1)
         scale = (x.shape[-1] // h) ** -0.5
-        out = attention(_heads(self.q_linear(x), h), _heads(k, h), _heads(v, h),
-                        kv_mask=kv_mask, scale=scale)
-        return self.proj(_merge(out))
+        q, k, v = (local_heads(_heads(t, h), self.tp_group) for t in (self.q_linear(x), k, v))
+        return self.proj(_merge(attention(q, k, v, kv_mask=kv_mask, scale=scale)))
 
 
 class PixArtBlock(nn.Module):
@@ -337,6 +354,34 @@ class PixArt(nn.Module):
         count) control stages; data_info: with ``micro_condition``,
         {"img_hw": (B, 2), "aspect_ratio": (B, 1)}, by default the latent's
         (H, W) and H / W. Returns (B,H,W,out_channels)."""
+        tokens, y_tokens, t6, t_emb, hw, embed = self.prepare(x, timestep, y, data_info)
+        remat = self.grad_checkpoint and torch.is_grad_enabled()
+        if c is None:
+            for blk in self.blocks:
+                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, hw, remat)
+        else:
+            if control_depth > len(self.controlnet):
+                raise ValueError(f"control_depth {control_depth}: the model was built with {len(self.controlnet)}")
+            # ControlNet-Half: base block 0; stage j's skip feeds base block j + 1
+            c_tokens = embed(c)
+            tokens = self._block(self.blocks[0], tokens, y_tokens, t6, y_mask, hw, remat)
+            for j in range(control_depth):
+                stage = self.controlnet[j]
+                if j == 0:
+                    c_tokens = tokens + stage.before_proj(c_tokens)
+                c_tokens = self._block(stage.copied_block, c_tokens, y_tokens, t6, y_mask, hw, remat)
+                tokens = self._block(self.blocks[j + 1], tokens + stage.after_proj(c_tokens), y_tokens, t6, y_mask,
+                                     hw, remat)
+            for blk in self.blocks[control_depth + 1:]:
+                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, hw, remat)
+
+        return self.finish(tokens, t_emb, hw)
+
+    def prepare(self, x: torch.Tensor, timestep: torch.Tensor, y: torch.Tensor,
+                data_info: Optional[Mapping[str, torch.Tensor]] = None):
+        """The forward before the blocks: (tokens (B, N, D), caption tokens,
+        t6 (B, 6, D), the timestep embedding, the grid (gh, gw), and the patch
+        embedding as a function, for a ControlNet condition)."""
         b, hh, ww, _ = x.shape
         p = self.patch_size
         gh, gw = hh // p, ww // p
@@ -363,27 +408,12 @@ class PixArt(nn.Module):
                                 for key in ("img_hw", "aspect_ratio"))
             t_emb = t_emb + torch.cat([self.csize_embedder(hw_in), self.ar_embedder(ar_in)], dim=-1)
         t6 = self.t_block(t_emb).reshape(b, 6, self.hidden_size)
-        y_tokens = self.y_embedder(y)
-        remat = self.grad_checkpoint and torch.is_grad_enabled()
-        if c is None:
-            for blk in self.blocks:
-                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, hw, remat)
-        else:
-            if control_depth > len(self.controlnet):
-                raise ValueError(f"control_depth {control_depth}: the model was built with {len(self.controlnet)}")
-            # ControlNet-Half: base block 0; stage j's skip feeds base block j + 1
-            c_tokens = embed(c)
-            tokens = self._block(self.blocks[0], tokens, y_tokens, t6, y_mask, hw, remat)
-            for j in range(control_depth):
-                stage = self.controlnet[j]
-                if j == 0:
-                    c_tokens = tokens + stage.before_proj(c_tokens)
-                c_tokens = self._block(stage.copied_block, c_tokens, y_tokens, t6, y_mask, hw, remat)
-                tokens = self._block(self.blocks[j + 1], tokens + stage.after_proj(c_tokens), y_tokens, t6, y_mask,
-                                     hw, remat)
-            for blk in self.blocks[control_depth + 1:]:
-                tokens = self._block(blk, tokens, y_tokens, t6, y_mask, hw, remat)
+        return tokens, self.y_embedder(y), t6, t_emb, hw, embed
 
+    def finish(self, tokens: torch.Tensor, t_emb: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        """The forward after the blocks: the final layer and the unpatchify,
+        (B, N, D) tokens on the grid ``hw`` -> (B, H, W, out_channels)."""
+        (gh, gw), p, b = hw, self.patch_size, tokens.shape[0]
         out = self.final_layer(tokens, t_emb)
         out = out.reshape(b, gh, gw, p, p, self.out_channels).permute(0, 1, 3, 2, 4, 5)
         return out.reshape(b, gh * p, gw * p, self.out_channels)

@@ -5,6 +5,25 @@ one DiT forward at t=400 -> eps to x0 -> VAE decode -> color fix -> clamp,
 with a tiled mode that overlap-averages in latent space and again in pixel
 space. Images and latents are NHWC. Stages run on the whole batch; tiles
 are Python loops, with the DiT run on up to ``tile_batch`` tiles at once.
+
+The parallel entry points (the JAX package's ``jitted_sharded/_tp/_sp/_pp``)
+return plain callables ``(lq, y, y_mask=None) -> restored batch``, the whole
+batch on every rank of their group (``parallel/``):
+
+* ``sharded(group)``: data parallelism, each rank restores its rows of the
+  batch (a multiple of the group size) and the rows are gathered back;
+* ``tp(tensor_group, data_group)``: the DiT's blocks laid out for tensor
+  parallelism over ``tensor_group`` (in place: the pipeline holds this rank's
+  slices from then on), the batch split over ``data_group`` when given;
+* ``sp(group)``: the DiT's tokens split over ``group``; the token count
+  (H/16)(W/16) must be a multiple of the group size;
+* ``pp(group, microbatches)``: the DiT's block stack as a GPipe pipeline over
+  ``group`` (in place: the pipeline keeps this rank's stage of blocks only);
+  the batch must be a multiple of ``microbatches``.
+
+SwinIR, the VAE and the color fix run whole on every rank under tp, sp and
+pp, as in the JAX package. Plain ``process`` only, without the ControlNet
+branch.
 """
 
 from __future__ import annotations
@@ -21,6 +40,7 @@ from instarevive_tpu_torch.models.pixart import PixArt
 from instarevive_tpu_torch.models.swinir import SwinIR
 from instarevive_tpu_torch.models.vae import AutoencoderKL
 from instarevive_tpu_torch.ops.color import adain_color_fix, wavelet_color_fix
+from instarevive_tpu_torch.parallel.mesh import batch_slice, gather_batch, group_rank
 
 VAE_SCALE = 0.18215
 
@@ -104,21 +124,29 @@ class RestorationPipeline(nn.Module):
         return self.vae.decode(z / VAE_SCALE).float() / 2.0 + 0.5
 
     def one_step(self, z_init: torch.Tensor, y: torch.Tensor, y_mask: Optional[torch.Tensor] = None,
-                 c: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """eps at t=maxt -> x0 (f32); ``c``: the ControlNet condition latent."""
+                 c: Optional[torch.Tensor] = None, dit_forward=None) -> torch.Tensor:
+        """eps at t=maxt -> x0 (f32); ``c``: the ControlNet condition latent;
+        ``dit_forward(z, t, y, y_mask)`` in place of the DiT's own forward."""
         t = torch.full((z_init.shape[0],), self.maxt, dtype=torch.int64, device=z_init.device)
-        out = self.dit(z_init, t.float(), y, y_mask=y_mask, c=c, control_depth=self.control_depth)
+        if dit_forward is not None:
+            if c is not None:
+                raise NotImplementedError("a parallel DiT forward has no ControlNet branch")
+            out = dit_forward(z_init, t.float(), y, y_mask)
+        else:
+            out = self.dit(z_init, t.float(), y, y_mask=y_mask, c=c, control_depth=self.control_depth)
         return eps_to_x0(self.sched, out[..., : z_init.shape[-1]], z_init, t)
 
     @torch.inference_mode()
     def process(self, lq: torch.Tensor, y: torch.Tensor, y_mask=None, *,
-                use_swinir: bool = True, color_fix: str = "wavelet", use_control: bool = False) -> torch.Tensor:
+                use_swinir: bool = True, color_fix: str = "wavelet", use_control: bool = False,
+                dit_forward=None) -> torch.Tensor:
         """Non-tiled restoration of a x64-sized [0,1] NHWC batch; y: (B, L,
         caption_channels). The color fix applies here too, as in the JAX
-        package, so tiled and untiled outputs agree."""
+        package, so tiled and untiled outputs agree. ``dit_forward(z, t, y,
+        y_mask)`` replaces the DiT's forward (the parallel entry points)."""
         stage1 = self.clean(lq) if use_swinir else lq
         z_init = self.encode(stage1)
-        z0 = self.one_step(z_init, y, y_mask, c=z_init if use_control else None)
+        z0 = self.one_step(z_init, y, y_mask, c=z_init if use_control else None, dit_forward=dit_forward)
         out = _color_fix(self.decode(z0), stage1.float(), color_fix)
         return out.clamp(0.0, 1.0)
 
@@ -161,3 +189,40 @@ class RestorationPipeline(nn.Module):
             psum[:, ph : ph + lt * f, pw : pw + lt * f] += _color_fix(img, ref, color_fix)
             pcnt[:, ph : ph + lt * f, pw : pw + lt * f] += 1.0
         return (psum / pcnt).clamp(0.0, 1.0)
+
+    # ---- parallel entry points (module docstring) ----------------------------
+
+    def sharded(self, group=None, **kw):
+        """Data parallelism over ``group``: each rank restores its rows."""
+        rank, size = group_rank(group)
+
+        def call(lq, y, y_mask=None):
+            part = self.process(batch_slice(lq, rank, size), batch_slice(y, rank, size),
+                                None if y_mask is None else batch_slice(y_mask, rank, size), **kw)
+            return gather_batch(part, group)
+
+        return call
+
+    def tp(self, tensor_group, data_group=None, **kw):
+        """Tensor parallelism of the DiT over ``tensor_group`` (data
+        parallelism over ``data_group`` on top)."""
+        from instarevive_tpu_torch.parallel.tp import tp_dit
+
+        tp_dit(self.dit, tensor_group)
+        return self.sharded(data_group, **kw)
+
+    def sp(self, group, **kw):
+        """Sequence parallelism of the DiT's tokens over ``group``."""
+        from instarevive_tpu_torch.parallel.sp import pixart_sp_forward
+
+        def dit_forward(z, t, y, y_mask):
+            return pixart_sp_forward(self.dit, group, z, t, y, y_mask)
+
+        return lambda lq, y, y_mask=None: self.process(lq, y, y_mask, dit_forward=dit_forward, **kw)
+
+    def pp(self, group, microbatches: int = 2, **kw):
+        """The DiT's block stack as a GPipe pipeline over ``group``."""
+        from instarevive_tpu_torch.parallel.pp import PipelineDiT
+
+        stage = PipelineDiT(self.dit, group, microbatches)
+        return lambda lq, y, y_mask=None: self.process(lq, y, y_mask, dit_forward=stage, **kw)

@@ -17,8 +17,15 @@ state, its coefficients and the guidance mix stay float32.
 With ``--t5_dir`` (a T5 encoder directory, ``models/t5.py``) the prompts
 are encoded at the DiT's ``model_max_length``; the mask is computed and, as
 in the JAX package's ``sample.py``, not handed to the DiT. Without it every
-sample uses the checkpoint's learned null caption embedding. The mesh flags
-``--seq_parallel`` and ``--pipeline_parallel`` are refused.
+sample uses the checkpoint's learned null caption embedding.
+
+``--seq_parallel N`` splits the DiT's tokens over N ranks and
+``--pipeline_parallel S`` runs its blocks as a GPipe pipeline of S stages
+(2 microbatches: the guided call's conditional and null halves); the two
+exclude each other. The CLI starts its own ranks (one process a card) unless
+``WORLD_SIZE`` is set; every rank runs the same sampling loop from the same
+seed, only the DiT call is split, and rank 0 writes the images. Asking for
+more ranks than the host has cards is an error.
 """
 
 from __future__ import annotations
@@ -48,12 +55,14 @@ def parse_args(argv=None):
     p.add_argument("--step", type=int, default=20)
     p.add_argument("--cfg_scale", type=float, default=4.5)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--seq_parallel", type=int, default=0, help="refused: the mesh is not ported yet")
-    p.add_argument("--pipeline_parallel", type=int, default=0, help="refused: the mesh is not ported yet")
+    p.add_argument("--seq_parallel", type=int, default=0,
+                   help="split the DiT's latent tokens over N ranks (exact attention over K/V all-gathers)")
+    p.add_argument("--pipeline_parallel", type=int, default=0,
+                   help="run the DiT's blocks as a GPipe pipeline over S ranks; excludes --seq_parallel")
     args = p.parse_args(argv)
-    for flag in ("seq_parallel", "pipeline_parallel"):
-        if getattr(args, flag) > 1:
-            p.error(f"--{flag}: the device mesh is not ported yet; sampling runs on one device")
+    if args.seq_parallel > 1 and args.pipeline_parallel > 1:
+        p.error("--seq_parallel and --pipeline_parallel are mutually exclusive")
+    args.world = max(args.seq_parallel, args.pipeline_parallel, 1)
     return args
 
 
@@ -78,13 +87,16 @@ def caption_embeddings(t5_dir: str, prompts: Sequence[str], max_length: int, dev
     return T5Embedder(t5_dir, model_max_length=max_length, device=device).encode(list(prompts))
 
 
-def guided_model(pipe, y, null, cfg_scale: float):
+def guided_model(pipe, y, null, cfg_scale: float, dit_forward=None):
     """model_fn(x, t) -> the DiT's float32 output (eps and variance channels)
-    under classifier-free guidance; y, null: (B, L, C) caption embeddings."""
+    under classifier-free guidance; y, null: (B, L, C) caption embeddings;
+    ``dit_forward(x, t, y, y_mask)`` in place of the DiT's own forward."""
     from instarevive_tpu_torch.diffusion.one_step import cfg_wrap
 
+    forward = dit_forward or (lambda x, t, y, y_mask: pipe.dit(x, t, y))
+
     def dit(x, t, y):
-        return pipe.dit(x, t.float(), y).float()
+        return forward(x, t.float(), y, None).float()
 
     guided = cfg_wrap(dit, cfg_scale, {"y": null}, split_channels=pipe.dit.x_embedder.proj.in_channels)
     return lambda x, t: guided(x, t, y=y)
@@ -101,10 +113,11 @@ def respaced(spec: str):
 
 def sample_latents(pipe, y, null, shape, *, algo: str = "dpm-solver", step: int = 20, cfg_scale: float = 4.5,
                    solver_order: int = 2, solver_method: str = "multistep", sa_tau: float = 1.0,
-                   generator=None, x_init=None):
+                   generator=None, x_init=None, dit_forward=None):
     """The sampled latents (B, h, w, 4), float32. ``x_init`` is the initial
     noise; else it is drawn from ``generator``, on the generator's device, as
-    is every later draw of the stochastic samplers."""
+    is every later draw of the stochastic samplers. ``dit_forward``: a
+    parallel DiT forward (``parallel_forward``)."""
     import torch
 
     from instarevive_tpu_torch.diffusion import gaussian as G
@@ -113,7 +126,7 @@ def sample_latents(pipe, y, null, shape, *, algo: str = "dpm-solver", step: int 
 
     if algo not in ALGOS:
         raise ValueError(f"unknown sampling algorithm {algo!r}")
-    model_fn = guided_model(pipe, y, null, cfg_scale)
+    model_fn = guided_model(pipe, y, null, cfg_scale, dit_forward)
     with torch.inference_mode():
         if algo == "iddpm":
             return G.ddpm_sample_loop(respaced(str(step or 100)), model_fn, shape, generator, noise=x_init,
@@ -146,15 +159,43 @@ def sample_images(pipe, y, null, shape, **kw):
         return pipe.decode(z).clamp(0.0, 1.0)
 
 
+def parallel_forward(pipe, args, group=None):
+    """The DiT forward the mesh flags ask for over ``group`` (the world by
+    default), or None without them."""
+    if args.world == 1:
+        return None
+    import torch.distributed as dist
+
+    from instarevive_tpu_torch.parallel.pp import MICROBATCHES, PipelineDiT
+    from instarevive_tpu_torch.parallel.sp import pixart_sp_forward
+
+    group = group or dist.group.WORLD
+    if args.pipeline_parallel > 1:
+        return PipelineDiT(pipe.dit, group, MICROBATCHES)
+    return functools.partial(pixart_sp_forward, pipe.dit, group)
+
+
 def main(argv=None) -> Optional[list]:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
 
     import torch
 
     from instarevive_tpu_torch.inference import load_pipeline
+    from instarevive_tpu_torch.parallel.dist import check_cards, env_world, init_distributed, launch
     from instarevive_tpu_torch.utils.image_io import save_image
 
+    rank = 0
+    if args.world > 1:
+        if env_world() == 1:  # start the ranks on this host; each runs this main under WORLD_SIZE
+            check_cards(args.world, args.device)
+            launch(main, argv, args.world)
+            return None
+        rank, world = init_distributed(args.device)
+        if world != args.world:
+            raise SystemExit(f"the mesh flags ask for {args.world} ranks, WORLD_SIZE is {world}")
     pipe, null = load_pipeline(args)
+    dit_forward = parallel_forward(pipe, args)
     b = len(args.prompt)
     null = null.expand(b, -1, -1)
     if args.t5_dir:
@@ -167,7 +208,9 @@ def main(argv=None) -> Optional[list]:
     generator = torch.Generator(device=y.device).manual_seed(args.seed)
     imgs = sample_images(pipe, y, null, shape, algo=args.sampling_algo, step=args.step, cfg_scale=args.cfg_scale,
                          solver_order=args.solver_order, solver_method=args.solver_method, sa_tau=args.sa_tau,
-                         generator=generator).cpu().numpy()
+                         generator=generator, dit_forward=dit_forward).cpu().numpy()
+    if rank:
+        return None
     os.makedirs(args.output, exist_ok=True)
     paths = []
     for i, img in enumerate(imgs):

@@ -8,6 +8,11 @@ optimizer state, the EMA, the step), any plain carry as it is, the random
 generators' states (in place of the JAX key: one generator, or several by
 name) and the global step, so that a resumed run continues bit for bit. The
 legacy layout ``{"params", "ema"}`` restores the first state's weights only.
+
+The file holds the one-card layout at every world size: under FSDP2 every
+rank takes part in gathering the shards (``TrainState.module_state_dict``,
+``opt_state_full``) and rank 0 writes; a restore cuts each tensor to the
+rank's shard, so a run resumes at another world size.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from instarevive_tpu_torch.parallel.dist import is_main_process
 from instarevive_tpu_torch.train.state import TrainState
 
 FILE = "state.pt"
@@ -54,8 +60,8 @@ def state_to_tree(s):
     if isinstance(s, TrainState):
         return {
             "step": int(s.step),
-            "params": {k: v.detach() for k, v in s.module.state_dict().items()},
-            "opt_state": _counts(s.opt_state),
+            "params": s.module_state_dict(),
+            "opt_state": _counts(s.opt_state_full()),
             "ema": s.ema_state_dict(),
         }
     return s  # plain carry (or None)
@@ -91,12 +97,10 @@ def load_state_tree(template, tree):
     ``TrainState`` in place; a plain carry is returned as it is."""
     if not isinstance(template, TrainState):
         return tree
-    template.module.load_state_dict(_tensors(tree["params"]), strict=True)
-    template.opt_state = _copy_into(template.opt_state, tree["opt_state"])
+    template.load_module_state_dict(_tensors(tree["params"]))
+    template.opt_state = _copy_into(template.opt_state, template.local_opt_state(tree["opt_state"]))
     if template.ema_params is not None and tree["ema"] is not None:
-        ema = _tensors(tree["ema"])
-        for name, e in zip(template.names, template.ema_params):
-            e.copy_(ema[name])
+        template.load_ema(_tensors(tree["ema"]))
     template.step = int(tree["step"])
     return template
 
@@ -125,14 +129,15 @@ def _set_rng_state(generator: Generators, saved) -> None:
         generator["step"].set_state(saved)
 
 
-def save_train_state(path: str, states: Sequence, generator: Generators, step_i: int) -> None:
+def save_train_state(path: str, states: Sequence, generator: Generators, step_i: int,
+                     write: Optional[bool] = None) -> None:
     """Full-fidelity training checkpoint: every state of ``states``, the
-    state of the generator (or of each named generator) and the global step."""
-    save_checkpoint(path, {
-        "states": [state_to_tree(s) for s in states],
-        "rng": _rng_state(generator),
-        "step_i": int(step_i),
-    })
+    state of the generator (or of each named generator) and the global step.
+    Under data parallelism every rank calls it and the one that ``write``
+    says (by default rank 0 of the world) writes."""
+    tree = {"states": [state_to_tree(s) for s in states], "rng": _rng_state(generator), "step_i": int(step_i)}
+    if is_main_process() if write is None else write:
+        save_checkpoint(path, tree)
 
 
 def restore_train_state(path: str, states: Sequence, generator: Generators) -> Tuple[tuple, int]:

@@ -29,7 +29,7 @@ from torch.func import functional_call
 
 from instarevive_tpu_torch.diffusion.gaussian import q_sample
 from instarevive_tpu_torch.diffusion.schedules import DiffusionSchedule
-from instarevive_tpu_torch.models.unet import UNetBackbone
+from instarevive_tpu_torch.models.unet import ControlNet, UNetBackbone
 from instarevive_tpu_torch.train.distill import draw_noise, draw_timesteps
 from instarevive_tpu_torch.train.lora import Lora, merge_lora
 
@@ -69,7 +69,10 @@ class ControlLDMTask:
         """The ControlNet over concat(z_t, c_latent), then the UNet with its
         residuals (with ``unet_params`` in place of the UNet's own); f32 out."""
         t = t.float()
-        control = UNetBackbone.forward(self.controlnet, torch.cat([z_t, c_latent], dim=-1), t, context)
+        if isinstance(self.controlnet, ControlNet):  # through the module's call, whose hooks FSDP2 gathers on
+            control = self.controlnet(z_t, c_latent, t, context)
+        else:
+            control = self.controlnet(torch.cat([z_t, c_latent], dim=-1), t, context)
         if unet_params is None:
             return self.unet(z_t, t, context, control=control).float()
         return functional_call(self.unet, unet_params, (z_t, t, context), {"control": control}).float()

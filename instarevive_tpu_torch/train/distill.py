@@ -40,6 +40,17 @@ def draw_noise(generator: torch.Generator, shape, device, dtype=torch.float32) -
     return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
 
 
+def draw_dmd(generator: torch.Generator, shape, num_timesteps: int, device, min_dm_t: int = 20,
+             max_dm_t: int = 979) -> Dict[str, torch.Tensor]:
+    """The draws of one DMD step on latents of ``shape``, in the order the
+    step makes them (``make_dmd_train_step``'s ``draws``)."""
+    b = shape[0]
+    return {"t_dm": draw_timesteps(generator, b, min_dm_t, max_dm_t, device),
+            "noise_dm": draw_noise(generator, shape, device),
+            "t_fake": draw_timesteps(generator, b, 0, num_timesteps, device),
+            "noise_fake": draw_noise(generator, shape, device)}
+
+
 # ---------------------------------------------------------------------------
 # SwinIR stage-1
 
@@ -210,11 +221,6 @@ def dmd_fake_score_loss(
     return torch.mean((eps.float() - noise) ** 2)
 
 
-def _grads(loss: torch.Tensor, params) -> list:
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-
-
 def make_dmd_train_step(
     sched: DiffusionSchedule,
     gen_fn: ModelFn,
@@ -244,7 +250,7 @@ def make_dmd_train_step(
             sched, gen_fn, real_fn, fake_fn, batch, generator, maxt=maxt, regression_weight=regression_weight,
             cond=cond, t_dm=draws.get("t_dm"), noise=draws.get("noise_dm"),
         )
-        ggrads = _grads(gl, gen_state.params)
+        ggrads = gen_state.gradients(gl)
         del gl
         mark("generator_optimizer")
         gen_state.apply_gradients(ggrads)
@@ -252,7 +258,7 @@ def make_dmd_train_step(
         mark("fake_update")
         fl = dmd_fake_score_loss(sched, fake_fn, x0_gen, generator, cond,
                                  t=draws.get("t_fake"), noise=draws.get("noise_fake"))
-        fgrads = _grads(fl, fake_state.params)
+        fgrads = fake_state.gradients(fl)
         mark("fake_optimizer")
         fake_state.apply_gradients(fgrads)
         mark("end")

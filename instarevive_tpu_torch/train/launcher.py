@@ -9,7 +9,7 @@ LDM/ControlNet stack (ControlLDM and Reflow).
     python -m instarevive_tpu_torch.train --task cldm --data /path/hq --out runs/cldm \
         --config configs/cldm.yaml --bf16 --batch_size 2 [--t_sampler loss_second_moment] [--context_npz ctx.npz]
 
-The flags are those of the JAX package's ``train.py`` (without ``--fsdp``).
+The flags are those of the JAX package's ``train.py``.
 ``--trace_steps N --trace_at S`` profiles steps S to S+N-1 with
 ``torch.profiler`` into the Chrome trace ``<out>/trace/trace.json``
 (``utils/profiling.trace``; the JAX package writes a ``jax.profiler`` trace).
@@ -49,6 +49,27 @@ trained ones; a step whose gradient is not finite is skipped on the device.
 Runs on the card by default and exits when there is none; ``--device cpu`` is
 for tests. Metrics are fetched one step late, so the host never waits for
 the step it has just launched.
+
+Data parallelism and FSDP (``parallel/mesh.TrainMesh``): the world is data x
+``--fsdp`` ranks, one process a card, and the data axis is what ``--fsdp``
+leaves. Under ``torchrun`` (``WORLD_SIZE`` set) it is ``WORLD_SIZE / --fsdp``;
+otherwise the launcher starts its own ranks, one on every local card, data
+being the card count over ``--fsdp`` (on the CPU, ``--fsdp`` ranks and data 1;
+a data-parallel run on the CPU goes through ``torchrun``). With ``--fsdp 1``
+the gradients are averaged over the ranks (data parallelism); above 1 the
+trained models and the frozen teacher are sharded with FSDP2 (for cldm the
+UNet and the ControlNet, frozen parts included).
+``--batch_size`` stays the global batch: every rank reads and degrades the
+same global batch from the one seeded loader order and the one pair of
+degradation generators, and trains on its own rows of it; the step's noise
+and timesteps are drawn for the global batch from the one step generator and
+cut the same way. So a step at any world size sees what a one-card step sees,
+the generators stay equal on every rank, and a checkpoint (the one-card
+layout, written by rank 0) resumes at any world size. The price: at N ranks
+the loading and the degradation do N times a rank's share of the work. A
+rank's rows cannot be degraded alone without changing the one-card draws,
+since ``torch.poisson`` on the CPU consumes its generator by the values it
+draws, so the rows drawn after the first depend on the rows before them.
 """
 
 from __future__ import annotations
@@ -69,13 +90,19 @@ from instarevive_tpu_torch.data.codeformer import CodeformerDegradationConfig, d
 from instarevive_tpu_torch.data.internal import DMDPairDataset
 from instarevive_tpu_torch.data.realesrgan import RealESRGANDegradationConfig, degrade_batch, draw_degradation
 from instarevive_tpu_torch.diffusion import timestep_sampler as ts_sampler
-from instarevive_tpu_torch.models.unet import UNetBackbone, zero_init_
+from instarevive_tpu_torch.models.pixart import PixArtBlock
+from instarevive_tpu_torch.models.swinir import RSTB
+from instarevive_tpu_torch.models.unet import ResBlock, SpatialTransformer, UNetBackbone, zero_init_
 from instarevive_tpu_torch.nn.layers import set_compute_dtype
 from instarevive_tpu_torch.ops.degradation import make_generators
+from instarevive_tpu_torch.parallel.dist import check_cards, env_world, init_distributed, launch
+from instarevive_tpu_torch.parallel.mesh import TrainMesh, make_mesh
 from instarevive_tpu_torch.pipelines.build import build_pipeline, cast_weights, init_params
 from instarevive_tpu_torch.train import checkpoint as ckpt
 from instarevive_tpu_torch.train.cldm import ControlLDM, ControlLDMTask
-from instarevive_tpu_torch.train.distill import draw_noise, make_cfg_real_fn, make_dmd_train_step, swinir_loss
+from instarevive_tpu_torch.train.distill import (
+    draw_dmd, draw_noise, draw_timesteps, make_cfg_real_fn, make_dmd_train_step, swinir_loss,
+)
 from instarevive_tpu_torch.train.optim import build_optimizer, constant_with_warmup
 from instarevive_tpu_torch.train.state import TrainState
 from instarevive_tpu_torch.utils.debug import SimpleTimer, nan_guard
@@ -90,7 +117,9 @@ def parse_args(argv=None):
     p.add_argument("--data", required=True, help="HQ image folder or file list")
     p.add_argument("--out", required=True)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--batch_size", type=int, default=8, help="the global batch, over every rank")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="FSDP2 shard count (the mesh's 'fsdp' axis); 1: data parallelism only")
     p.add_argument("--crop_size", type=int, default=512)
     p.add_argument("--steps", type=int, default=100000)
     p.add_argument("--lr", type=float, default=1e-5)
@@ -169,8 +198,11 @@ class Task:
 
     states: tuple
 
-    def __init__(self, args, device: torch.device):
+    def __init__(self, args, device: torch.device, mesh: Optional[TrainMesh] = None):
         self.device = device
+        self.mesh = mesh or TrainMesh()
+        if args.batch_size % self.mesh.size:
+            raise ValueError(f"--batch_size {args.batch_size} is not a multiple of the {self.mesh.size} ranks")
         self.degrade = Degrader(args.degradation, args.seed, device)
         self.on_phase = None  # set by a timing tool: called with a name as each phase of a step begins
 
@@ -182,12 +214,13 @@ class Task:
         return {"degrade_host": self.degrade.gens.host, "degrade_device": self.degrade.gens.device}
 
     def run_step(self, batch: Dict[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
-        """One step on a loader batch ({'hq': uint8 (B,H,W,3)}): degrade it on
-        the device, then train on the pair. Returns the step's metrics as
-        0-dim tensors on the device."""
+        """One step on a loader batch ({'hq': uint8 (B,H,W,3)}, the global
+        batch): degrade it on the device, then train on this rank's rows of
+        the pair. Returns the step's metrics as 0-dim tensors on the device."""
         self.mark("degrade")
         hq01 = torch.from_numpy(batch["hq"]).to(self.device).float() / 255.0
-        return self.train_step(self.degrade(hq01, draws))
+        pair = self.degrade(hq01, draws)
+        return self.train_step({k: self.mesh.local(v) for k, v in pair.items()})
 
     def train_step(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -200,23 +233,24 @@ class SwinIRTask(Task):
 
     PHASES = ("degrade", "forward", "backward", "optimizer")
 
-    def __init__(self, args, cfg, device: torch.device, logger=None):
-        super().__init__(args, device)
+    def __init__(self, args, cfg, device: torch.device, logger=None, mesh: Optional[TrainMesh] = None):
+        super().__init__(args, device, mesh)
         pipe = build_pipeline(cfg, dtype=torch.bfloat16 if args.bf16 else None, device=device,
                               components=("swinir",), swinir_master_weights=True)
         self.pipe = init_params(pipe, seed=args.seed)
-        self.model = pipe.swinir.requires_grad_(True).train()
+        self.model = self.mesh.shard(pipe.swinir.requires_grad_(True).train(), (RSTB,))
         tx = build_optimizer(args.optimizer, constant_with_warmup(args.lr, args.warmup),
                              grad_clip_norm=args.max_grad_norm, grad_accum=args.grad_accum,
                              moment_dtype=torch.bfloat16 if args.lowmem else None)
         self.states = (TrainState.create(self.model, tx, ema=True, ema_rate=args.ema_rate),)
+        self.mesh.bind(self.states[0])
 
     def train_step(self, data: Dict[str, torch.Tensor], keep_grads: Optional[List] = None) -> Dict[str, torch.Tensor]:
         (state,) = self.states
         self.mark("forward")
         loss = swinir_loss(self.model, {"hq": (data["hq"] + 1.0) / 2.0, "lq": data["lq"]})
         self.mark("backward")
-        grads = torch.autograd.grad(loss, state.params)
+        grads = state.gradients(loss)
         self.mark("optimizer")
         metrics = {"loss": loss.detach()}
         nan_guard(state, grads, metrics)
@@ -230,8 +264,8 @@ class DMDTask(Task):
     """The three models, the two train states and one step of ``--task dmd``,
     as the launcher and the timing tool set them up."""
 
-    def __init__(self, args, cfg, device: torch.device, logger=None):
-        super().__init__(args, device)
+    def __init__(self, args, cfg, device: torch.device, logger=None, mesh: Optional[TrainMesh] = None):
+        super().__init__(args, device, mesh)
         dit_cfg = dict(cfg.get("dit", {}) or {})
         dit_cfg.setdefault("grad_checkpoint", True)  # what makes the full-width step fit comfortably
         if args.remat_policy is not None:
@@ -251,9 +285,11 @@ class DMDTask(Task):
             # frozen, so casting its weights once gives what casting them in every call would;
             # --lowmem alone also makes the teacher compute in bf16
             cast_weights(self.teacher, torch.bfloat16)
+        for model in (self.gen, self.fake, self.teacher):
+            self.mesh.shard(model, (PixArtBlock,))
 
         L, C = self.gen.model_max_length, self.gen.caption_channels
-        self.y = torch.zeros(args.batch_size, L, C, device=device)
+        self.y = torch.zeros(args.batch_size // self.mesh.size, L, C, device=device)
         if args.null_embed:
             y_null = torch.from_numpy(ckpt.load_null_embed(args.null_embed)).to(device)
         else:
@@ -277,6 +313,8 @@ class DMDTask(Task):
                                       ema_dtype=torch.bfloat16 if args.lowmem else None)
         fake_state = TrainState.create(self.fake, tx(args.lr * args.lr_fake_multiplier), ema=False)
         self.states = (gen_state, fake_state)
+        for state in self.states:
+            self.mesh.bind(state)
         self._step = make_dmd_train_step(
             pipe.sched, model_fn(self.gen), make_cfg_real_fn(model_fn(self.teacher), y_null, args.cfg_scale),
             model_fn(self.fake), maxt=args.maxt, regression_weight=args.regression_weight,
@@ -303,20 +341,28 @@ class DMDTask(Task):
         return {"step": self.generator, **super().generators()}
 
     def train_step(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One DMD step on a degraded pair, of which only the clean image is read."""
+        """One DMD step on this rank's rows of a degraded pair, of which only
+        the clean image is read. The noise and timesteps are drawn for the
+        global batch, in the order the one-card step draws them, and cut to
+        the rank's rows."""
         y_step = self.y
+        local = self.mesh.local
         self.mark("encode")
         if self._pairs is not None:
             pair = next(self._pairs)
-            dmd_batch = {k: torch.from_numpy(np.asarray(pair[k], np.float32)).to(self.device)
+            dmd_batch = {k: local(torch.from_numpy(np.asarray(pair[k], np.float32)).to(self.device))
                          for k in ("noise", "latent")}
             if "txt_fea" in pair:  # real prompt embeddings from --dmd_t5_dir
-                y_step = self._fit_tokens(pair["txt_fea"])
+                y_step = local(self._fit_tokens(pair["txt_fea"]))
+            shape = (dmd_batch["latent"].shape[0] * self.mesh.size,) + tuple(dmd_batch["latent"].shape[1:])
         else:
             with torch.no_grad():
                 latent = self.pipe.encode((data["hq"] + 1.0) / 2.0)
-            dmd_batch = {"noise": draw_noise(self.generator, latent.shape, self.device), "latent": latent}
-        return self._step(*self.states, dmd_batch, self.generator, {"y": y_step})
+            shape = (latent.shape[0] * self.mesh.size,) + tuple(latent.shape[1:])
+            dmd_batch = {"noise": local(draw_noise(self.generator, shape, self.device)), "latent": latent}
+        draws = draw_dmd(self.generator, shape, self.pipe.sched.num_timesteps, self.device)
+        return self._step(*self.states, dmd_batch, self.generator, {"y": y_step},
+                          draws={k: local(v) for k, v in draws.items()})
 
 
 def load_context(path: Optional[str], batch: int, context_dim: int, device) -> torch.Tensor:
@@ -342,8 +388,8 @@ class CLDMTask(Task):
 
     PHASES = ("degrade", "get_input", "forward", "backward", "optimizer")
 
-    def __init__(self, args, cfg, device: torch.device, logger=None):
-        super().__init__(args, device)
+    def __init__(self, args, cfg, device: torch.device, logger=None, mesh: Optional[TrainMesh] = None):
+        super().__init__(args, device, mesh)
         dtype = torch.bfloat16 if args.bf16 else None
         self.pipe = init_params(build_pipeline(cfg, dtype=dtype, device=device, components=("swinir", "vae")),
                                 seed=args.seed)
@@ -364,15 +410,21 @@ class CLDMTask(Task):
             unet.output_blocks.requires_grad_(True)
             unet.out.requires_grad_(True)
         self.task = ControlLDMTask(unet, controlnet, self.pipe.vae, self.pipe.swinir, self.pipe.sched, sd_locked)
-        self.context = load_context(args.context_npz, args.batch_size, int(cfg["unet"].get("context_dim", 1024)),
-                                    device)
+        self.context = load_context(args.context_npz, args.batch_size // self.mesh.size,
+                                    int(cfg["unet"].get("context_dim", 1024)), device)
         self.reflow = args.task == "reflow"
         self.use_lsm = args.t_sampler == "loss_second_moment" and args.task == "cldm"
         self.generator = torch.Generator(device=device).manual_seed(args.seed)
         tx = build_optimizer(args.optimizer, constant_with_warmup(args.lr, args.warmup),
                              grad_clip_norm=args.max_grad_norm, grad_accum=args.grad_accum,
                              moment_dtype=torch.bfloat16 if args.lowmem else None)
+        if self.mesh.sharded:  # the task calls the UNet and the ControlNet itself: each is an FSDP2 root
+            for net in (unet, controlnet):
+                self.mesh.shard(net, (ResBlock, SpatialTransformer))
+        else:
+            self.mesh.shard(model)
         state = TrainState.create(model, tx, ema=True, ema_rate=args.ema_rate)
+        self.mesh.bind(state)
         lsm = ts_sampler.loss_second_moment_init(self.pipe.sched.num_timesteps, device=device) if self.use_lsm else None
         self.states = (state, lsm)
 
@@ -399,18 +451,31 @@ class CLDMTask(Task):
         self.mark("get_input")
         latents = self.task.get_input(batch)
         self.mark("forward")
+        mesh, weights, t_global = self.mesh, None, None
+        if mesh.size > 1 and not draws:  # the one-card step's draws for the global batch, cut to this rank's rows
+            shape = (latents[0].shape[0] * mesh.size,) + tuple(latents[0].shape[1:])
+            if self.use_lsm:
+                draws["t"], weights = ts_sampler.loss_second_moment_sample(self.generator, lsm, shape[0])
+            else:
+                draws["t"] = draw_timesteps(self.generator, shape[0], int(self.reflow),
+                                            self.pipe.sched.num_timesteps, self.device)
+            draws["z_T" if self.reflow else "noise"] = draw_noise(self.generator, shape, self.device)
+            t_global = draws["t"]
+            draws = {k: mesh.local(v) for k, v in draws.items()}
+            weights = None if weights is None else mesh.local(weights)
         if self.reflow:
             loss, aux = self.task.reflow_loss(batch, self.generator, latents=latents, **draws)
         else:
-            weights = None
-            if self.use_lsm:
+            if self.use_lsm and weights is None:
                 draws["t"], weights = ts_sampler.loss_second_moment_sample(
                     self.generator, lsm, latents[0].shape[0], t=draws.get("t"))
             loss, aux = self.task.eps_loss(batch, self.generator, loss_weights=weights, latents=latents, **draws)
-            if self.use_lsm:
+            if self.use_lsm and t_global is None:
                 lsm = ts_sampler.loss_second_moment_update(lsm, aux["t"], aux["per_sample_loss"])
+            elif self.use_lsm:  # every rank folds in the whole batch's losses, so the sampler states stay equal
+                lsm = ts_sampler.loss_second_moment_update(lsm, t_global, mesh.gather(aux["per_sample_loss"].detach()))
         self.mark("backward")
-        grads = torch.autograd.grad(loss, state.params)
+        grads = state.gradients(loss)
         self.mark("optimizer")
         metrics = {"loss": loss.detach(), **{k: v for k, v in aux.items() if v.ndim == 0 and k != "loss_simple"}}
         nan_guard(state, grads, metrics)
@@ -433,18 +498,49 @@ class TrainRun:
         self.history = []
 
 
-def main(argv=None) -> TrainRun:
+def train_mesh(args, argv) -> Optional[TrainMesh]:
+    """The run's ``TrainMesh``: under ``torchrun`` the given world, laid out
+    as (WORLD_SIZE / --fsdp) x --fsdp; without it, None when this process is
+    the whole run, else the launcher starts the ranks itself (``launch``: every
+    local card, or --fsdp ranks on the CPU) and this process returns None with
+    ``args.launched`` set."""
+    args.launched = False
+    if env_world() == 1:
+        data = max(torch.cuda.device_count() // args.fsdp, 1) if args.device == "cuda" else 1
+        world = data * args.fsdp
+        if world == 1:
+            return TrainMesh()
+        check_cards(world, args.device)
+        launch(main, list(argv), world)
+        args.launched = True
+        return None
+    init_distributed(args.device)
+    return TrainMesh(make_mesh(-1, args.fsdp, device_type=args.device))
+
+
+def main(argv=None, mesh: Optional[TrainMesh] = None) -> Optional[TrainRun]:
+    """Train as the flags say. ``mesh`` runs this process as one rank of a
+    data-parallel run laid out by the caller (a test's process group); else
+    ``train_mesh`` decides. Returns the run, or None in a process that only
+    started the ranks."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device: run on a machine with a card, or pass --device cpu")
+    if mesh is None:
+        mesh = train_mesh(args, argv)
+        if mesh is None:
+            return None
+    main_rank = mesh.rank == 0
     os.makedirs(args.out, exist_ok=True)
     close_logger()  # a second run in one process gets its own log file
-    logger = get_root_logger(os.path.join(args.out, "train.log"))
-    writer = MetricWriter(os.path.join(args.out, "tb"))
-    device = torch.device(args.device)
-    logger.info(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}  task: {args.task}")
+    logger = get_root_logger(os.path.join(args.out, "train.log" if main_rank else f"train.rank{mesh.rank}.log"))
+    writer = MetricWriter(os.path.join(args.out, "tb" if main_rank else f"tb.rank{mesh.rank}"))
+    device = torch.device(args.device, torch.cuda.current_device()) if args.device == "cuda" else torch.device("cpu")
+    logger.info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}  task: {args.task}"
+                + (f"  rank {mesh.rank} of data {mesh.data} x fsdp {mesh.fsdp}" if mesh.parallel else ""))
 
-    task = TASKS[args.task](args, load_config(args.config), device, logger)
+    task = TASKS[args.task](args, load_config(args.config), device, logger, mesh)
     logger.info("params initialized")
     ds = ImageFolderDataset(args.data, out_size=args.crop_size, crop_type="random", seed=args.seed)
     loader = PrefetchLoader(ds, args.batch_size, seed=args.seed)
@@ -482,12 +578,14 @@ def main(argv=None) -> TrainRun:
                     trace_path = tracer.enter_context(trace(os.path.join(args.out, "trace")))
                     logger.info(f"trace started at step {step_i} ({args.trace_steps} steps)")
                 try:
-                    step_metrics = task.run_step(batch)
+                    step_metrics = mesh.mean(task.run_step(batch))
                     metrics, pending = fetch(pending), step_metrics
                 except Exception:
-                    try:  # an emergency full-state checkpoint before the error goes up
+                    try:  # an emergency full-state checkpoint before the error goes up (sharded: no gather now)
+                        if mesh.sharded:
+                            raise RuntimeError("the sharded states cannot be gathered from one failed rank")
                         ckpt.save_train_state(os.path.join(args.out, f"crash_step_{step_i}"),
-                                              task.states, task.generators(), step_i)
+                                              task.states, task.generators(), step_i, write=main_rank)
                         logger.exception(f"step {step_i} failed; emergency checkpoint saved")
                     except Exception:
                         logger.exception(f"step {step_i} failed; emergency checkpoint unavailable")
@@ -505,7 +603,8 @@ def main(argv=None) -> TrainRun:
                     logger.info(f"{msg}  {avg}")
                     writer.scalars(step_i, avg)
                 if step_i % args.checkpointing_steps == 0:
-                    ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generators(), step_i)
+                    ckpt.save_train_state(os.path.join(args.out, f"step_{step_i}"), task.states, task.generators(),
+                                          step_i, write=main_rank)
                     logger.info(f"checkpoint at step {step_i}")
 
     if pending is not None:  # drain the late fetch
@@ -515,7 +614,8 @@ def main(argv=None) -> TrainRun:
     if step_i % args.checkpointing_steps == 0 and step_i:
         logger.info(f"final state already checkpointed at step_{step_i}")
     else:
-        ckpt.save_train_state(os.path.join(args.out, "final"), task.states, task.generators(), step_i)
+        ckpt.save_train_state(os.path.join(args.out, "final"), task.states, task.generators(), step_i,
+                              write=main_rank)
     writer.flush()
     writer.close()
     logger.info("done")

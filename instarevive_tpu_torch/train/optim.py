@@ -22,6 +22,15 @@ the device, as ``utils.debug.nan_guard`` needs: where the flag is down every
 tensor of params and state keeps its bits and the count does not advance.
 The count is then a 0-dim tensor, and the schedules and bias corrections are
 computed from it on the device (the schedules take an int or a tensor).
+
+Under FSDP2 each rank updates its dim-0 shards of the parameters, and
+``update(..., shards=)`` (``train/state.Shards``: the shard group and each
+parameter's full dim 0) names what crosses shards: the global gradient norm
+sums its squares over the group, and CAME's means over dim 0 (its column
+statistics of a 2-D weight, the mean of its row statistics, the RMS of its
+update) are sums over the group divided by the full size. ``layout()`` says
+how each per-parameter list of the state is laid out, for the one-card
+checkpoint (``train/state.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 Count = Union[int, torch.Tensor]
@@ -141,20 +151,36 @@ class _Keep:
 # Optimizers
 
 
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (itself without one)."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
 class Optimizer:
     """Base: ``init(params) -> state``; ``update(params, grads, state)`` in place."""
+
+    LAYOUT: Dict[str, str] = {}
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         raise NotImplementedError
 
     def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: Dict,
-               ok: Optional[torch.Tensor] = None) -> None:
+               ok: Optional[torch.Tensor] = None, shards=None) -> None:
         raise NotImplementedError
+
+    def layout(self) -> Dict:
+        """Each per-parameter list of the state: 'param' (the parameter's
+        shape), 'rows' or 'cols' (CAME's factored statistics)."""
+        return dict(self.LAYOUT)
 
 
 class AdamW(Optimizer):
     """``optax.adamw``; with ``moment_dtype`` the low-memory form, whose
     moments are upcast, updated in f32 and stored back."""
+
+    LAYOUT = {"mu": "param", "nu": "param"}
 
     def __init__(self, learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, moment_dtype=None):
         self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
@@ -164,7 +190,7 @@ class AdamW(Optimizer):
         zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)  # noqa: E731
         return {"count": 0, "mu": [zeros(p) for p in params], "nu": [zeros(p) for p in params]}
 
-    def update(self, params, grads, state, ok=None):
+    def update(self, params, grads, state, ok=None, shards=None):
         b1, b2 = self.b1, self.b2
         state["count"] = _advance(state["count"], ok)
         lr = _gate(_lr(self.learning_rate, state["count"] - 1), ok)  # the schedule at the count before this call
@@ -203,6 +229,8 @@ class Lion(Optimizer):
     """``optax.lion``: the sign of an interpolated momentum; the momentum may
     be stored in ``mu_dtype``."""
 
+    LAYOUT = {"mu": "param"}
+
     def __init__(self, learning_rate, b1=0.9, b2=0.99, weight_decay=0.0, mu_dtype=None):
         self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
         self.weight_decay, self.mu_dtype = weight_decay, mu_dtype
@@ -210,7 +238,7 @@ class Lion(Optimizer):
     def init(self, params):
         return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params]}
 
-    def update(self, params, grads, state, ok=None):
+    def update(self, params, grads, state, ok=None, shards=None):
         state["count"] = _advance(state["count"], ok)
         lr = _gate(_lr(self.learning_rate, state["count"] - 1), ok)
         for p, g, m in zip(params, grads, state["mu"]):
@@ -245,12 +273,14 @@ class CAME(Optimizer):
                 "vr": [rows(p) for p in params], "vc": [cols(p) for p in params],
                 "rr": [rows(p) for p in params], "rc": [cols(p) for p in params]}
 
-    def _approx(self, r, c):
-        # RMS-factored approximation: (r_i * c_j) / mean(r)
-        denom = r.mean(dim=-1, keepdim=True).clamp_min(self.eps[0])
+    LAYOUT = {"m": "param", "vr": "rows", "vc": "cols", "rr": "rows", "rc": "cols"}
+
+    def _approx(self, r, c, mean0=None):
+        # RMS-factored approximation: (r_i * c_j) / mean(r); a 2-D weight's r is sharded along its rows
+        denom = (r.mean(dim=-1, keepdim=True) if mean0 is None else mean0(r)[None]).clamp_min(self.eps[0])
         return r[..., None] * c[..., None, :] / denom[..., None]
 
-    def update(self, params, grads, state, ok=None):
+    def update(self, params, grads, state, ok=None, shards=None):
         b1, b2, b3 = self.betas
         eps1, eps2 = self.eps
         state["count"] = _advance(state["count"], ok)
@@ -259,22 +289,29 @@ class CAME(Optimizer):
             m, vr, vc, rr, rc = (state[k][i] for k in ("m", "vr", "vc", "rr", "rc"))
             keep = _Keep((p, m, vr, vc, rr, rc), ok)
             factored = g.ndim >= 2
+            mean, mean0 = torch.mean, None  # of the whole tensor; over dim 0 of a 2-D one
+            if shards is not None:  # dim 0 is split over the group: sums over it, then the full size
+                rows, group = shards.rows[i], shards.group
+                numel = rows * math.prod(g.shape[1:])
+                mean = lambda x: _sum(x.sum(), group) / numel  # noqa: E731
+                if g.ndim == 2:
+                    mean0 = lambda x: _sum(x.sum(dim=0), group) / rows  # noqa: E731
             if factored:
                 g2 = g * g + eps1
                 vr.mul_(b2).add_(g2.mean(dim=-1), alpha=1 - b2)
-                vc.mul_(b2).add_(g2.mean(dim=-2), alpha=1 - b2)
-                u = g * torch.rsqrt(self._approx(vr, vc))
+                vc.mul_(b2).add_(g2.mean(dim=-2) if mean0 is None else mean0(g2), alpha=1 - b2)
+                u = g * torch.rsqrt(self._approx(vr, vc, mean0))
             else:
                 vr.mul_(b2).add_(g * g + eps1, alpha=1 - b2)
                 u = g * torch.rsqrt(vr)
-            rms = torch.sqrt(torch.mean(u * u) + eps1)  # update clipping by RMS
+            rms = torch.sqrt(mean(u * u) + eps1)  # update clipping by RMS
             u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)
             m.mul_(b1).add_(u, alpha=1 - b1)
             if factored:
                 res = (u - m) ** 2 + eps2
                 rr.mul_(b3).add_(res.mean(dim=-1), alpha=1 - b3)
-                rc.mul_(b3).add_(res.mean(dim=-2), alpha=1 - b3)
-                out = m * torch.rsqrt(self._approx(rr, rc))
+                rc.mul_(b3).add_(res.mean(dim=-2) if mean0 is None else mean0(res), alpha=1 - b3)
+                out = m * torch.rsqrt(self._approx(rr, rc, mean0))
             else:
                 out = m
             if self.weight_decay:
@@ -283,10 +320,17 @@ class CAME(Optimizer):
             keep.restore()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, group=None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: gradients scaled by max_norm / norm when
-    the norm is at least max_norm. The factor stays on the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    the norm is at least max_norm. The factor stays on the device. With
+    ``group`` the gradients are shards and the norm is over all of them."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    if group is not None:  # every rank's shard norms, whose norm is the global one
+        size = dist.get_world_size(group)
+        every = torch.empty(size * norms.numel(), dtype=norms.dtype, device=norms.device)
+        dist.all_gather_into_tensor(every, norms, group=group)
+        norms = every
+    norm = torch.linalg.vector_norm(norms)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return torch._foreach_mul(list(grads), factor)
 
@@ -298,27 +342,31 @@ class Chain(Optimizer):
     def __init__(self, opt: Optimizer, grad_clip_norm: Optional[float], grad_accum: int):
         self.opt, self.grad_clip_norm, self.grad_accum = opt, grad_clip_norm, grad_accum
 
+    def layout(self):
+        return {"inner": self.opt.layout(), "acc_grads": "param"}
+
     def init(self, params):
         state = {"inner": self.opt.init(params)}
         if self.grad_accum > 1:
             state.update(mini_step=0, gradient_step=0, acc_grads=[torch.zeros_like(p) for p in params])
         return state
 
-    def _inner(self, params, grads, state, ok=None):
+    def _inner(self, params, grads, state, ok=None, shards=None):
         if self.grad_clip_norm:
-            grads = clip_by_global_norm(grads, self.grad_clip_norm)
-        self.opt.update(params, grads, state["inner"], ok=ok)
+            grads = clip_by_global_norm(grads, self.grad_clip_norm, None if shards is None else shards.group)
+        kw = {} if shards is None else {"shards": shards}
+        self.opt.update(params, grads, state["inner"], ok=ok, **kw)
 
     @torch.no_grad()
-    def update(self, params, grads, state, ok=None):
+    def update(self, params, grads, state, ok=None, shards=None):
         if self.grad_accum <= 1:
-            return self._inner(params, grads, state, ok)
+            return self._inner(params, grads, state, ok, shards)
         acc, n = state["acc_grads"], state["mini_step"]
         if ok is None:
             for a, g in zip(acc, grads):  # running mean of the gradients seen since the last update
                 a.add_((g - a) / (n + 1))
             if n == self.grad_accum - 1:
-                self._inner(params, acc, state)
+                self._inner(params, acc, state, shards=shards)
                 state["gradient_step"] += 1
                 torch._foreach_zero_(acc)
             state["mini_step"] = (n + 1) % self.grad_accum
@@ -329,7 +377,7 @@ class Chain(Optimizer):
         for a, g in zip(acc, grads):
             a.add_((g - a) * (ok.float() / (n + 1)))
         fire = ok & (n == self.grad_accum - 1)
-        self._inner(params, torch._foreach_mul(acc, fire.float()), state, fire)
+        self._inner(params, torch._foreach_mul(acc, fire.float()), state, fire, shards)
         state["gradient_step"] = state["gradient_step"] + fire.long()
         torch._foreach_mul_(acc, (~fire).float())
         state["mini_step"] = torch.where(ok, (n + 1) % self.grad_accum, n)

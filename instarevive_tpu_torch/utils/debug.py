@@ -46,9 +46,11 @@ def nan_guard(state, grads, metrics: Optional[dict] = None) -> torch.Tensor:
     zeroed where it is down (one ``torch.where`` each, so no NaN reaches an
     update) and the update is gated by it on the device (``apply_gradients``
     with ``ok``). ``metrics['grads_finite']`` is the flag as an f32 0-dim
-    tensor, read by the caller when it reads the step's other metrics.
+    tensor, read by the caller when it reads the step's other metrics. Under
+    FSDP2 the flag is the one of all shards (``TrainState.agree``), so a rank
+    whose shard is not finite skips the step everywhere.
     Returns the flag, a 0-dim bool tensor."""
-    ok = all_finite(grads)
+    ok = state.agree(all_finite(grads))
     if metrics is not None:
         metrics["grads_finite"] = ok.float()
     state.apply_gradients([torch.where(ok, g, 0.0) for g in grads], ok=ok)

@@ -10,7 +10,9 @@ the control latent, decode), each against the same composition of the JAX
 package; f32, atol 1e-5 * max(1, max|ref|) (random weights under guidance
 take the latents to hundreds). Then
 ``python -m instarevive_tpu_torch.sample`` and ``.validate`` run in-process
-with ``--device cpu``, and the sample CLI refuses its two unported flags
+with ``--device cpu``; the sample CLI also runs ``--seq_parallel 2`` and
+``--pipeline_parallel 2`` on two gloo ranks that it starts itself, and refuses
+the two together and more ranks than the host has cards
 (``--t5_dir``: ``tests/test_torch_text_encoders.py``).
 """
 
@@ -135,12 +137,32 @@ def test_aspect_suffix_picks_the_bucket():
     assert sample.latent_shape(["a photo"], 256, 4) == (1, 64, 64, 4)
 
 
-@pytest.mark.parametrize("flag", [["--seq_parallel", "2"], ["--pipeline_parallel", "2"]])
-def test_sample_cli_refuses_unported_flags(flag, capsys):
+@pytest.mark.parametrize("flag", ["--seq_parallel", "--pipeline_parallel"])
+def test_sample_cli_runs_a_mesh_flag_on_two_ranks(flag, tmp_path):
+    """The CLI starts two gloo ranks itself (no WORLD_SIZE), splits the
+    guided DiT call over them (tokens, or the blocks in two stages with two
+    microbatches) and writes from rank 0 the images a one-process run writes,
+    within one 8-bit level (the split changes the order of the sums)."""
+    argv = ["--device", "cpu", "--random_init", "--config", TINY_PATH, "--step", "2", "--image_size", "64",
+            "--prompt", "a photo", "a cat"]
+    one = sample.main(argv + ["--output", str(tmp_path / "one")])
+    assert sample.main(argv + ["--output", str(tmp_path / "two"), flag, "2"]) is None  # the launching process
+    for path in one:
+        two = np.asarray(Image.open(tmp_path / "two" / os.path.basename(path)), np.int16)
+        assert np.abs(two - np.asarray(Image.open(path), np.int16)).max() <= 1
+
+
+def test_sample_cli_refuses_both_mesh_flags(capsys):
     with pytest.raises(SystemExit) as e:
-        sample.parse_args(["--device", "cpu"] + flag)
-    err = capsys.readouterr().err
-    assert e.value.code == 2 and flag[0] in err and "not ported" in err
+        sample.parse_args(["--device", "cpu", "--seq_parallel", "2", "--pipeline_parallel", "2"])
+    assert e.value.code == 2 and "mutually exclusive" in capsys.readouterr().err
+
+
+def test_sample_cli_refuses_more_ranks_than_cards():
+    """On the card (the default device) a mesh flag needs that many cards;
+    it never falls back to the CPU."""
+    with pytest.raises(SystemExit, match=f"this host has {torch.cuda.device_count()} CUDA devices"):
+        sample.main(["--random_init", "--config", TINY_PATH, "--seq_parallel", str(torch.cuda.device_count() + 2)])
 
 
 def test_validate_cli_writes_panels(tmp_path):

@@ -278,11 +278,18 @@ def test_close_fails_a_request_left_behind_its_sentinel():
 
 @pytest.mark.parametrize("module", [serve, interface])
 def test_entry_points_default_to_the_card_and_refuse_the_mesh_flags(module, monkeypatch):
+    """The demo takes no mesh flag. The server takes them, and on the card
+    (its default) refuses one that asks for more ranks than the host has
+    cards (tests/test_torch_parallel_serve.py runs them on gloo ranks)."""
     args = module.parse_args([])
     assert args.device == "cuda" and args.config == "configs/instarevive_v1.yaml"
     for flag in ("--data_parallel", "--tensor_parallel", "--pipeline_parallel", "--seq_parallel"):
+        too_many = str(torch.cuda.device_count() + 2)
         with pytest.raises(SystemExit):
-            module.parse_args([flag, "2"])
+            if module is serve:
+                module.main(["--config", TINY_PATH, "--random_init", flag, too_many])
+            else:
+                module.parse_args([flag, too_many])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         module.main(["--config", TINY_PATH, "--random_init"])
