@@ -12,13 +12,13 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``csrc/flash_attn_bwd.cu``, ``csrc/norm_kernels.cu``, ``csrc/gn_conv.cu``,
    ``csrc/swin_attention.cu``, ``csrc/filter2d.cu``), one nvcc each, all
    started together, and prints each build time with the registers and spills;
-   for the forward (bf16 at head dims 64, 72 and 512; f32 at 64, 72 and 512
-   on split-tf32 products), the backward (both passes at head dims 64 and 72,
-   bf16 and f32) and the fused convolution (bf16, and f32 on split-tf32
+   for the forward (bf16 at head dims 64, 72 and 512; f32 at 32, 64, 72 and
+   512 on split-tf32 products), the backward (both passes at head dims 64 and
+   72, bf16 and f32, and f32 at 32) and the fused convolution (bf16, and f32 on split-tf32
    products) also their shared memory a block, blocks an SM and their count
    of wgmma (HGMMA) and TMA-load (UTMALDG) instructions (the f32 convolution's
-   FFMA too), and fails if either count is 0 (for the head-dim-512 kernel and
-   the f32 forms too), if the forward library or the backward's or the
+   FFMA too), and fails if either count is 0 (for the head-dim-512 kernel,
+   the f32 forms and their head-dim-32 instantiations too), if the forward library or the backward's or the
    convolution's kernels hold an mma.sync (HMMA), or if the head-dim-512
    kernel, a backward kernel or an f32 form spills; for the window attention
    (bf16, and f32 on split-tf32 products) its registers, the heads an item,
@@ -97,8 +97,10 @@ PyTorch built for CUDA. It imports no JAX. In order it:
 11. holds the flash-attention kernels at head dim 64 (K1 with and without the
    log-sum-exp, K2's dq and dk/dv) against their plain versions at every
    UNet and ControlNet shape of ``configs/cldm.yaml``, bf16 and f32, timed
-   against ``F.scaled_dot_product_attention`` forward and backward (this
-   runs with the other kernel phases, after 3);
+   against ``F.scaled_dot_product_attention`` forward and backward, and the
+   same at head dim 32 in f32 at the toy training-validation tool's shapes
+   (``time_flash_bwd.D32_CASES``, which 19 reads; these run with the other kernel phases,
+   after 3);
 12. runs the trainer with ``--task cldm`` at the full ``configs/cldm.yaml``
    width (SD-2.1 UNet, ControlNet, the frozen SwinIR and VAE) in bf16 from f32
    masters, batch 2 at 512x512: 3 steps, then 1 more from the checkpoint,
@@ -178,7 +180,23 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    failure on either rank fails the phase (sharded and pp bit for bit against
    the same arithmetic, tp and sp within ``PARALLEL_TWO_RANK_BOUND``), with
    K1 at the new shapes (``tp2_*``, ``sp2_*``) held in 3; their walls go
-   through host memory and measure no speed.
+   through host memory and measure no speed;
+19. runs the training-validation tools (``trainval_phase``): the toy tool's
+   ``main`` (``tools/train_validation.py``) whole at its defaults on the card
+   in f32, every JAX assert holding (the teacher trains, the DMD EMA beats
+   its init, Reflow trains and its EMA beats its init), K1 and K2 at head
+   dim 32 only and at shapes the head-dim-32 phase held (``time_flash_bwd.D32_CASES``: K1
+   with and without the log-sum-exp, K2's dq and dk/dv, f32, and the
+   prepass there bit for bit), each stage's launches held to its steps;
+   then the production tool's stage functions at full XL-2 width in bf16
+   under ``dots`` (``TRAINVAL_PROD_ARGV``: a cut teacher at which its assert
+   holds, 2 pair batches, a few DMD steps, 4 held noises through the bf16
+   decode and NIQE at block 96), every figure finite, every K1, K2, K3 and
+   K5 shape one the kernel phases held (K2 at batch 4 in
+   ``TRAINVAL_BACKWARD_CASES``, K5 at a 512x512 decode at batch 2); then one
+   teacher step and two DMD steps of that tool at depth 2, full width, f32,
+   card against CPU (TRAIN_F32_BOUND). Each prints walls, steps/s or s a
+   step, launches and peak memory.
 
 It then prints one JSON line describing the kernels, the card line again
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -545,6 +563,10 @@ def norm_phase():
         # norms; (2, 2048, 2048, 256) is 2^31 elements
         *((f"b2_2k_{hw}_{c}", (2, hw, hw, c), ("bf16",)) for hw, c in
           ((256, 512), (512, 512), (1024, 512), (1024, 256), (2048, 256), (2048, 128))),
+        # a 512^2 decode at batch 2 (the production training-validation eval, phase 19): every fused conv's
+        # moments, the mid block's and the output's norms
+        *((f"b2_{hw}_{c}", (2, hw, hw, c), ("bf16",)) for hw, c in
+          ((64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128))),
     ]
     stats, applies, ups = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -617,7 +639,9 @@ def norm_phase():
                  ("swinir_b1_256_64", (1, 256, 256, 64)), ("swinir_b1_512_64", (1, 512, 512, 64)),
                  # a 2048^2 decode at batch 2; the last one's output is 2^31 elements
                  ("b2_2k_256_512", (2, 256, 256, 512)), ("b2_2k_512_512", (2, 512, 512, 512)),
-                 ("b2_2k_1024_256", (2, 1024, 1024, 256))]
+                 ("b2_2k_1024_256", (2, 1024, 1024, 256)),
+                 # a 512^2 decode at batch 2 (phase 19)
+                 ("b2_64_512", (2, 64, 64, 512)), ("b2_128_512", (2, 128, 128, 512)), ("b2_256_256", (2, 256, 256, 256))]
     for name, (n, h, w, c) in up_shapes:
         x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(torch.bfloat16)
         x_cl = x.permute(0, 3, 1, 2)
@@ -689,12 +713,13 @@ def occupancy_figures(library: str, entry: str, args, key) -> dict:
 
 def hopper_build_report(log: str):
     """The forward as built: registers and spill stores of each head dim's
-    bf16 kernel and of the f32 (split-tf32) kernels at 64, 72 and 512
+    bf16 kernel and of the f32 (split-tf32) kernels at 32, 64, 72 and 512
     (``f32_``; ptxas, when this run compiled it), the shared memory a block
     takes and the blocks an SM holds (the library's own figures), the counts
     of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's
-    SASS, in the bf16 head-dim-512 kernel's alone, in the f32 kernels' at 64
-    and 72 alone and in the f32 head-dim-512 kernel's alone, and the
+    SASS, in the bf16 head-dim-512 kernel's alone, in the f32 kernels' at 32,
+    64 and 72 alone, in the f32 head-dim-32 kernel's alone and in the f32
+    head-dim-512 kernel's alone, and the
     library's HMMA (mma.sync). Fails if the library or any of those kernels
     has no HGMMA or no UTMALDG, if an HMMA is left, or if a head-dim-512
     kernel or an f32 kernel spills."""
@@ -703,15 +728,16 @@ def hopper_build_report(log: str):
                                 lambda m: f"f32_d{m.group(1) or m.group(2)}"))
     report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy", [(64,), (72,), (512,)],
                                     lambda a: f"d{a[0]}"))
-    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy_f32", [(64,), (72,), (512,)],
+    report.update(occupancy_figures("flash_attn_fwd", "flash_attn_fwd_occupancy_f32", [(32,), (64,), (72,), (512,)],
                                     lambda a: f"f32_d{a[0]}"))
     report.update(sass_counts("flash_attn_fwd"))
-    for key, in_name in (("d512", "d5126kernel"), ("f32", "fwd_tf32"), ("f32_d512", "d512_tf326kernel")):
+    for key, in_name in (("d512", "d5126kernel"), ("f32", "fwd_tf32"), ("f32_d512", "d512_tf326kernel"),
+                         ("f32_d32", "fwd_tf326kernelILi32E")):
         counts = sass_counts("flash_attn_fwd", in_name)
         report[f"{key}_HGMMA"], report[f"{key}_UTMALDG"] = counts["HGMMA"], counts["UTMALDG"]
     print(f"[build] flash_attn_fwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
     counted = ("HGMMA", "UTMALDG", "d512_HGMMA", "d512_UTMALDG", "f32_HGMMA", "f32_UTMALDG", "f32_d512_HGMMA",
-               "f32_d512_UTMALDG")
+               "f32_d512_UTMALDG", "f32_d32_HGMMA", "f32_d32_UTMALDG")
     if not all(report[k] for k in counted):
         fail(f"the forward library's HGMMA and UTMALDG counts, all and by kernel: {({k: report[k] for k in counted})}")
     spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v and k.startswith(("d512", "f32"))}
@@ -748,10 +774,11 @@ def gn_conv_build_report(log: str):
 
 def bwd_build_report(log: str):
     """The backward as built: registers and spill stores of each pass at each
-    head dim, bf16 and f32 (split-tf32, ``f32_``; ptxas, when this run
-    compiled it), the shared memory a block takes and the blocks an SM holds
-    (the library's own figures), and the counts of HGMMA (wgmma), UTMALDG
-    (TMA load) and HMMA (mma.sync) instructions in each form's kernels' SASS.
+    head dim, bf16 and f32 (split-tf32, ``f32_``, also at head dim 32; ptxas,
+    when this run compiled it), the shared memory a block takes and the blocks
+    an SM holds (the library's own figures), and the counts of HGMMA (wgmma),
+    UTMALDG (TMA load) and HMMA (mma.sync) instructions in each form's
+    kernels' SASS and in the f32 head-dim-32 kernels' alone (``f32_d32_``).
     Fails if either of the first two is 0 in a form, if an HMMA is left or if
     a kernel spills."""
     pass_of = lambda m: f"{'dkv' if m.group(2) == '1' else 'dq'}_d{m.group(1)}"  # noqa: E731
@@ -761,13 +788,16 @@ def bwd_build_report(log: str):
     cases = [(d, kv) for kv in (0, 1) for d in (64, 72)]
     report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy", cases,
                                     lambda a: f"{'dkv' if a[1] else 'dq'}_d{a[0]}"))
-    report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy_f32", [(*c, wg) for c in cases for wg in (1, 2)],
+    report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy_f32",
+                                    [(d, kv, wg) for kv in (0, 1) for d in (32, 64, 72) for wg in (1, 2)],
                                     lambda a: f"f32_{'dkv' if a[1] else 'dq'}_d{a[0]}_wg{a[2]}"))
     report.update(sass_counts("flash_attn_bwd", "bwd16"))
     report.update({f"f32_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd_tf32").items()})
+    report.update({f"f32_d32_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd_tf326kernelILi32E").items()})
     print(f"[build] flash_attn_bwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
     spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
-    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG")) or report["HMMA"] \
+    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG", "f32_d32_HGMMA", "f32_d32_UTMALDG")) \
+            or report["HMMA"] \
             or report["f32_HMMA"] or spills:
         fail(f"the backward's kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
              f"{report['HMMA']} HMMA instructions (f32: {report['f32_HGMMA']}, {report['f32_UTMALDG']}, "
@@ -911,10 +941,19 @@ def kernel_phase():
     return records
 
 
+# The production training-validation tool's teacher steps at XL-2 width (batch 4, no mask; phase 19): bf16 in its
+# stages, f32 in its depth-cut step held against the CPU
+TRAINVAL_BACKWARD_CASES = [
+    ("dit_self_b4", (4, 16, 1024, 1024, 72), None),
+    ("dit_cross_b4", (4, 16, 1024, 300, 72), None),
+]
+
+
 def backward_phase():
     """K2 (the dq and dk/dv kernels) and K1's log-sum-exp output against their
     plain versions at the shapes of a DMD train step (batch 2), a masked
-    cross-attention and a ragged shape, bf16 and f32; the same inputs twice
+    cross-attention, a ragged shape and the production training-validation
+    teacher's batch 4, bf16 and f32; the same inputs twice
     give the same bits. The yardstick is the backward (alone) of
     ``F.scaled_dot_product_attention`` through autograd. Returns (dq records,
     dk/dv records, K1-with-LSE records)."""
@@ -926,7 +965,7 @@ def backward_phase():
 
     dq_records, dkv_records, lse_records = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for name, (b, h, nq, nk, d), kept in BACKWARD_CASES:
+    for name, (b, h, nq, nk, d), kept in BACKWARD_CASES + TRAINVAL_BACKWARD_CASES:
         for dt in ("bf16", "f32"):
             dtype = getattr(torch, DTYPES[dt])
             q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
@@ -1031,6 +1070,9 @@ PLANES_CASES = [
     ("vae_k_dmd_encode", (2, 1, 4096, 512), True, False),
     ("vae_v_dmd_encode", (2, 1, 4096, 512), False, True),
     ("ragged_d512_k333", (2, 1, 333, 512), True, True),
+    # the toy DiT of tools/train_validation.py at head dim 32: its queries and keys, and the 4 caption keys
+    ("toy_q_d32", (64, 4, 64, 32), True, True),
+    ("toy_cross_k_d32", (64, 4, 4, 32), True, True),
 ]
 
 
@@ -2129,25 +2171,44 @@ def swinir_train_phase(cfg_full, swin_records, filter_records, work):
 
 def d64_phase():
     """K1 (without and with the log-sum-exp) and K2 (dq, dk/dv) at head dim
-    64 against ``sdpa``, ``flash_lse_plain`` and ``flash_backward_plain`` at
-    every UNet / ControlNet shape, bf16 and f32: every output relative to its
-    largest magnitude (BACKWARD_BOUNDS, as at head dim 72; q, k, dO randn and
-    v in [-1, 1]), the log-sum-exp to LSE_BOUNDS, the same bits twice. The
+    64 at every UNet / ControlNet shape, bf16 and f32 (``head_dim_phase``).
+    Returns (forward records, dq records, dk/dv records, the bf16 shapes held
+    as (B, H, Nq, Nk, 64, masked))."""
+    from instarevive_tpu_torch.tools.time_flash_bwd import D64_CASES
+
+    return head_dim_phase(64, D64_CASES, ("bf16", "f32"), "bf16", seed=64)
+
+
+def d32_phase():
+    """K1's and K2's f32 forms at head dim 32 at the toy training-validation
+    tool's shapes (``time_flash_bwd.D32_CASES``; ``head_dim_phase``). Returns
+    (forward records, dq records, dk/dv records, the f32 shapes held as (B,
+    H, Nq, Nk, 32, masked))."""
+    from instarevive_tpu_torch.tools.time_flash_bwd import D32_CASES
+
+    return head_dim_phase(32, D32_CASES, ("f32",), "f32", seed=32)
+
+
+def head_dim_phase(d, cases, dtypes, held_dtype, seed):
+    """K1 (without and with the log-sum-exp) and K2 (dq, dk/dv) at head dim
+    ``d`` against ``sdpa``, ``flash_lse_plain`` and ``flash_backward_plain``
+    at ``cases``, in ``dtypes``: every output relative to its largest
+    magnitude (BACKWARD_BOUNDS, as at head dim 72; q, k, dO randn and v in
+    [-1, 1]), the log-sum-exp to LSE_BOUNDS, the same bits twice. The
     yardsticks are ``F.scaled_dot_product_attention``: the forward alone, and
     the forward plus the backward through autograd. Returns (forward records,
-    dq records, dk/dv records, the bf16 shapes held as (B, H, Nq, Nk, 64,
-    masked))."""
+    dq records, dk/dv records, the ``held_dtype`` shapes held as (B, H, Nq,
+    Nk, d, masked))."""
     import torch
     import torch.nn.functional as F
 
     from instarevive_tpu_torch.ops import attention as A
-    from instarevive_tpu_torch.tools.time_flash_bwd import D64_CASES
 
     fwd_records, dq_records, dkv_records, held = [], [], [], set()
-    gen = torch.Generator(device="cuda").manual_seed(64)
-    d = 64
-    for name, (b, h, nq, nk), kept in D64_CASES:
-        for dt in ("bf16", "f32"):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tag = f"d{d}"
+    for name, (b, h, nq, nk), kept in cases:
+        for dt in dtypes:
             dtype = getattr(torch, DTYPES[dt])
             q = torch.randn(b, h, nq, d, device="cuda", generator=gen).to(dtype)
             k = torch.randn(b, h, nk, d, device="cuda", generator=gen).to(dtype)
@@ -2173,7 +2234,7 @@ def d64_phase():
                 rel, abs_err = {}, {}
                 for key, x, y in zip(("dq", "dk", "dv"), got, want):
                     if not torch.isfinite(x).all():
-                        fail(f"head dim 64 {name} {dt}: {key} is not finite")
+                        fail(f"head dim {d} {name} {dt}: {key} is not finite")
                     abs_err[key] = max_err(x, y)
                     rel[key] = abs_err[key] / y.float().abs().max().item()
                 same = all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(q, k, v, mask, o, lse, do, scale)))
@@ -2216,7 +2277,7 @@ def d64_phase():
             dkv_records.append(dict(back, max_abs_err=max(abs_err["dk"], abs_err["dv"]),
                                     max_rel_err=max(rel["dk"], rel["dv"]), ms=ms_dkv, bound_ms=b_dkv[0],
                                     bound_by=b_dkv[1]))
-            print(f"[d64] {name:18s} {dt:4s} B,H,Nq,Nk={b},{h},{nq},{nk} mask={mask is not None!s:5s} "
+            print(f"[{tag}] {name:18s} {dt:4s} B,H,Nq,Nk={b},{h},{nq},{nk} mask={mask is not None!s:5s} "
                   f"out rel_err={o_rel:.2e} lse={lse_err:.2e} dq={rel['dq']:.2e} dk={rel['dk']:.2e} dv={rel['dv']:.2e} "
                   f"(bounds {bnd:.0e} of each output's largest magnitude, lse {LSE_BOUNDS[dt]:.0e}) same bits "
                   f"twice={same and same_out} | ms fwd={ms_fwd:.4f} with_lse={ms_lse:.4f} (bound {b_fwd[0]:.4f}, "
@@ -2224,10 +2285,10 @@ def d64_phase():
                   f"plain fwd={plain_fwd_ms:.4f} bwd={plain_bwd_ms:.4f} | torch sdpa fwd={lib_fwd_ms:.4f} "
                   f"bwd={lib_bwd_ms:.4f} fwd+bwd={lib_fwd_bwd_ms:.4f}", flush=True)
             if not (o_rel <= bnd and max(rel.values()) <= bnd and lse_err <= LSE_BOUNDS[dt]):
-                fail(f"head dim 64 {name} {dt}: output {o_rel}, lse {lse_err}, gradients {rel} over the bounds")
+                fail(f"head dim {d} {name} {dt}: output {o_rel}, lse {lse_err}, gradients {rel} over the bounds")
             if not (same and same_out):
-                fail(f"head dim 64 {name} {dt}: two runs on the same inputs differ")
-            if dt == "bf16":
+                fail(f"head dim {d} {name} {dt}: two runs on the same inputs differ")
+            if dt == held_dtype:
                 held.add((b, h, nq, nk, d, mask is not None))
             del q, k, v, do, o, lse, ref, got, want, di
     return fwd_records, dq_records, dkv_records, held
@@ -3743,6 +3804,367 @@ def parallel_phase(conv_records, swin_records, attn_records):
     return timing
 
 
+# Phase 19: the training-validation tools. The toy tool (tools/train_validation.py) runs whole through its main() in
+# f32 (K1 and K2 at head dim 32) at its defaults but for these step counts: at its defaults it took 239 s on an H100
+# (teacher 58 s, DMD 127 s, Reflow 52 s; tools/time_train_validation.py). The teacher keeps its 2,000 steps (at fewer
+# its 20-step samples run out of range and DMD cannot beat its init); on the card the DMD EMA's PSNR passed its init's
+# (14.04 dB) between steps 700 and 800 and stood 1.09 dB above it at 1,200, and the Reflow EMA's moment distance passed
+# its init's by step 100 (time_train_validation.py --probe --dmd_steps 1200 --reflow_steps 500).
+TRAINVAL_TOY_ARGV = ["--dmd_steps", "1200", "--reflow_steps", "500"]
+# The production tool's stages at full XL-2 width in bf16 under dots: its teacher cut to a number of steps at which
+# its own teacher assert holds on the card (read every 5: on an H100 the loss went 2.10 -> 0.56 by step 49 and 0.34
+# by step 99), 2 pair batches of 4, 10 DMD steps at batch 2 and an eval over 4 held noises (the DMD-gap assert
+# belongs to the full-length run).
+TRAINVAL_PROD_ARGV = ["--teacher_steps", "50", "--chunk", "5", "--pairs", "8", "--dmd_steps", "10", "--held", "4"]
+
+
+class KeptGradients:
+    """A train state whose ``apply_gradients`` also keeps the gradients (for
+    the card-against-CPU check of a tool's step, which applies its own)."""
+
+    def __init__(self, state):
+        self.state, self.grads = state, None
+
+    def gradients(self, loss):
+        return self.state.gradients(loss)
+
+    def apply_gradients(self, grads):
+        self.grads = [g.detach().cpu() for g in grads]
+        return self.state.apply_gradients(grads)
+
+
+def stage_deltas(snaps, end_counts):
+    """Each stage's launches from the counts taken as the stages began (``snaps``: (name, counts)) and at the end."""
+    marks = snaps + [("end", end_counts)]
+    return {name: {k: marks[i + 1][1][k] - counts[k] for k in counts} for i, (name, counts) in enumerate(snaps)}
+
+
+def all_counts():
+    from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
+
+    return {**read_counts(), "tf32_planes": tf32_planes.launches}
+
+
+def tally_held(fns, run, what):
+    """Run ``run`` with each wrapper of ``fns`` ({wrapper: (held keys, legend)}) tallying its launches by shape;
+    fails if a tally and a count disagree or a shape is not held. Returns (run's output, {name: {shape: n}})."""
+    import torch
+
+    for fn in fns:
+        fn.shapes = {}
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        seen = {fn: dict(fn.shapes) for fn in fns}
+    finally:
+        for fn in fns:
+            fn.shapes = None
+    for fn, (held, legend) in fns.items():
+        shapes = seen[fn]
+        if sum(shapes.values()) != fn.launches:
+            fail(f"{what}: {fn.__name__}: {sum(shapes.values())} launches tallied by shape, {fn.launches} counted")
+        missing = sorted(set(shapes) - set(held))
+        if missing:
+            fail(f"{what}: {fn.__name__} ran at shapes its kernel phase did not hold: {missing}")
+        print(f"[trainval] {what}: {fn.__name__} launches by {legend}: "
+              + ", ".join(f"{k}x{v}" for k, v in sorted(shapes.items(), key=str)), flush=True)
+    return out, {fn.__name__: seen[fn] for fn in fns}
+
+
+def trainval_toy(d32_held, work):
+    """(a) of phase 19: the toy tool's ``main`` whole on the card (every JAX
+    assert), K1 and K2 launched at head dim 32 only, at shapes ``d32_phase``
+    held, each stage's launches held to what its steps imply. Returns its
+    record (walls, steps/s, launches, peak memory, the figures main
+    returns)."""
+    import torch
+
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.tools import train_validation as TV
+
+    args = TV.parse_args(TRAINVAL_TOY_ARGV)
+    held_fwd = {(*k, lse) for k in d32_held for lse in (False, True)}
+    snaps = []
+
+    def on_stage(name):
+        torch.cuda.synchronize()
+        snaps.append((name, all_counts()))
+
+    def run():
+        try:
+            return TV.main(["--out", os.path.join(work, "train_validation.md"), *TRAINVAL_TOY_ARGV], on_stage=on_stage)
+        except AssertionError as e:
+            fail(f"phase 19, the toy tool's main: {e}")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res, shapes = tally_held({A.flash_attention: (held_fwd, "(B, H, Nq, Nk, D, masked, with log-sum-exp)"),
+                              A.flash_dq: (d32_held, "(B, H, Nq, Nk, D, masked)"),
+                              A.flash_dkv: (d32_held, "(B, H, Nq, Nk, D, masked)")}, run, "toy tool")
+    wall = time.time() - t0
+    totals = all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_stage = stage_deltas(snaps[:-1], snaps[-1][1])  # the last mark is 'end'
+    per_fwd = 2 * args.depth  # a self- and a cross-attention a block
+    steps = res["steps"]
+    want = {  # (forwards without grad, forwards with grad) a stage: K1 for both, K2 (dq, dk/dv) once for each second
+        "teacher": (0, steps["teacher"]), "pairs": (8 * 20, 0), "dmd": (2 * steps["dmd"], 2 * steps["dmd"]),
+        "quality": (20 + 2, 0), "reflow": (0, steps["reflow"]), "reflow_eval": (2, 0)}
+    for stage, (plain, grad) in want.items():
+        got = by_stage[stage]
+        expect = {k: 0 for k in got}
+        expect.update(flash_attn_fwd=per_fwd * (plain + grad), flash_attn_bwd_dq=per_fwd * grad,
+                      flash_attn_bwd_dkv=per_fwd * grad, tf32_planes=3 * per_fwd * (plain + grad) + 4 * per_fwd * grad)
+        if got != expect:
+            fail(f"phase 19, toy tool, stage {stage}: launches {got}, expected {expect}")
+    if any(shape[4] != 32 for counts in shapes.values() for shape in counts):
+        fail(f"phase 19, toy tool: attention at another head dim than 32: {shapes}")
+    per_step = {stage: {k: v / steps[stage] for k, v in by_stage[stage].items() if v}
+                for stage in ("teacher", "dmd", "reflow")}
+    rec = dict(argv=TRAINVAL_TOY_ARGV, wall_s=wall, walls_s=res["walls"], steps=steps,
+               steps_per_s={k: steps[k] / res["walls"][k] for k in ("teacher", "dmd", "reflow")},
+               launches=totals, launches_by_stage=by_stage, launches_per_step=per_step, peak_gib=peak,
+               psnr=res["psnr"], ssim=res["ssim"], reflow_moment_dist=res["reflow_moment_dist"],
+               curves={k: [v[0], v[-1]] for k, v in res["curves"].items()}, shapes={k: {str(s): n for s, n in v.items()}
+                                                                             for k, v in shapes.items()})
+    print(f"[trainval] toy tool main() at its defaults{' + ' + ' '.join(TRAINVAL_TOY_ARGV) if TRAINVAL_TOY_ARGV else ''}"
+          f" (f32, DiT {args.hidden}h/{args.depth}L/{args.heads} heads = head dim {args.hidden // args.heads}, batch "
+          f"{args.batch}, {args.size}^2): every assert held; wall {wall:.1f} s; stages (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in res["walls"].items())
+          + "; steps/s " + ", ".join(f"{k} {v:.1f}" for k, v in rec["steps_per_s"].items())
+          + f"; launches a step {per_step}; peak {peak:.2f} GiB; PSNR EMA {res['psnr']['ema']:.2f} against init "
+          f"{res['psnr']['init']:.2f}; Reflow moment distance EMA {res['reflow_moment_dist']['ema']:.4f} against init "
+          f"{res['reflow_moment_dist']['init']:.4f}", flush=True)
+    return rec
+
+
+def trainval_prod(attn_records, lse_records, dq_records, dkv_records, conv_records, norm_records, work):
+    """(b) of phase 19: the production tool's stage functions at full XL-2
+    width in bf16 under dots (TRAINVAL_PROD_ARGV): its teacher assert holds,
+    every curve and eval figure is finite, and every K1, K2, K3 and K5 shape
+    the stages launch is one the kernel phases held. Returns its record."""
+    import copy
+
+    import torch
+
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+    from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
+    from instarevive_tpu_torch.tools import train_validation as TV
+    from instarevive_tpu_torch.tools import train_validation_prod as TVP
+
+    import math
+
+    stats_records, apply_records, up_records = norm_records
+    bf16 = lambda recs, *extra: {(*r["shape"], r["masked"], *extra) for r in recs if r["dtype"] == "bf16"}  # noqa: E731
+    nhwc = lambda recs: {(*r["shape"], r["dtype"]) for r in recs}  # noqa: E731
+    held = {A.flash_attention: (bf16(attn_records, False) | bf16(lse_records, True),
+                                "(B, H, Nq, Nk, D, masked, with log-sum-exp)"),
+            A.flash_dq: (bf16(dq_records), "(B, H, Nq, Nk, D, masked)"),
+            A.flash_dkv: (bf16(dkv_records), "(B, H, Nq, Nk, D, masked)"),
+            gn_silu_conv3x3: (nhwc(conv_records), "(N, H, W, C, Co, dtype)"),
+            gn_affine: (nhwc(stats_records), "(N, H, W, C, dtype)"),
+            group_norm_silu: (nhwc(apply_records), "(N, H, W, C, dtype)"),
+            upsample2x_nearest: (nhwc(up_records), "(N, H, W, C, dtype)")}
+    args = TVP.parse_args(["--device", "cuda", "--out", os.path.join(work, "train_validation_prod.md"),
+                           *TRAINVAL_PROD_ARGV])
+    walls, snaps, out = {}, [], {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        snaps.append((name, all_counts()))
+        walls[name] = time.time()
+
+    def stages():
+        mark("build")
+        run = TVP.Run(TVP.geometry(False), "cuda", seed=args.seed)
+        mark("teacher")
+        curve_a, steps_a, _ = TVP.teacher_stage(run, args)
+        try:
+            TV.check_teacher(curve_a)
+        except AssertionError as e:
+            fail(f"phase 19, the production tool's teacher at {steps_a} steps: {e} ({curve_a})")
+        teacher = TVP.frozen_bf16(run.dit)
+        teacher_eps = run.eps(teacher)
+        mark("pairs")
+        pair_noise, pair_latent = TVP.pairs_stage(run, teacher_eps, args)
+        mark("dmd")
+        gen = TVP.load_f32(run.dit, teacher)
+        fake = copy.deepcopy(gen)
+        gen_state, fake_state = TVP.dmd_states(run, gen, fake, args)
+        curve_b, _ = TVP.dmd_stage(run, gen_state, fake_state, TVP.dmd_step_fn(run, gen, fake, teacher, args),
+                                   pair_noise, pair_latent, args)
+        del fake_state, fake
+        mark("eval")
+        held_noise = run.randn(args.held, run.size, run.size, TVP.CH)
+        held_tgt = TVP.held_targets(run, teacher_eps, held_noise, args.teacher_batch)
+        ema = TV.with_weights(gen, gen_state.ema_state_dict())
+        del gen_state
+        rows = [("init", teacher_eps), ("trained", run.eps(gen)), ("ema", run.eps(ema))]
+        results, niqe_teacher = TVP.evaluate(run, TVP.build_vae(run), rows, held_noise, held_tgt, args.maxt,
+                                             run.geo["block_size"])
+        mark("end")
+        out.update(curves={"teacher": curve_a, "dmd": curve_b}, steps={"teacher": steps_a, "dmd": args.dmd_steps},
+                   pairs=int(pair_noise.shape[0] * pair_noise.shape[1]), results=results, niqe_teacher=niqe_teacher)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, shapes = tally_held(held, stages, "production tool at XL-2")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    by_stage = stage_deltas(snaps[:-1], snaps[-1][1])
+    names = [name for name, _ in snaps]
+    stage_walls = {name: walls[names[i + 1]] - walls[name] for i, name in enumerate(names[:-1])}
+    figures = [v for curve in out["curves"].values() for point in curve for v in point[1:]]
+    figures += [v for row in out["results"].values() for v in row] + [out["niqe_teacher"]]
+    if not (out["curves"]["dmd"] and all(math.isfinite(v) for v in figures)):
+        fail(f"phase 19, production tool: a figure is not finite or no DMD metric was read: {out}")
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn_silu_conv3x3", "gn_stats_fold"):
+        if not sum(stage[name] for stage in by_stage.values()):
+            fail(f"phase 19, production tool: {name} was never launched")
+    rec = dict(argv=TRAINVAL_PROD_ARGV, walls_s=stage_walls, steps=out["steps"], pairs=out["pairs"],
+               s_per_step={k: stage_walls[k] / out["steps"][k] for k in ("teacher", "dmd")}, peak_gib=peak,
+               launches_by_stage=by_stage, teacher_curve=out["curves"]["teacher"], dmd_curve=out["curves"]["dmd"],
+               results=out["results"], niqe_teacher=out["niqe_teacher"],
+               shapes={k: {str(s): n for s, n in v.items()} for k, v in shapes.items()})
+    print(f"[trainval] production tool's stages at XL-2 (bf16, dots; {' '.join(TRAINVAL_PROD_ARGV)}): teacher loss "
+          f"{out['curves']['teacher'][0][1]:.4f} -> {out['curves']['teacher'][-1][1]:.4f} in {out['steps']['teacher']} "
+          f"steps (the tool's assert held); stages (s) " + ", ".join(f"{k} {v:.2f}" for k, v in stage_walls.items())
+          + f"; s a step: teacher {rec['s_per_step']['teacher']:.3f}, DMD {rec['s_per_step']['dmd']:.3f}; peak "
+          f"{peak:.2f} GiB; eval (latent PSNR, SSIM, pixel PSNR, SSIM, NIQE) {out['results']}, teacher NIQE "
+          f"{out['niqe_teacher']:.3f}; launches by stage {by_stage}", flush=True)
+    return rec
+
+
+def trainval_card_against_cpu(attn_records, lse_records, dq_records):
+    """(c) of phase 19: one teacher step and two DMD steps of the production
+    tool at DiT depth 2, full width, f32, on the card and on the CPU: the same
+    weights and draws (made on the CPU and handed in). Losses and metrics
+    relative to themselves, each gradient relative to its model's largest
+    magnitude, under TRAIN_F32_BOUND. The DMD steps' teacher holds bf16
+    weights and computes in f32 (as the f32 DiT does); DM is exercised in the
+    second step, once the fake score has moved."""
+    import copy
+
+    import torch
+
+    from instarevive_tpu_torch.nn.layers import set_compute_dtype
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.tools import train_validation as TV
+    from instarevive_tpu_torch.tools import train_validation_prod as TVP
+    from instarevive_tpu_torch.train.state import TrainState
+
+    geo = TVP.geometry(False)
+    geo["dit"] = dict(geo["dit"], depth=2)
+    args = TVP.parse_args(["--device", "cuda"])
+    runs = {dev: TVP.Run(geo, dev, seed=0, dtype=None) for dev in ("cpu", "cuda")}
+    start = copy.deepcopy(runs["cpu"].dit.state_dict())
+    g = torch.Generator().manual_seed(19)
+    bt, bd, s = args.teacher_batch, args.dmd_batch, geo["size"]
+    x0 = TVP.synth_latents(g, bt, s)
+    t = torch.randint(0, 1000, (bt,), generator=g)
+    noise = torch.randn(x0.shape, generator=g)
+    batch = {"noise": torch.randn(bd, s, s, 4, generator=g), "latent": torch.tanh(torch.randn(bd, s, s, 4, generator=g))}
+    shape = (bd, s, s, 4)
+    draws = [{"t_dm": torch.randint(20, 979, (bd,), generator=g), "noise_dm": torch.randn(shape, generator=g),
+              "t_fake": torch.randint(0, 1000, (bd,), generator=g), "noise_fake": torch.randn(shape, generator=g)}
+             for _ in range(2)]
+    held = {(*r["shape"], r["masked"], lse) for recs, lse in ((attn_records, False), (lse_records, True))
+            for r in recs if r["dtype"] == "f32"}
+    held_bwd = {(*r["shape"], r["masked"]) for r in dq_records if r["dtype"] == "f32"}
+    out = {}
+    for dev, run in runs.items():
+        run.dit.load_state_dict(start)
+        to = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+
+        def steps():
+            kept = KeptGradients(TrainState.create(run.dit, TV.adamw(args.teacher_lr, 200, 1.0, torch.bfloat16),
+                                                   ema=False))
+            loss = TV.teacher_step(kept, run.eps(run.dit), run.sched, x0.to(dev), t.to(dev), noise.to(dev),
+                                   y=run.zeros_y(bt))
+            run.dit.load_state_dict(start)  # the DMD steps start from the same weights as the teacher step
+            teacher = set_compute_dtype(TVP.frozen_bf16(run.dit), torch.float32)
+            gen = TVP.load_f32(run.dit, teacher)
+            fake = copy.deepcopy(gen)
+            gen_state, fake_state = TVP.dmd_states(run, gen, fake, args)
+            step = TVP.dmd_step_fn(run, gen, fake, teacher, args)
+            metrics, grads = [], {}
+            for d in draws:
+                grads = {}
+                m = step(gen_state, fake_state, to(batch), None, {"y": run.zeros_y(bd)}, draws=to(d), keep_grads=grads)
+                metrics.append({k: float(v) for k, v in m.items()})
+            return float(loss), kept.grads, metrics, {k: [x.cpu() for x in v] for k, v in grads.items()}
+
+        if dev == "cuda":
+            reset_counts()
+            out[dev], _ = tally_held({A.flash_attention: (held, "(B, H, Nq, Nk, D, masked, with log-sum-exp)"),
+                                      A.flash_dq: (held_bwd, "(B, H, Nq, Nk, D, masked)")}, steps,
+                                     "production tool f32 steps at depth 2")
+            launches = f32_launches(A.flash_attention.launches, 0, "phase 19, f32 steps at depth 2")
+        else:
+            out[dev] = steps()
+    (l_cpu, tg_cpu, m_cpu, g_cpu), (l_gpu, tg_gpu, m_gpu, g_gpu) = out["cpu"], out["cuda"]
+    errs = {"teacher loss": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "teacher grad": max((a - b).abs().max().item() for a, b in zip(tg_gpu, tg_cpu))
+            / max(b.abs().max().item() for b in tg_cpu)}
+    for i, (mc, mg) in enumerate(zip(m_cpu, m_gpu)):
+        errs.update({f"dmd step {i + 1} {k}": abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc})
+    for which in ("generator", "fake"):
+        top = max(x.abs().max().item() for x in g_cpu[which])
+        errs[f"dmd step 2 grad {which}"] = max((a - b).abs().max().item() for a, b in zip(g_gpu[which], g_cpu[which])) / top
+    print(f"[trainval] one teacher step (batch {bt}) and two DMD steps (batch {bd}) of the production tool at depth 2, "
+          f"full width, f32, card against CPU (same weights and draws): CPU loss {l_cpu:.6f}, DMD metrics {m_cpu}; "
+          f"relative differences " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {TRAIN_F32_BOUND:.0e}); card launches {launches}", flush=True)
+    if m_cpu[1]["dm"] < 1e-8:
+        fail("phase 19, card against CPU: the distribution-matching term is not exercised")
+    if not max(errs.values()) <= TRAIN_F32_BOUND:
+        fail(f"phase 19: the production tool's f32 steps on the card differ from the CPU by {errs}")
+    del runs
+    return dict(errs, f32_launches=launches)
+
+
+def trainval_phase(d32_held, attn_records, lse_records, dq_records, dkv_records, conv_records, norm_records, work):
+    """Phase 19: the training-validation tools (``trainval_toy``,
+    ``trainval_prod``, ``trainval_card_against_cpu``)."""
+    import torch
+
+    toy = trainval_toy(d32_held, work)
+    torch.cuda.empty_cache()
+    prod = trainval_prod(attn_records, lse_records, dq_records, dkv_records, conv_records, norm_records, work)
+    torch.cuda.empty_cache()
+    return {"toy": toy, "prod": prod, "card_vs_cpu": trainval_card_against_cpu(attn_records, lse_records, dq_records)}
+
+
+def d32_entries(fwd_records, dq_records, dkv_records, toy, fwd_build, bwd_build):
+    """K1's and K2's f32 forms at head dim 32 in the ``kernels`` line: the
+    toy's self-attention at top level, every head-dim-32 shape below;
+    ``launches`` is the toy tool's run in phase 19 (by stage beside)."""
+    out = []
+    for name, key, replaces, records, build in (
+            ("flash_attn_fwd_f32_d32", "flash_attn_fwd", "instarevive_tpu/ops/attention.py:63", fwd_records,
+             {k: v for k, v in fwd_build.items() if k.startswith("f32_d32")}),
+            ("flash_attn_bwd_dq_f32_d32", "flash_attn_bwd_dq", "instarevive_tpu/ops/attention.py:127", dq_records,
+             {k: v for k, v in bwd_build.items() if k.startswith(("f32_dq_d32", "f32_d32"))}),
+            ("flash_attn_bwd_dkv_f32_d32", "flash_attn_bwd_dkv", "instarevive_tpu/ops/attention.py:166", dkv_records,
+             {k: v for k, v in bwd_build.items() if k.startswith(("f32_dkv_d32", "f32_d32"))})):
+        main_rec = next(r for r in records if r["name"] == "toy_self")
+        entry = {"name": name, "route": "cuda",
+                 "source": "instarevive_tpu_torch/csrc/" + ("flash_attn_fwd.cu" if "fwd" in name else "flash_attn_bwd.cu"),
+                 "replaces": replaces, "launches": toy["launches"][key],
+                 "launches_toy_by_stage": {stage: c[key] for stage, c in toy["launches_by_stage"].items()},
+                 "max_abs_err": max(r["max_abs_err"] for r in records), "max_rel_err": max(r["max_rel_err"] for r in records),
+                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+                 "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"], "main_shape": main_rec["shape"],
+                 "shapes": records, "build": build}
+        if name == "flash_attn_fwd_f32_d32":
+            entry.update(ms_with_lse=main_rec["ms_with_lse"], bound_with_lse_ms=main_rec["bound_with_lse_ms"],
+                         lse_max_abs_err=max(r["lse_max_abs_err"] for r in records))
+        out.append(entry)
+    return out
+
+
 def bwd_pass(build, pass_name, form=""):
     """One backward pass's part of ``bwd_build_report``: its registers,
     spills, shared memory and blocks an SM at each head dim, and the form's
@@ -3955,6 +4377,7 @@ def main() -> None:
     attn_records = kernel_phase()
     dq_records, dkv_records, lse_records = backward_phase()
     d64_fwd, d64_dq, d64_dkv, held64 = d64_phase()
+    d32_fwd, d32_dq, d32_dkv, held32 = d32_phase()
     planes_records = planes_phase()
     conv_records = conv_phase()
     conv_grads = conv_grad_phase()
@@ -3990,6 +4413,9 @@ def main() -> None:
     aux = aux_phase(cfg, conv_records, attn_records, filter_records)
     torch.cuda.empty_cache()
     parallel = parallel_phase(conv_records, swin_records, attn_records)
+    torch.cuda.empty_cache()
+    trainval = trainval_phase(held32, attn_records, lse_records, dq_records, dkv_records, conv_records,
+                              (stats_records, apply_records, up_records), work)
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -4029,6 +4455,7 @@ def main() -> None:
                      bwd_build, {"dmd_f32_step": timing["card_vs_cpu"]["f32_launches"],
                                  "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]},
                      conv_records, conv_build, conv_grads),
+        *d32_entries(d32_fwd, d32_dq, d32_dkv, trainval["toy"], fwd_build, bwd_build),
     ]
     fwd["launches_depth_call"] = {t: c["flash_attn_fwd"] for t, c in aux["launches"]["depth"].items()}
     # phase 18's runs by mode: one NCCL rank (the main path's shapes) and two gloo ranks (the new shapes), by K1 shape
@@ -4049,7 +4476,8 @@ def main() -> None:
             entry["launches_sample_2k_call"] = sample_2k_counts[entry["name"]]
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
                       "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
-                      "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux, "parallel": parallel}),
+                      "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux, "parallel": parallel,
+                      "trainval": trainval}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

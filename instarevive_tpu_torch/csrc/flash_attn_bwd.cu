@@ -35,8 +35,9 @@
 // version.
 //
 // Two forms, each templated on the head dim and instantiated at 64 (the UNet
-// and ControlNet of the LDM trainer) and 72 (the DiT); head dim 512 takes no
-// gradient:
+// and ControlNet of the LDM trainer) and 72 (the DiT), the f32 form also at 32
+// (the toy DiT of tools/train_validation.py: one 128-byte box a row, output
+// products m64 n32 k8); head dim 512 takes no gradient:
 // * bf16 (namespace bwd16): wgmma on TMA-fed tiles, the design of the forward's
 //   head-dim-64/72 body (flash_attn_fwd.cu, namespace hopper). A warpgroup
 //   owns 64 rows. The block's row operands land once by TMA; the column
@@ -431,7 +432,7 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace bwd16
 
 // ---------------------------------------------------------------------------
-// f32, head dims 64 and 72: split-tf32 wgmma on TMA-fed tiles, the same body.
+// f32, head dims 32, 64 and 72: split-tf32 wgmma on TMA-fed tiles, the same body.
 
 namespace bwd_tf32 {
 
@@ -452,7 +453,7 @@ constexpr int BC = 32;      // columns a streamed tile
 // below that (a pass over a few keys: 4 or 77 for the dk/dv pass), as the launcher picks.
 template <int D, bool KV, int WG>
 struct Tile {
-  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  static_assert(D == 32 || D == 64 || D == 72, "head dims 32, 64 and 72");
   static_assert(WG == 1 || WG == 2, "one or two warpgroups");
   static constexpr int kWarpgroups = WG, kStages = WG == 2 ? 1 : 2;  // the column ring's stages
   static constexpr int kThreads = 128 * kWarpgroups, BR = 64 * kWarpgroups;
@@ -823,7 +824,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
 }
 
 // The f32 form of one pass (kv = 0: dq into out1; kv = 1: dk into out1, dv into
-// out2) at head dim d (64 or 72) on the split planes of tf32_planes.cu: planes
+// out2) at head dim d (32, 64 or 72) on the split planes of tf32_planes.cu: planes
 // holds Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, d) f32), then
 // K^T hi, K^T lo for dq, or Q^T hi, Q^T lo, dO^T hi, dO^T lo for dk/dv ((bh, d,
 // n rounded up to a multiple of 8) f32). Returns a cudaError_t.
@@ -831,6 +832,9 @@ extern "C" int flash_attn_bwd_f32(const void* const* planes, const void* mask, c
                                   void* out1, void* out2, int kv, int bh, int heads, int nq, int nk, int d,
                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32)
+    return static_cast<int>(kv ? bwd_tf32::launch<32, true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                               : bwd_tf32::launch<32, false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
   if (d == 64)
     return static_cast<int>(kv ? bwd_tf32::launch<64, true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
                                : bwd_tf32::launch<64, false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
@@ -852,6 +856,7 @@ extern "C" int flash_attn_bwd_occupancy(int d, int kv, int* smem_bytes, int* blo
 
 // The same for the f32 form's block of wg (1 or 2) warpgroups.
 extern "C" int flash_attn_bwd_occupancy_f32(int d, int kv, int wg, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 32) return static_cast<int>(bwd_tf32::occupancy<32>(kv, wg, smem_bytes, blocks_per_sm));
   if (d == 64) return static_cast<int>(bwd_tf32::occupancy<64>(kv, wg, smem_bytes, blocks_per_sm));
   if (d == 72) return static_cast<int>(bwd_tf32::occupancy<72>(kv, wg, smem_bytes, blocks_per_sm));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -53,8 +53,9 @@
 //   the other's, so both hold the same S and run the same online softmax.
 //   O += P.V is m64 n256 k16 with P from registers and the warpgroup's four
 //   V boxes read as one MN-major operand.
-// * f32, head dims 64 and 72 (namespace fwd_tf32; every f32 trainer's DiT,
-//   UNet and ControlNet): the bf16 form's design on the tensor cores' TF32
+// * f32, head dims 32, 64 and 72 (namespace fwd_tf32; every f32 trainer's DiT,
+//   UNet and ControlNet, and at 32 the toy DiT of tools/train_validation.py,
+//   hidden 128 over 4 heads): the bf16 form's design on the tensor cores' TF32
 //   path, with f32 accuracy kept by splitting. The launcher is handed each
 //   operand as two planes made by the prepass (tf32_planes.cu), hi =
 //   tf32(x) and lo = tf32(x - hi), and every product is hi.hi + hi.lo +
@@ -66,8 +67,9 @@
 //   planes and V's two transposed planes (a tf32 operand of wgmma is read
 //   from shared memory K-major only, so V, the B of P.V whose K is the key,
 //   comes transposed, (bh, d, nk rounded up to 8)). Head dims run in 32-f32
-//   boxes of 128-byte rows under the 128-byte swizzle, at d = 72 plus an
-//   8-f32 tail box of 32-byte rows under the 32-byte swizzle; a k-step of
+//   boxes of 128-byte rows under the 128-byte swizzle (one box at d = 32,
+//   whose P.V is m64 n32 k8), at d = 72 plus an 8-f32 tail box of 32-byte
+//   rows under the 32-byte swizzle; a k-step of
 //   tf32 is 8 values, 32 bytes, as a bf16 k-step, so the descriptors step as
 //   the bf16 form's. S = Q.K^T is three m64 n64 k8 ss products a k-step; the
 //   online softmax stays f32 in registers; P is split in registers into
@@ -621,7 +623,7 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace d512
 
 // ---------------------------------------------------------------------------
-// f32, head dims 64 and 72: split-tf32 wgmma on TMA-fed tiles.
+// f32, head dims 32, 64 and 72: split-tf32 wgmma on TMA-fed tiles.
 
 namespace fwd_tf32 {
 
@@ -638,7 +640,7 @@ constexpr int kStages = 2;   // the K/V ring: tiles in flight
 // bytes (the 128-byte swizzle's atom is 8 rows; the 32-byte one's 256 bytes).
 template <int D>
 struct Tile {
-  static_assert(D == 64 || D == 72, "head dims 64 and 72");
+  static_assert(D == 32 || D == 64 || D == 72, "head dims 32, 64 and 72");
   static constexpr int kWarpgroups = 2, kThreads = 128 * kWarpgroups, BQ = 64 * kWarpgroups;
   static constexpr int kBoxes = D / 32;       // 128-byte-row boxes of a row
   static constexpr bool kTail = D % 32 != 0;  // head dims 64-71 in a box of their own
@@ -1106,7 +1108,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The f32 forms on split planes (tf32_planes.cu). At head dims 64 and 72
+// The f32 forms on split planes (tf32_planes.cu). At head dims 32, 64 and 72
 // planes holds the pointers Q hi, Q lo, K hi, K lo ((bh, n, d) f32) and V^T
 // hi, V^T lo ((bh, d, nk rounded up to a multiple of 8) f32); at head dim 512
 // Q raw ((bh, nq, d) f32), K hi, K lo, V^T hi, V^T lo, and lse must be null.
@@ -1114,6 +1116,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
 extern "C" int flash_attn_fwd_f32(const void* const* planes, const void* mask, void* out, void* lse, int bh,
                                   int heads, int nq, int nk, int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32) return fwd_tf32::launch<32>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 64) return fwd_tf32::launch<64>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 72) return fwd_tf32::launch<72>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 512 && lse == nullptr) return d512_tf32::launch(planes, mask, out, bh, heads, nq, nk, scale, s);
@@ -1130,8 +1133,9 @@ extern "C" int flash_attn_fwd_occupancy(int d, int* smem_bytes, int* blocks_per_
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same for the f32 form at head dim 64, 72 or 512.
+// The same for the f32 form at head dim 32, 64, 72 or 512.
 extern "C" int flash_attn_fwd_occupancy_f32(int d, int* smem_bytes, int* blocks_per_sm) {
+  if (d == 32) return fwd_tf32::occupancy<32>(smem_bytes, blocks_per_sm);
   if (d == 64) return fwd_tf32::occupancy<64>(smem_bytes, blocks_per_sm);
   if (d == 72) return fwd_tf32::occupancy<72>(smem_bytes, blocks_per_sm);
   if (d == 512) return d512_tf32::occupancy(smem_bytes, blocks_per_sm);

@@ -12,9 +12,10 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   memory with an online softmax, so the N x N scores never reach device
   memory; see the source for what bounds it on the H100 and how its design
   answers that. On a CPU tensor the wrapper runs ``sdpa``; on a CUDA tensor
-  it launches the kernel or raises. When an input requires grad (head dim 64 or 72)
-  it goes through a ``torch.autograd.Function``: the forward kernel also
-  writes the row log-sum-exp, and the backward is the two kernels of
+  it launches the kernel or raises. When an input requires grad (head dim 64
+  or 72, in f32 also 32) it goes through a ``torch.autograd.Function``: the
+  forward kernel also writes the row log-sum-exp, and the backward is the two
+  kernels of
   ``csrc/flash_attn_bwd.cu`` (``flash_dq``, ``flash_dkv``), which replace
   ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (through ``_flash_vjp_bwd``).
   ``di = rowsum(dO * O)`` is two plain elementwise torch ops in
@@ -22,8 +23,8 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
 * ``flash_lse_plain`` and ``flash_backward_plain`` repeat the kernels'
   arithmetic from the saved log-sum-exp in plain torch; the tests and the
   smoke run hold the kernels against them.
-* f32, every head dim: the kernels run every product on the tensor cores as
-  three tf32 products (hi.hi + hi.lo + lo.hi) of operands split into
+* f32, every head dim (32, 64, 72 and 512; bf16 takes 64, 72 and 512): the
+  kernels run every product on the tensor cores as three tf32 products (hi.hi + hi.lo + lo.hi) of operands split into
   hi = tf32(x) and lo = tf32(x - hi), which keeps about 21 bits of each
   product. The prepass ``ops/tf32_planes.tf32_planes`` (with its own
   launch count) writes those planes before each launch, also transposed for a
@@ -31,8 +32,8 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   K-major only). At
   head dim 512 the forward reads Q raw and splits it in registers (its
   planes would not fit beside the rest), so it takes two prepass launches (K
-  natural, V transposed) where head dims 64 and 72 take three. The kernels'
-  sums are f32 and torch's own TF32 stays off, so the f32 bounds are those of
+  natural, V transposed) where head dims 32, 64 and 72 take three. The
+  kernels' sums are f32 and torch's own TF32 stays off, so the f32 bounds are those of
   an f32 kernel.
 * ``attention``: the dispatch. Every unbiased attention on a CUDA tensor goes
   to the kernels, at every size; biased attention and all CPU work go to
@@ -56,8 +57,10 @@ from instarevive_tpu_torch.ops.cuda_build import load_library
 from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 72, 512)  # the forward kernel's instantiations: UNet/ControlNet heads, DiT heads, the VAE mid-block
-GRAD_HEAD_DIMS = (64, 72)   # the backward kernels' instantiations
+# The kernels' instantiations by dtype: the UNet/ControlNet heads (64), the DiT's (72), the VAE mid block (512,
+# forward only) and, in f32 only, the toy DiT of tools/train_validation.py (32, hidden 128 over 4 heads)
+HEAD_DIMS = {torch.bfloat16: (64, 72, 512), torch.float32: (32, 64, 72, 512)}       # the forward kernel
+GRAD_HEAD_DIMS = {torch.bfloat16: (64, 72), torch.float32: (32, 64, 72)}             # the backward kernels
 DEAD_ROW = -1e29        # a log-sum-exp below this flags a row whose keys were all masked
 
 
@@ -112,8 +115,8 @@ def _check(q, k, v, kv_mask):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or f32 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS[q.dtype]} in {q.dtype}, got {d}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on one device")
     if nq == 0 or nk == 0 or b * h > 65535:
@@ -161,8 +164,9 @@ def _tally(fn, key) -> None:
 
 def _backward_args(q, k, v, kv_mask, lse, di, do):
     b, h, nq, d = q.shape
-    if d not in GRAD_HEAD_DIMS:
-        raise ValueError(f"the flash-attention backward supports head dims {GRAD_HEAD_DIMS}, got {d}")
+    if d not in GRAD_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"the flash-attention backward supports head dims {GRAD_HEAD_DIMS[q.dtype]} in {q.dtype}, "
+                         f"got {d}")
     for name, t, shape in (("do", do, q.shape), ("lse", lse, (b, h, nq)), ("di", di, (b, h, nq))):
         if t.shape != shape or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {tuple(shape)} CUDA tensor, got {tuple(t.shape)}")
@@ -313,15 +317,17 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention. q: (B,H,Nq,D), k/v: (B,H,Nk,D) in bf16 or f32 with D
-    in ``HEAD_DIMS``; kv_mask: (B,Nk) bool. Differentiable in q, k, v at the
-    head dims of ``GRAD_HEAD_DIMS`` (the backward kernels); head dim 512 has no
-    backward and raises if an input requires grad."""
+    in ``HEAD_DIMS`` of their dtype; kv_mask: (B,Nk) bool. Differentiable in
+    q, k, v at the head dims of ``GRAD_HEAD_DIMS`` of their dtype (the
+    backward kernels); head dim 512 has no backward and raises if an input
+    requires grad."""
     if not q.is_cuda:
         return sdpa(q, k, v, kv_mask=kv_mask, scale=scale)
     d = _check(q, k, v, kv_mask)[-1]
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if needs_grad and d not in GRAD_HEAD_DIMS:
-        raise RuntimeError(f"flash_attention has no backward at head dim {d}; call it under torch.no_grad()")
+    if needs_grad and d not in GRAD_HEAD_DIMS[q.dtype]:
+        raise RuntimeError(f"flash_attention has no backward at head dim {d} in {q.dtype}; "
+                           "call it under torch.no_grad()")
     if kv_mask is not None:
         kv_mask = kv_mask.contiguous()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)

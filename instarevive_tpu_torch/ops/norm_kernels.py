@@ -125,6 +125,13 @@ def f32_vector(t: torch.Tensor, c: int, like: torch.Tensor, what: str) -> torch.
     return t.float().contiguous()  # no copy when the caller keeps it in f32
 
 
+def _tally(fn, x: torch.Tensor) -> None:
+    """One launch of ``fn`` on x (N, H, W, C) into ``fn.shapes`` when that is a dict."""
+    if fn.shapes is not None:
+        key = (*x.shape, "bf16" if x.dtype == torch.bfloat16 else "f32")
+        fn.shapes[key] = fn.shapes.get(key, 0) + 1
+
+
 def raise_on_error(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -156,6 +163,7 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         )
     raise_on_error(err, "gn_stats_fold")
     gn_affine.launches += 1
+    _tally(gn_affine, x)
     return a, b
 
 
@@ -178,6 +186,7 @@ def affine_silu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, silu: bool) -
         )
     raise_on_error(err, "gn_apply")
     group_norm_silu.launches += 1
+    _tally(group_norm_silu, x)
     return out
 
 
@@ -197,6 +206,7 @@ def _launch_upsample2x(x: torch.Tensor) -> torch.Tensor:
                                     torch.cuda.current_stream().cuda_stream)
     raise_on_error(err, "upsample2x")
     upsample2x_nearest.launches += 1
+    _tally(upsample2x_nearest, x)
     return out
 
 
@@ -238,3 +248,5 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 gn_affine.launches = 0
 group_norm_silu.launches = 0
 upsample2x_nearest.launches = 0
+# set to a dict to tally launches by (N, H, W, C, "bf16" or "f32") of the input
+gn_affine.shapes = group_norm_silu.shapes = upsample2x_nearest.shapes = None

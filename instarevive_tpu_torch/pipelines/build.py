@@ -178,13 +178,11 @@ def load_state_dicts(pipe: RestorationPipeline, swinir: Optional[Mapping] = None
     return pipe
 
 
-def load_checkpoint(path: str) -> Mapping[str, torch.Tensor]:
-    """A state dict saved with ``torch.save``, unwrapped from its container as
-    the JAX CLI unwraps it (``instarevive_tpu/train/checkpoint.py``): the first
-    of ``state_dict``, ``state_dict_ema``, ``model`` and ``module`` that the
-    file holds as a mapping. Tensors only (``weights_only=True``); a file that
-    pickles other objects (a Lightning checkpoint's config) loads in full only
-    under ``IR_UNSAFE_TORCH_LOAD=1``, since that runs code from the file."""
+def torch_load_safe(path: str):
+    """What ``torch.save`` wrote to ``path``, on the CPU. Tensors only
+    (``weights_only=True``); a file that pickles other objects (a Lightning
+    checkpoint's config) loads in full only under ``IR_UNSAFE_TORCH_LOAD=1``,
+    since that runs code from the file."""
     try:
         obj = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as e:
@@ -195,6 +193,16 @@ def load_checkpoint(path: str) -> Mapping[str, torch.Tensor]:
                 "IR_UNSAFE_TORCH_LOAD=1 only for checkpoints you trust."
             ) from e
         obj = torch.load(path, map_location="cpu", weights_only=False)
+    return obj
+
+
+def load_checkpoint(path: str) -> Mapping[str, torch.Tensor]:
+    """A state dict saved with ``torch.save`` (``torch_load_safe``), unwrapped
+    from its container as the JAX CLI unwraps it
+    (``instarevive_tpu/train/checkpoint.py``): the first of ``state_dict``,
+    ``state_dict_ema``, ``model`` and ``module`` that the file holds as a
+    mapping."""
+    obj = torch_load_safe(path)
     if isinstance(obj, Mapping):
         for key in ("state_dict", "state_dict_ema", "model", "module"):
             if isinstance(obj.get(key), Mapping):

@@ -69,13 +69,23 @@ D64_CASES = [
     ("mid_cross77", (2, 20, 64, 77), None),
     ("ragged_q1000_k40_masked", (1, 5, 1000, 40), (33,)),  # ragged Nq, Nk under one key tile
 ]
+# The toy DiT of tools/train_validation.py at its defaults (hidden 128 over 4 heads, 32x32 images in 4x4 patches,
+# batch 64, a 4-token zero caption), f32 only (no bf16 form at head dim 32): its self-attention, its cross-attention
+# over the 4 caption keys (one dk/dv block a head walks the queries), and a ragged masked shape with a sample whose
+# keys are all masked (chip_smoke.py's head-dim-32 phase): (name, (B, H, Nq, Nk), keys kept per sample or None)
+D32_CASES = [
+    ("toy_self", (64, 4, 64, 64), None),
+    ("toy_cross", (64, 4, 64, 4), None),
+    ("ragged_masked", (3, 4, 77, 45), (13, 45, 0)),
+]
 REL_BOUNDS = {"bf16": 1e-2, "f32": 2e-5}  # as chip_smoke.py's BACKWARD_BOUNDS, of each output's largest magnitude
 PEAK_BYTES, PEAK_BF16, PEAK_TF32 = 3.35e12, 989e12, 495e12
 
 
 def cases(dims):
     """(name, (B, H, Nq, Nk, D), kept) of both lists at the head dims asked for."""
-    every = BACKWARD_CASES + [(name, (*shape, 64), kept) for name, shape, kept in D64_CASES]
+    every = BACKWARD_CASES + [(name, (*shape, d), kept) for d, more in ((64, D64_CASES), (32, D32_CASES))
+                              for name, shape, kept in more]
     return [case for case in every if case[1][4] in dims]
 
 
@@ -126,7 +136,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", action="append", default=[], help="NAME=PATH of another flash_attn_bwd.cu")
     ap.add_argument("--unchecked", action="append", default=[], help="NAME=PATH of an ablation, timed only")
-    ap.add_argument("--dims", default="72,64", help="head dims of the cases to hold and time")
+    ap.add_argument("--dims", default="72,64", help="head dims of the cases to hold and time (32: f32 only)")
     ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)

@@ -74,6 +74,9 @@ F32_SHAPES = [
     ("unet_mid_cross4", (2, 20, 64, 4, 64), None),
     ("vae_mid_dmd_encode", (2, 1, 4096, 4096, 512), None),
     ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0)),
+    # head dim 32 (f32 only): the toy DiT of tools/train_validation.py, its self-attention and its 4 caption keys
+    ("toy_self", (64, 4, 64, 64, 32), None),
+    ("toy_cross", (64, 4, 64, 4, 32), None),
 ]
 HOST_SHAPES = [("unet_mid_cross4", (2, 20, 64, 4, 64)), ("d72_q64_k77", (2, 16, 64, 77, 72))]
 BOUNDS = {"bf16": (1e-2, 2e-2, 1e-3), "f32": (1e-4, 1e-4, 1e-4)}  # as chip_smoke.py: absolute, of max|ref|, of the lse
@@ -146,7 +149,7 @@ def main(argv=None) -> None:
             occupancy = lib.flash_attn_fwd_occupancy_f32
             occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
             smem, blocks = ctypes.c_int(), ctypes.c_int()
-            split[name] = (fn, {d for d in (64, 72, 512) if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) == 0})
+            split[name] = (fn, {d for d in (32, 64, 72, 512) if occupancy(d, ctypes.byref(smem), ctypes.byref(blocks)) == 0})
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -158,7 +161,7 @@ def main(argv=None) -> None:
         v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
         mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
         out = torch.empty_like(q)
-        lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS else None  # none at 512
+        lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS[dtype] else None  # none at 512
         keys = b * nk if mask is None else int(mask.sum().item())
         planes = None
         if f32:  # made once: the kernels' figures leave the prepass out; at 512 Q goes raw

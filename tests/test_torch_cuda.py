@@ -171,7 +171,7 @@ def test_flash_attention_f32_d512_repeats_its_bits(cuda):
 def test_flash_attention_forward_library_builds_without_a_spill(cuda, tmp_path):
     """ptxas's resource lines for every kernel of csrc/flash_attn_fwd.cu,
     compiled afresh with the port's flags: the bf16 head-dim-512 kernel and
-    every f32 form (split-tf32 at 64, 72 and 512) spill nothing."""
+    every f32 form (split-tf32 at 32, 64, 72 and 512) spill nothing."""
     import re
     import subprocess
 
@@ -183,7 +183,7 @@ def test_flash_attention_forward_library_builds_without_a_spill(cuda, tmp_path):
     kernels = re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S)
     checked = {name: int(re.search(r"(\d+) bytes spill stores", body).group(1)) for name, body in kernels
                if re.search(r"d5126kernel|fwd_tf326kernel|d512_tf326kernel", name)}
-    assert len(checked) == 4 and any("d512_tf32" in name for name in checked)
+    assert len(checked) == 5 and any("d512_tf32" in name for name in checked)
     assert not any(checked.values()), checked
 
 
@@ -416,6 +416,71 @@ def test_flash_f32_edges(cuda, b, h, nq, nk, lens, d):
         if lens is not None and 0 in lens:
             assert not got[0][lens.index(0)].any()
         assert all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(qn, k, v, mask, out, lse, don, scale)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,nq,nk,lens",
+    [
+        (64, 4, 64, 64, None),          # the toy DiT's self-attention (tools/train_validation.py at its defaults)
+        (64, 4, 64, 4, None),           # its cross-attention over 4 zero caption keys: one dk/dv block a head
+        (3, 4, 77, 45, [13, 45, 0]),    # ragged Nq and Nk, masked keys, a sample whose keys are all masked
+    ],
+)
+def test_flash_f32_head_dim_32_matches_plain(cuda, b, h, nq, nk, lens):
+    """K1's f32 form at head dim 32 without and with the log-sum-exp, and
+    K2's f32 dq and dk/dv passes, against sdpa, flash_lse_plain and
+    flash_backward_plain under the f32 bounds of head dims 64 and 72; the same
+    bits twice; a launch of each kernel a call."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    d = 32
+    q, k, v, do, mask = _backward_inputs(cuda, torch.float32, b, h, nq, nk, d, lens, seed=32)
+    v = v.tanh()
+    scale = d**-0.5
+    fwd = A.flash_attention.launches
+    plain = A._forward(q, k, v, mask, scale, want_lse=False)[0]
+    out, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+    assert A.flash_attention.launches == fwd + 2
+    torch.cuda.synchronize()
+    ref = sdpa(q, k, v, kv_mask=mask, scale=scale)
+    assert torch.equal(out, plain)
+    assert (out - ref).abs().max().item() <= min(BOUNDS[torch.float32], REL_BOUNDS[torch.float32] * ref.abs().max().item())
+    assert (lse - flash_lse_plain(q, k, mask, scale)).abs().max().item() <= 1e-4
+    if lens is not None and 0 in lens:
+        assert torch.all(lse[lens.index(0)] == NEG_INF)
+    before = (A.flash_dq.launches, A.flash_dkv.launches)
+    got = A.flash_backward(q, k, v, mask, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (A.flash_dq.launches, A.flash_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = A.flash_backward_plain(q, k, v, mask, out, lse, do, scale)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b_.shape and torch.isfinite(a).all(), name
+        assert (a - b_).abs().max().item() <= BACKWARD_BOUNDS[torch.float32] * b_.abs().max().item(), name
+    assert all(torch.equal(x, y) for x, y in zip(got, A.flash_backward(q, k, v, mask, out, lse, do, scale)))
+
+
+@pytest.mark.cuda
+def test_flash_attention_head_dim_32_is_f32_only(cuda):
+    """Head dim 32 has f32 kernels only: bf16 raises, naming its dtype, in
+    the forward and in the backward; nothing falls back to sdpa."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    q = torch.randn(2, 4, 64, 32, device=cuda, dtype=torch.bfloat16)
+    fwd = A.flash_attention.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.attention(q, q, q)
+    lse = torch.zeros(2, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.flash_dq(q, q, q, None, lse, lse, q, 32**-0.5)
+    assert A.flash_attention.launches == fwd
+    qf = q.float().requires_grad_(True)
+    out = flash_attention(qf, qf, qf)  # f32 takes a gradient at 32
+    assert A.flash_attention.launches == fwd + 1
+    (grad,) = torch.autograd.grad(out.sum(), qf)
+    assert torch.isfinite(grad).all()
 
 
 @pytest.mark.cuda
