@@ -14,7 +14,7 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    started together, and prints each build time with the registers and spills;
    for the forward (bf16 at head dims 64, 72 and 512; f32 at 32, 64, 72 and
    512 on split-tf32 products), the backward (both passes at head dims 64 and
-   72, bf16 and f32, and f32 at 32) and the fused convolution (bf16, and f32 on split-tf32
+   72, bf16 and f32, and f32 at 32 and 512) and the fused convolution (bf16, and f32 on split-tf32
    products) also their shared memory a block, blocks an SM and their count
    of wgmma (HGMMA) and TMA-load (UTMALDG) instructions (the f32 convolution's
    FFMA too), and fails if either count is 0 (for the head-dim-512 kernel,
@@ -126,11 +126,11 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    card against the CPU;
 15. runs the sampling CLI's functions at ``--config configs/pixart_kv2k.yaml
    --image_size 2048`` (the pipeline as ``inference.load_pipeline`` builds
-   it, bf16, seeded random weights): two prompts, 20 steps of
+   it, bf16, seeded random weights): two prompts, SAMPLE_2K_STEPS (10) steps of
    DPM-Solver++(2M) with the DiT at batch 4 on a 128 x 128 token grid (blocks
    0-13 over K and V compressed 2x a side by the depthwise conv), the decode
    at 2048x2048; images checked, every kernel's launches held, K1's by shape
-   (20 x 2 x 28 + 1 = 1,121: 280 at 16,384 keys, 280 at 4,096, 560 over the
+   (10 x 2 x 28 + 1 = 561: 140 at 16,384 keys, 140 at 4,096, 280 over the
    caption, 1 at head dim 512), every K1 and K3 shape one held in 3; wall a
    call, ms a step, peak memory; then a depth-cut full-width f32 DiT with
    every option on (``conv``, ``uniform`` and ``ave`` compression, qk-norm, a
@@ -196,11 +196,34 @@ PyTorch built for CUDA. It imports no JAX. In order it:
    ``TRAINVAL_BACKWARD_CASES``, K5 at a 512x512 decode at batch 2); then one
    teacher step and two DMD steps of that tool at depth 2, full width, f32,
    card against CPU (TRAIN_F32_BOUND). Each prints walls, steps/s or s a
-   step, launches and peak memory.
+   step, launches and peak memory;
+20. runs a gradient through the frozen f32 VAE (``vae_grad_phase``), the
+   path of the Reflow trainer's LPIPS term (``distill.reflow_loss`` with
+   ``lpips_fn(z, hq) = LPIPS(decode(z / 0.18215), hq).mean()``): (a) K2's f32
+   form at head dim 512 (dq; dk/dv) against ``flash_backward_plain`` at the
+   full run's decode (2, 1, 4096, 4096, 512), the cut run's (2, 1, 1024,
+   1024, 512) and a ragged shape with a sample whose keys are all masked
+   (BACKWARD_BOUNDS, the same bits twice), K1's f32 form there without and
+   with its log-sum-exp against ``sdpa`` and ``flash_lse_plain``, each timed
+   alone beside the prepass, the plain versions and
+   ``F.scaled_dot_product_attention``'s f32 backward (TF32 off), and K5's
+   input gradient (kernels forward, the plain composition backward) at the
+   decode's AttnBlock.norm and norm_out shapes; (b) ``configs/cldm.yaml`` at
+   full width in f32, batch 2 at 512x512: two Reflow steps with the LPIPS
+   term through the trainer's own task, backward to the ControlNet and the
+   UNet's decoder, then the optimizer; every loss, metric and gradient norm
+   finite, every kernel's launches as the configuration implies (K1 at head
+   dim 512 with its log-sum-exp and K2's dq and dk/dv there once a step,
+   beside the two encodes' K1), every shape held in 3, 11 or (a); walls and
+   peak memory; (c) the same step cut (UNet and ControlNet at
+   CLDM_SMALL_NET, the VAE with one res block a level, mid width 512) at
+   256x256 on the card and on the CPU, the same weights, pair and draws,
+   within CLDM_F32_BOUND.
 
-It then prints one JSON line describing the kernels, the card line again
-and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before that last line; without a CUDA device it exits 1 at once.
+Each phase prints its seconds (``[phase]`` lines, and ``phase_s`` in the JSON
+line). It then prints one JSON line describing the kernels, the card line
+again and, last, ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that last line; without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -419,6 +442,11 @@ def conv_phase():
     cases += [("ragged_" + "_".join(map(str, shape)), shape, ("f32",)) for shape in ragged]
     # phase 17: extract_features' f32 VAE encode of 8 images at 512^2
     cases += [(f"extract_b8_{hw}_{c}_{co}", (8, hw, hw, c, co), ("f32",)) for hw, c, co in dmd_encode]
+    # phase 20: the Reflow step's two f32 encodes and its decode under a gradient, at full width (2 x 512^2) and cut
+    # to one res block a level (2 x 256^2), where not above
+    f32_held = {shape for _, shape, dts in cases if "f32" in dts}
+    cases += [(f"{run}_{'_'.join(map(str, shape[1:]))}", shape, ("f32",)) for shape, run in vae_grad_shapes("conv")
+              if shape not in f32_held]
     records = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, (n, h, w, c, co), dts in cases:
@@ -568,6 +596,11 @@ def norm_phase():
         *((f"b2_{hw}_{c}", (2, hw, hw, c), ("bf16",)) for hw, c in
           ((64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128))),
     ]
+    # phase 20: every f32 moments shape (inside each fused conv, and the standalone norms, which also apply) of the
+    # Reflow step's encodes and its decode under a gradient, where not above
+    f32_held = {shape for _, shape, dts in shapes if "f32" in dts}
+    shapes += [(f"{run}_{shape[1]}_{shape[3]}", shape, ("f32",)) for shape, run in vae_grad_shapes("stats")
+               if shape not in f32_held]
     stats, applies, ups = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(5)
     for name, (n, h, w, c), dts in shapes:
@@ -642,8 +675,11 @@ def norm_phase():
                  ("b2_2k_1024_256", (2, 1024, 1024, 256)),
                  # a 512^2 decode at batch 2 (phase 19)
                  ("b2_64_512", (2, 64, 64, 512)), ("b2_128_512", (2, 128, 128, 512)), ("b2_256_256", (2, 256, 256, 256))]
-    for name, (n, h, w, c) in up_shapes:
-        x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(torch.bfloat16)
+    up_shapes = [(name, shape, "bf16") for name, shape in up_shapes]
+    # phase 20: the f32 decodes under a gradient
+    up_shapes += [(f"{run}_{shape[1]}_{shape[3]}", shape, "f32") for shape, run in vae_grad_shapes("up")]
+    for name, (n, h, w, c), dt in up_shapes:
+        x = torch.randn(n, h, w, c, device="cuda", generator=gen).to(getattr(torch, DTYPES[dt]))
         x_cl = x.permute(0, 3, 1, 2)
         out = upsample2x_nearest(x)
         torch.cuda.synchronize()
@@ -651,10 +687,11 @@ def norm_phase():
         ms = cuda_ms(lambda: upsample2x_nearest(x))
         plain_ms = cuda_ms(lambda: upsample2x_nearest_plain(x))
         lib_ms = cuda_ms(lambda: F.interpolate(x_cl, scale_factor=2, mode="nearest"))
-        b_ms, b_by = bound(5 * 2 * x.numel(), 0.0, "bf16")
-        rec = dict(name=name, dtype="bf16", shape=[n, h, w, c], max_abs_err=err, bound=0.0, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, gbytes_per_s=10 * x.numel() / ms / 1e6)
-        print(f"[upsample] {name:22s} bf16 N,H,W,C={n},{h},{w},{c} max_abs_err={err:.1e} (exact) ms={ms:.4f} "
+        moved = 5 * x.element_size() * x.numel()  # read once, written four times
+        b_ms, b_by = bound(moved, 0.0, dt)
+        rec = dict(name=name, dtype=dt, shape=[n, h, w, c], max_abs_err=err, bound=0.0, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, gbytes_per_s=moved / ms / 1e6)
+        print(f"[upsample] {name:22s} {dt:4s} N,H,W,C={n},{h},{w},{c} max_abs_err={err:.1e} (exact) ms={ms:.4f} "
               f"({rec['gbytes_per_s']:.0f} GB/s) plain_ms={plain_ms:.4f} interpolate_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if err != 0.0:
@@ -785,19 +822,24 @@ def bwd_build_report(log: str):
     report = ptxas_figures(log, r"bwd166kernelILi(\d+)ELb([01])E", pass_of)
     report.update(ptxas_figures(log, r"bwd_tf326kernelILi(\d+)ELb([01])ELi(\d)E",
                                 lambda m: f"f32_{pass_of(m)}_wg{m.group(3)}"))
+    report.update(ptxas_figures(log, r"bwd512_tf326kernelILb([01])E",
+                                lambda m: f"f32_{'dkv' if m.group(1) == '1' else 'dq'}_d512"))
     cases = [(d, kv) for kv in (0, 1) for d in (64, 72)]
     report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy", cases,
                                     lambda a: f"{'dkv' if a[1] else 'dq'}_d{a[0]}"))
     report.update(occupancy_figures("flash_attn_bwd", "flash_attn_bwd_occupancy_f32",
-                                    [(d, kv, wg) for kv in (0, 1) for d in (32, 64, 72) for wg in (1, 2)],
+                                    [(d, kv, wg) for kv in (0, 1) for d in (32, 64, 72) for wg in (1, 2)]
+                                    + [(512, kv, 2) for kv in (0, 1)],
                                     lambda a: f"f32_{'dkv' if a[1] else 'dq'}_d{a[0]}_wg{a[2]}"))
     report.update(sass_counts("flash_attn_bwd", "bwd16"))
     report.update({f"f32_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd_tf32").items()})
     report.update({f"f32_d32_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd_tf326kernelILi32E").items()})
+    report.update({f"f32_d512_{k}": v for k, v in sass_counts("flash_attn_bwd", "bwd512_tf32").items()})
     print(f"[build] flash_attn_bwd.cu, the bf16 and split-tf32 forms: {report}", flush=True)
     spills = {k: v for k, v in report.items() if k.endswith("_spill_stores") and v}
-    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG", "f32_d32_HGMMA", "f32_d32_UTMALDG")) \
-            or report["HMMA"] \
+    if not all(report[k] for k in ("HGMMA", "UTMALDG", "f32_HGMMA", "f32_UTMALDG", "f32_d32_HGMMA", "f32_d32_UTMALDG",
+                                   "f32_d512_HGMMA", "f32_d512_UTMALDG")) \
+            or report["HMMA"] or report["f32_d512_HMMA"] \
             or report["f32_HMMA"] or spills:
         fail(f"the backward's kernels have {report['HGMMA']} HGMMA, {report['UTMALDG']} UTMALDG and "
              f"{report['HMMA']} HMMA instructions (f32: {report['f32_HGMMA']}, {report['f32_UTMALDG']}, "
@@ -1221,6 +1263,7 @@ def swin_phase():
         ("nonsquare_b1_64x48", (1, 64, 48), both, (0, win // 2)),
         ("nonsquare_b2_64x48", (2, 64, 48), both, (0, win // 2)),
         ("small_b2_16x16", (2, 16, 16), both, (0, win // 2)),
+        ("vae_grad_cut_b2_32x32", (2, 32, 32), ("f32",), (0, win // 2)),  # phase 20's cut run: 256^2 unshuffled by 8
         ("residual_b4_512x512", (4, 512, 512), ("bf16",), (0, win // 2)),  # phase 16's SwinIR without unshuffle
     ]
     records = []
@@ -2736,9 +2779,12 @@ def validate_phase(cfg_full, pipe, conv_records, swin_records, attn_records, fil
 
 
 # The 2K sampling phase: configs/pixart_kv2k.yaml through the sampling CLI's
-# functions, two prompts at 2048x2048. Its depth-cut f32 DiT with every
-# option, card against CPU, is held as the depth-cut sampling runs are.
-SAMPLE_2K_STEPS = 20
+# functions, two prompts at 2048x2048, 10 DPM-Solver++(2M) steps (cut from 20
+# to make room for phase 20: the call's four runs took 45 s of the script;
+# the 20-step call is timed by tools/time_sample.py). Its depth-cut f32 DiT
+# with every option, card against CPU, is held as the depth-cut sampling runs
+# are.
+SAMPLE_2K_STEPS = 10
 OPTIONS_F32_BOUND = 1e-3
 
 
@@ -2747,9 +2793,9 @@ def sample_2k_phase(conv_records, attn_records):
     --image_size 2048``: the pipeline as ``inference.load_pipeline`` builds
     it (bf16, seeded random weights), two prompts (the null embedding,
     guidance 4.5: the DiT at batch 4 on a 128 x 128 token grid, blocks 0-13
-    over K and V compressed 2x a side by the depthwise conv), 20 steps of
-    DPM-Solver++(2M), the decode at 2048x2048. Images checked; every kernel
-    launched as 20 DiT calls and one decode imply, K1 by shape (at 16,384
+    over K and V compressed 2x a side by the depthwise conv), SAMPLE_2K_STEPS
+    steps of DPM-Solver++(2M), the decode at 2048x2048. Images checked; every
+    kernel launched as that many DiT calls and one decode imply, K1 by shape (at 16,384
     keys, 4,096 keys and the 300 caption keys, one at head dim 512), every K1
     and K3 shape one the kernel phases held; wall a call, ms a step, peak
     memory. Then ``options_card_against_cpu``. Returns (the call's launches,
@@ -3813,9 +3859,9 @@ def parallel_phase(conv_records, swin_records, attn_records):
 TRAINVAL_TOY_ARGV = ["--dmd_steps", "1200", "--reflow_steps", "500"]
 # The production tool's stages at full XL-2 width in bf16 under dots: its teacher cut to a number of steps at which
 # its own teacher assert holds on the card (read every 5: on an H100 the loss went 2.10 -> 0.56 by step 49 and 0.34
-# by step 99), 2 pair batches of 4, 10 DMD steps at batch 2 and an eval over 4 held noises (the DMD-gap assert
-# belongs to the full-length run).
-TRAINVAL_PROD_ARGV = ["--teacher_steps", "50", "--chunk", "5", "--pairs", "8", "--dmd_steps", "10", "--held", "4"]
+# by step 99), 2 pair batches of 4, 5 DMD steps at batch 2 (10 until phase 20 needed the room) and an eval over 4
+# held noises (the DMD-gap assert belongs to the full-length run).
+TRAINVAL_PROD_ARGV = ["--teacher_steps", "50", "--chunk", "5", "--pairs", "8", "--dmd_steps", "5", "--held", "4"]
 
 
 class KeptGradients:
@@ -3846,8 +3892,9 @@ def all_counts():
 
 
 def tally_held(fns, run, what):
-    """Run ``run`` with each wrapper of ``fns`` ({wrapper: (held keys, legend)}) tallying its launches by shape;
-    fails if a tally and a count disagree or a shape is not held. Returns (run's output, {name: {shape: n}})."""
+    """Run ``run`` with each wrapper of ``fns`` ({wrapper: (held keys, legend[, which shapes must be held])})
+    tallying its launches by shape; fails if a tally and a count disagree or a shape is not held. Returns (run's
+    output, {name: {shape: n}})."""
     import torch
 
     for fn in fns:
@@ -3859,14 +3906,14 @@ def tally_held(fns, run, what):
     finally:
         for fn in fns:
             fn.shapes = None
-    for fn, (held, legend) in fns.items():
+    for fn, (held, legend, *selected) in fns.items():
         shapes = seen[fn]
         if sum(shapes.values()) != fn.launches:
             fail(f"{what}: {fn.__name__}: {sum(shapes.values())} launches tallied by shape, {fn.launches} counted")
-        missing = sorted(set(shapes) - set(held))
+        missing = sorted({s for s in shapes if not selected or selected[0](s)} - set(held))
         if missing:
             fail(f"{what}: {fn.__name__} ran at shapes its kernel phase did not hold: {missing}")
-        print(f"[trainval] {what}: {fn.__name__} launches by {legend}: "
+        print(f"[shapes] {what}: {fn.__name__} launches by {legend}: "
               + ", ".join(f"{k}x{v}" for k, v in sorted(shapes.items(), key=str)), flush=True)
     return out, {fn.__name__: seen[fn] for fn in fns}
 
@@ -4137,6 +4184,481 @@ def trainval_phase(d32_held, attn_records, lse_records, dq_records, dkv_records,
     return {"toy": toy, "prod": prod, "card_vs_cpu": trainval_card_against_cpu(attn_records, lse_records, dq_records)}
 
 
+# Phase 20: a gradient through the frozen f32 VAE, the Reflow trainer's LPIPS term (``train/distill.reflow_loss``'s
+# ``lpips_fn``) through the decode. Its two runs: configs/cldm.yaml at full width, batch 2 at 512^2; and the twin held
+# against the CPU, the UNet and the ControlNet at CLDM_SMALL_NET, the VAE at full width (mid block at 512 channels:
+# head dim 512) with one res block a level, batch 2 at 256^2 (1,024 mid-block tokens): (name, VAE override, batch,
+# image size)
+VAE_GRAD_RUNS = (("full", {}, 2, 512), ("cut", {"num_res_blocks": 1}, 2, 256))
+# K2's f32 form at head dim 512 and K1's there with its log-sum-exp: the mid block of both runs' decodes (their
+# encodes' forward without the log-sum-exp), and a ragged shape whose second sample has every key masked: (name,
+# (B, H, Nq, Nk, D), keys kept per sample or None)
+D512_GRAD_CASES = [("vae_mid_decode_b2", (2, 1, 4096, 4096, 512), None),
+                   ("vae_mid_decode_cut_b2", (2, 1, 1024, 1024, 512), None),
+                   ("ragged_d512_masked", (2, 1, 1000, 333, 512), (199, 0))]
+# K5's input gradient on the card (the kernels forward, autograd through the plain composition backward) against
+# autograd through the plain composition alone: the same backward on the same saved input, so only the order of
+# torch's own reductions could differ; 1e-6 of the reference gradient's largest magnitude. At the full run's
+# decode: its AttnBlock.norm (no SiLU) and its norm_out (SiLU)
+NORM_GRAD_BOUND = 1e-6
+NORM_GRAD_SHAPES = [("decode_b2_attn_norm", (2, 64, 64, 512)), ("decode_b2_norm_out", (2, 512, 512, 128))]
+
+
+def vae_grad_config(override, section="vae"):
+    """configs/cldm.yaml with ``override`` merged into its ``section`` (the whole config for section None)."""
+    from instarevive_tpu_torch.config import load_config, merge
+
+    cfg = load_config(os.path.join(REPO, "configs", "cldm.yaml"))
+    return merge(cfg, override) if section is None else merge(cfg[section], override)
+
+
+def vae_kernel_shapes(vae, n, size, encodes, decodes):
+    """The shapes a VAE of config ``vae`` gives the kernels in ``encodes`` encodes of n x size^2 images and
+    ``decodes`` decodes of their latents (``models/vae.py``): K3's (N, H, W, C, Co), two a ResnetBlock; K5a's (N,
+    H, W, C) inside every K3 and at the standalone norms, which K5b applies (AttnBlock.norm and norm_out); K5c's
+    (N, H, W, C) before each of the decoder's upsample convs."""
+    ch, mult, blocks = vae["ch"], list(vae["ch_mult"]), vae["num_res_blocks"]
+    low, mid = size >> (len(mult) - 1), ch * mult[-1]
+    conv, norm, up = set(), set(), set()
+
+    def resblock(r, cin, cout):
+        conv.update({(n, r, r, cin, cout), (n, r, r, cout, cout)})
+
+    if encodes:
+        r, cin = size, ch
+        for i, m in enumerate(mult):
+            for _ in range(blocks):
+                resblock(r, cin, ch * m)
+                cin = ch * m
+            r = r // 2 if i < len(mult) - 1 else r
+        resblock(low, mid, mid)
+        norm.add((n, low, low, mid))
+    if decodes:
+        resblock(low, mid, mid)
+        norm.update({(n, low, low, mid), (n, size, size, ch * mult[0])})
+        r, cin = low, mid
+        for i in reversed(range(len(mult))):
+            for _ in range(blocks + 1):
+                resblock(r, cin, ch * mult[i])
+                cin = ch * mult[i]
+            if i:
+                up.add((n, r, r, cin))
+                r *= 2
+    return {"conv": conv, "stats": {s[:4] for s in conv} | norm, "apply": norm, "up": up}
+
+
+def vae_grad_shapes(kind):
+    """Every shape of ``kind`` ("conv", "stats", "apply", "up") that phase 20's runs (two encodes and a decode
+    each; for "up" also the frozen SwinIR's upsampler, 64 features from size / 8 up in three steps) give the
+    kernels, with the first run's name, sorted."""
+    out = {}
+    for name, override, n, size in VAE_GRAD_RUNS:
+        shapes = vae_kernel_shapes(vae_grad_config(override), n, size, 2, 1)[kind]
+        if kind == "up":
+            shapes |= {(n, size // f, size // f, 64) for f in (8, 4, 2)}
+        for shape in shapes:
+            out.setdefault(shape, f"vae_grad_{name}")
+    return sorted(out.items())
+
+
+def vae_grad_kernels():
+    """(a) of phase 20: K2's f32 form at head dim 512 (the dq pass; dK and dV in one grid) against
+    ``flash_backward_plain``, and K1's f32 form there without and with its log-sum-exp against ``sdpa`` and
+    ``flash_lse_plain``, at D512_GRAD_CASES: errors (K2 relative to each output's largest magnitude), the same bits
+    twice, the kernels alone on planes made before beside the prepass, the plain versions, the backward of
+    ``F.scaled_dot_product_attention`` in f32 (TF32 off) and the bounds; then K5's input gradient at
+    NORM_GRAD_SHAPES, with and without the SiLU. Returns (forward records, dq records, dk/dv records, norm gradient
+    records)."""
+    import torch
+    import torch.nn.functional as F
+
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, group_norm_silu_plain
+
+    fwd_recs, dq_recs, dkv_recs, norm_recs = [], [], [], []
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for name, (b, h, nq, nk, d), kept in D512_GRAD_CASES:
+        q, k, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for n in (nq, nk, nq))
+        v = torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1
+        mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
+        scale, attn_mask = d**-0.5, None if mask is None else mask[:, None, None, :]
+        with torch.no_grad():
+            o, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+            o_without = A._forward(q, k, v, mask, scale, want_lse=False)[0]
+            torch.cuda.synchronize()
+            ref = A.sdpa(q, k, v, kv_mask=mask, scale=scale)
+            ref_max = ref.abs().max().item()
+            o_err, lse_err = max_err(o, ref), max_err(lse, A.flash_lse_plain(q, k, mask, scale))
+            dead = [i for i, n_kept in enumerate(kept or ()) if n_kept == 0]
+            flags = all(bool((lse[i] == A.NEG_INF).all()) for i in dead)
+            got = A.flash_backward(q, k, v, mask, o, lse, do, scale)
+            torch.cuda.synchronize()
+            want = A.flash_backward_plain(q, k, v, mask, o, lse, do, scale)
+            rel, abs_errs = {}, {}
+            for key, x, y in zip(("dq", "dk", "dv"), got, want):
+                if not torch.isfinite(x).all():
+                    fail(f"phase 20, head dim 512 {name}: {key} is not finite")
+                abs_errs[key] = max_err(x, y)
+                rel[key] = abs_errs[key] / y.abs().max().item()
+            same = torch.equal(o, o_without) and all(
+                torch.equal(x, y) for x, y in zip(got, A.flash_backward(q, k, v, mask, o, lse, do, scale)))
+            di, planes = (do * o).sum(-1), A.backward_planes(q, k, v, do)  # the kernels alone: planes made before
+            ms_fwd = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=False), iters=10)
+            ms_lse = cuda_ms(lambda: A._forward(q, k, v, mask, scale, want_lse=True), iters=10)
+            ms_dq = cuda_ms(lambda: A.flash_dq(q, k, v, mask, lse, di, do, scale, planes), iters=10)
+            ms_dkv = cuda_ms(lambda: A.flash_dkv(q, k, v, mask, lse, di, do, scale, planes), iters=10)
+            ms_both = cuda_ms(lambda: A.flash_backward(q, k, v, mask, o, lse, do, scale), iters=10)
+            ms_prepass = cuda_ms(lambda: A.backward_planes(q, k, v, do), iters=10)
+            plain_fwd_ms = cuda_ms(lambda: A.sdpa(q, k, v, kv_mask=mask, scale=scale), iters=3, warmup=1)
+            plain_lse_ms = cuda_ms(lambda: A.flash_lse_plain(q, k, mask, scale), iters=3, warmup=1)
+            plain_ms = cuda_ms(lambda: A.flash_backward_plain(q, k, v, mask, o, lse, do, scale), iters=3, warmup=1)
+            lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), iters=10)
+            del planes
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=10)
+        del lib_out, leaves
+        pairs = float(h * nq * (b * nk if mask is None else int(mask.sum().item())))  # masked keys take no product
+        es = q.element_size()
+        b_fwd = bound(es * (2 * q.numel() + 2 * k.numel()), 4.0 * pairs * d, "f32", True)
+        b_lse = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4.0 * pairs * d, "f32", True)
+        b_dq = bound(es * (3 * q.numel() + 2 * k.numel()) + 8 * lse.numel(), 6.0 * pairs * d, "f32", True)
+        b_dkv = bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 8.0 * pairs * d, "f32", True)
+        b_both = bound(es * (4 * q.numel() + 4 * k.numel()), 10.0 * pairs * d, "f32", True)
+        bnd, limit = BACKWARD_BOUNDS["f32"], min(BOUNDS["f32"], REL_BOUNDS["f32"] * ref_max)
+        common = dict(name=name, dtype="f32", shape=[b, h, nq, nk, d], masked=mask is not None, bitwise_repeat=same)
+        fwd_recs.append(dict(common, max_abs_err=o_err, ref_max_abs=ref_max, bound=limit, lse_max_abs_err=lse_err,
+                             lse_bound=LSE_BOUNDS["f32"], ms=ms_fwd, ms_with_lse=ms_lse, plain_ms=plain_fwd_ms,
+                             plain_lse_ms=plain_lse_ms, library_ms=lib_fwd_ms, bound_ms=b_fwd[0], bound_by=b_fwd[1],
+                             bound_with_lse_ms=b_lse[0]))
+        back = dict(common, bound=bnd, plain_ms=plain_ms, library_ms=lib_ms, together_ms=ms_both,
+                    together_bound_ms=b_both[0], prepass_ms=ms_prepass)
+        dq_recs.append(dict(back, max_abs_err=abs_errs["dq"], max_rel_err=rel["dq"], ms=ms_dq, bound_ms=b_dq[0],
+                            bound_by=b_dq[1]))
+        dkv_recs.append(dict(back, max_abs_err=max(abs_errs["dk"], abs_errs["dv"]), max_rel_err=max(rel["dk"], rel["dv"]),
+                             rel_err={k: rel[k] for k in ("dk", "dv")}, ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1]))
+        print(f"[vae_grad] {name:22s} f32 B,H,Nq,Nk,D={b},{h},{nq},{nk},{d} mask={mask is not None!s:5s} K1 "
+              f"max_abs_err={o_err:.3e} (bound {limit:.1e}) lse={lse_err:.3e} (bound {LSE_BOUNDS['f32']:.0e}"
+              f"{', -1e30 where no key' if dead else ''}); K2 rel_err dq={rel['dq']:.3e} dk={rel['dk']:.3e} "
+              f"dv={rel['dv']:.3e} (bound {bnd:.0e}); same bits twice={same} | ms, kernels alone: fwd={ms_fwd:.4f} "
+              f"with_lse={ms_lse:.4f} (bound {b_fwd[0]:.4f}, {b_fwd[1]}) dq={ms_dq:.4f} (bound {b_dq[0]:.4f}) "
+              f"dkv={ms_dkv:.4f} (bound {b_dkv[0]:.4f}); prepass={ms_prepass:.4f}; dq+dkv+di with the prepass "
+              f"{ms_both:.4f} (bound {b_both[0]:.4f}) | plain fwd={plain_fwd_ms:.4f} lse={plain_lse_ms:.4f} "
+              f"bwd={plain_ms:.4f} | torch sdpa f32 fwd={lib_fwd_ms:.4f} bwd={lib_ms:.4f}", flush=True)
+        if not (o_err <= limit and lse_err <= LSE_BOUNDS["f32"] and flags and max(rel.values()) <= bnd):
+            fail(f"phase 20, head dim 512 {name}: output {o_err}, lse {lse_err} (flags {flags}), gradients {rel}")
+        if not same:
+            fail(f"phase 20, head dim 512 {name}: two runs on the same inputs differ")
+        del q, k, v, do, o, o_without, lse, ref, got, want, di
+
+    for name, (n, h, w, c) in NORM_GRAD_SHAPES:
+        x, gamma, beta = vae_inputs(gen, "f32", n, h, w, c)
+        cot = torch.randn(n, h, w, c, device="cuda", generator=gen)
+        leaf = x.clone().requires_grad_(True)
+        for silu in (True, False):
+            before = (gn_affine.launches, group_norm_silu.launches)
+            out = group_norm_silu(leaf, gamma, beta, silu=silu)
+            launched = (gn_affine.launches - before[0], group_norm_silu.launches - before[1])
+            with torch.no_grad():
+                same_fwd = torch.equal(out, group_norm_silu(x, gamma, beta, silu=silu))
+            (got,) = torch.autograd.grad(out, leaf, cot)
+            (want,) = torch.autograd.grad(group_norm_silu_plain(leaf, gamma, beta, silu=silu), leaf, cot)
+            err = max_err(got, want) / want.abs().max().item()
+            same = torch.equal(got, torch.autograd.grad(group_norm_silu(leaf, gamma, beta, silu=silu), leaf, cot)[0])
+            x_cl, gl, bl = leaf.permute(0, 3, 1, 2), gamma.clone(), beta.clone()
+
+            def library():
+                y = F.group_norm(x_cl, 32, gl, bl, 1e-6)
+                return torch.autograd.grad(F.silu(y) if silu else y, leaf, cot.permute(0, 3, 1, 2))
+
+            fwd_ms = cuda_ms(lambda: group_norm_silu(leaf, gamma, beta, silu=silu))
+            both_ms = cuda_ms(lambda: torch.autograd.grad(group_norm_silu(leaf, gamma, beta, silu=silu), leaf, cot))
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(group_norm_silu_plain(leaf, gamma, beta, silu=silu), leaf,
+                                                           cot), iters=3, warmup=1)
+            lib_ms = cuda_ms(library)
+            # forward: x read, y written; backward: x and the cotangent read, dx written
+            b_ms, b_by = bound(5 * 4 * x.numel(), 0.0, "f32")
+            rec = dict(name=name, dtype="f32", shape=[n, h, w, c], silu=silu, max_rel_err=err, bound=NORM_GRAD_BOUND,
+                       forward_launches=launched, forward_bits_as_without_grad=same_fwd, bitwise_repeat=same,
+                       forward_ms=fwd_ms, ms=both_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"[vae_grad] K5 input gradient {name:20s} f32 N,H,W,C={n},{h},{w},{c} silu={silu!s:5s} "
+                  f"rel_err={err:.2e} (bound {NORM_GRAD_BOUND:.0e}) forward launches (moments, apply) {launched}, "
+                  f"the bits of a call without grad={same_fwd}, same gradient twice={same} | ms: kernels forward "
+                  f"{fwd_ms:.4f}, forward + plain backward {both_ms:.4f}; plain forward + backward {plain_ms:.4f}; "
+                  f"F.group_norm{' + F.silu' if silu else ''} forward + backward {lib_ms:.4f}; bound {b_ms:.4f} "
+                  f"({b_by})", flush=True)
+            if not (err <= NORM_GRAD_BOUND and launched == (1, 1) and same_fwd and same):
+                fail(f"phase 20, K5 input gradient {name} silu={silu}: {rec}")
+            norm_recs.append(rec)
+        del x, leaf, cot, out, got, want
+    return fwd_recs, dq_recs, dkv_recs, norm_recs
+
+
+def seeded_lpips(device):
+    """LPIPS (AlexNet) from the seeded official-layout dicts of ``tools/iqa_checkpoints`` (phase 16's), frozen."""
+    from instarevive_tpu_torch.tools import iqa_checkpoints
+    from instarevive_tpu_torch.utils.metrics import LPIPS, lpips_state_dict
+
+    net = LPIPS()
+    net.load_state_dict(lpips_state_dict(*iqa_checkpoints.lpips(0)))
+    return net.to(device).requires_grad_(False)
+
+
+def reflow_lpips_step(task, pair, lpips, draws=None, keep_grads=None):
+    """One Reflow step of ``task`` (a ``train.launcher.CLDMTask`` for ``--task reflow``) with the LPIPS term:
+    ``distill.reflow_loss`` with the cldm task's ``apply_model`` and ``lpips_fn(z, hq) = LPIPS(decode(z /
+    0.18215), hq).mean()`` through the frozen VAE, weight 0.1, the gradient into the trained parameters, then the
+    optimizer through ``nan_guard``. ``draws``: {"t", "z_T"} in place of the task's generator. Returns the step's
+    metrics (loss, reflow_mse, lpips, grads_finite, the gradient's norm)."""
+    import torch
+
+    from instarevive_tpu_torch.train import distill
+    from instarevive_tpu_torch.train.cldm import SCALE_FACTOR
+    from instarevive_tpu_torch.utils.debug import nan_guard
+
+    state, _ = task.states
+    z0, c_latent = task.task.get_input({"hq": pair["hq"], "lq": pair["lq"], "context": task.context})
+
+    def lpips_fn(z, hq):
+        return lpips(task.pipe.vae.decode(z / SCALE_FACTOR), hq).mean()
+
+    loss, metrics = distill.reflow_loss(
+        task.pipe.sched, lambda z, t, context, c_latent: task.task.apply_model(z, t, context, c_latent), z0,
+        task.generator, {"context": task.context, "c_latent": c_latent}, lpips_fn=lpips_fn, hq=pair["hq"],
+        **(draws or {}))
+    grads = state.gradients(loss)
+    out = {"loss": loss.detach(), **metrics,
+           "grad_norm": torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))}
+    nan_guard(state, grads, out)
+    if keep_grads is not None:
+        keep_grads.extend(g.detach() for g in grads)
+    return out
+
+
+def vae_grad_held(fwd_recs, dq_recs, dkv_recs, held64, conv_records, norm_records, swin_records):
+    """The shapes the kernel phases held for phase 20's f32 runs: {wrapper: (held keys, legend, which tallied
+    shapes must be held)}. K1 and K2 at head dim 512 from ``vae_grad_kernels``, at 64 from ``d64_phase``
+    (``held64``: bf16 and f32 alike; the cut run's small UNet is counted, not held, as phase 12's f32 step);
+    K3, K4, K5 in f32 from their phases."""
+    from instarevive_tpu_torch.ops import attention as A
+    from instarevive_tpu_torch.ops.gn_conv import gn_silu_conv3x3
+    from instarevive_tpu_torch.ops.norm_kernels import gn_affine, group_norm_silu, upsample2x_nearest
+    from instarevive_tpu_torch.ops.swin_attention import swin_window_attention
+
+    stats_records, apply_records, up_records = norm_records
+    f32 = lambda recs: {(*r["shape"], "f32") for r in recs if r["dtype"] == "f32"}  # noqa: E731
+    at512 = lambda shape: shape[4] == 512  # noqa: E731
+    keys = {(*r["shape"], r["masked"]) for r in fwd_recs}
+    return {A.flash_attention: ({(*key, lse) for key in keys | held64 for lse in (False, True)},
+                                "(B, H, Nq, Nk, D, masked, with log-sum-exp)", at512),
+            A.flash_dq: ({(*r["shape"], r["masked"]) for r in dq_recs} | held64, "(B, H, Nq, Nk, D, masked)", at512),
+            A.flash_dkv: ({(*r["shape"], r["masked"]) for r in dkv_recs} | held64, "(B, H, Nq, Nk, D, masked)", at512),
+            gn_silu_conv3x3: (f32(conv_records), "(N, H, W, C, Co, dtype)"),
+            gn_affine: (f32(stats_records), "(N, H, W, C, dtype)"),
+            group_norm_silu: (f32(apply_records), "(N, H, W, C, dtype)"),
+            upsample2x_nearest: (f32(up_records), "(N, H, W, C, dtype)"),
+            swin_window_attention: ({(*r["shape"], r["shift"], r["masked"]) for r in swin_records if r["dtype"] == "f32"},
+                                    "(B, H, W, 3C, shift, masked)")}
+
+
+def vae_grad_expected(cfg, n, size, first):
+    """Every kernel's launches in one ``reflow_lpips_step`` of a task of ``cfg`` on n x size^2 pairs: a cldm
+    step's (``time_train.cldm_expected_launches``: two frozen encodes, the SwinIR, the UNet and the ControlNet),
+    plus the decode under the gradient (its K3s, two standalone norms, levels - 1 upsamples, K1 at head dim 512
+    with its log-sum-exp, K2's dq and dk/dv there once each); the prepass as ``f32_launches`` reckons it, packing
+    every K3 conv's weight planes in the ``first`` step. Returns (launch counts, head-dim-512 launches by kind,
+    f32_launches' arguments)."""
+    from instarevive_tpu_torch.tools import time_train as T
+
+    want = dict(T.cldm_expected_launches(cfg))
+    levels, blocks = len(cfg["vae"]["ch_mult"]), cfg["vae"]["num_res_blocks"]
+    enc, dec = 2 * (levels * blocks + 2), 2 * (levels * (blocks + 1) + 2)  # K3 launches of an encode, a decode
+    want.update(flash_attn_fwd=want["flash_attn_fwd"] + 1, flash_attn_bwd_dq=want["flash_attn_bwd_dq"] + 1,
+                flash_attn_bwd_dkv=want["flash_attn_bwd_dkv"] + 1, gn_silu_conv3x3=2 * enc + dec,
+                gn_stats_fold=2 * (enc + 2) + dec + 2, gn_apply=6, upsample2x=want["upsample2x"] + levels - 1)
+    attn = T.cldm_attention_counts(cfg)
+    d512 = {"fwd": 2, "fwd_with_lse": 1, "dq": 1, "dkv": 1}
+    return want, d512, dict(fwd_split=attn["d64"], fwd_d512=3, convs=2 * enc + dec, conv_modules=enc + dec if first else 0)
+
+
+def d512_tally(shapes):
+    """Head-dim-512 launches by kind from ``tally_held``'s tallies."""
+    fwd = shapes["flash_attention"]
+    return {"fwd": sum(v for k, v in fwd.items() if k[4] == 512 and not k[6]),
+            "fwd_with_lse": sum(v for k, v in fwd.items() if k[4] == 512 and k[6]),
+            "dq": sum(v for k, v in shapes["flash_dq"].items() if k[4] == 512),
+            "dkv": sum(v for k, v in shapes["flash_dkv"].items() if k[4] == 512)}
+
+
+def vae_grad_full(held):
+    """(b) of phase 20: configs/cldm.yaml at full width in f32 (UNet, ControlNet, the frozen SwinIR and VAE, the
+    trainer's own ``CLDMTask`` for ``--task reflow``), batch 2 at 512^2: two Reflow steps with the LPIPS term
+    through the frozen VAE decode (``reflow_lpips_step``), each backward to the trained parameters and then the
+    optimizer. Every loss, metric and gradient norm finite; every kernel's launches as the configuration implies
+    (K1 at head dim 512 with its log-sum-exp once a step and K2's dq and dk/dv there once each, beside the two
+    encodes' K1), every shape held; walls, peak memory. Returns its record."""
+    import gc
+    import math
+
+    import torch
+
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    config = os.path.join(REPO, "configs", "cldm.yaml")
+    cfg = vae_grad_config({}, None)
+    args = launcher.parse_args(T.train_argv(config, "-", "-", 1, task="reflow", bf16=False))
+    t0 = time.perf_counter()
+    task = launcher.CLDMTask(args, cfg, torch.device("cuda"))
+    task.pipe.requires_grad_(False)
+    lpips = seeded_lpips("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = T.load_batches(T.write_images(os.path.join(tmp, "hq"), n=T.BATCH), 1)[0]
+    pair = task.degrade(torch.from_numpy(batch["hq"]).to("cuda").float() / 255.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = task.states[0]
+    before = dict(task.model.named_parameters())["unet.out.2.weight"].detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        m, shapes = tally_held(held, lambda: reflow_lpips_step(task, pair, lpips), f"phase 20, full-width step {i}")
+        wall = time.perf_counter() - t0
+        metrics = {k: float(v) for k, v in m.items()}
+        want, want512, f32_args = vae_grad_expected(cfg, T.BATCH, T.CROP, first=i == 0)
+        got, got512 = read_counts(), d512_tally(shapes)
+        launches = f32_launches(f32_args["fwd_split"], f32_args["fwd_d512"], f"phase 20, full-width step {i}",
+                                convs=f32_args["convs"], conv_modules=f32_args["conv_modules"])
+        steps.append(dict(wall_s=wall, metrics=metrics, launches=got, d512=got512, f32_launches=launches))
+        print(f"[vae_grad] {card_line()}: configs/cldm.yaml at full width in f32, batch {T.BATCH} at {T.CROP}^2, "
+              f"Reflow step {i} with the LPIPS term through the frozen VAE decode (weight 0.1): wall {wall:.3f} s; "
+              f"metrics {({k: round(v, 6) for k, v in metrics.items()})}; launches {got}; at head dim 512 {got512}",
+              flush=True)
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["grads_finite"] != 1.0 \
+                or not metrics["grad_norm"] > 0 or not metrics["lpips"] > 0:
+            fail(f"phase 20, full-width step {i}: metrics {metrics}")
+        if got != dict(want, filter2d=0) or got512 != want512:
+            fail(f"phase 20, full-width step {i}: launches {got} (head dim 512: {got512}), expected {want} ({want512})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = not torch.equal(dict(task.model.named_parameters())["unet.out.2.weight"].detach(), before)
+    if int(state.step) != 2 or not moved:
+        fail(f"phase 20: the optimizer took {int(state.step)} steps; the UNet's last conv moved: {moved}")
+    print(f"[vae_grad] full width: set-up {build_s:.1f} s (models, LPIPS, one degraded batch); walls "
+          f"{[round(s['wall_s'], 3) for s in steps]} s (the first packs every K3 weight's planes); peak allocated "
+          f"{peak:.2f} GiB; the optimizer took 2 steps", flush=True)
+    del task, pair, lpips
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config="configs/cldm.yaml", batch=T.BATCH, size=T.CROP, setup_s=build_s, steps=steps, peak_gib=peak)
+
+
+def vae_grad_card_against_cpu(held):
+    """(c) of phase 20: one Reflow step with the LPIPS term of the cut run (VAE_GRAD_RUNS "cut": UNet and
+    ControlNet at CLDM_SMALL_NET, every layer random; the VAE at full width with one res block a level, so the mid
+    block's attention is at head dim 512 over 1,024 tokens; the SwinIR at full width) on the card and on the CPU:
+    the same weights, pair and draws; the loss, the LPIPS term and every gradient within CLDM_F32_BOUND; on the card
+    K1 at 512 with its log-sum-exp once and K2 there once each, every head-dim-512, K3, K4 and K5 shape held.
+    Returns its record."""
+    import torch
+
+    from instarevive_tpu_torch.pipelines.build import init_params
+    from instarevive_tpu_torch.tools import time_train as T
+    from instarevive_tpu_torch.train import launcher
+
+    (_, override, n, size), = [run for run in VAE_GRAD_RUNS if run[0] == "cut"]
+    cfg = vae_grad_config({"unet": CLDM_SMALL_NET, "controlnet": CLDM_SMALL_NET, "vae": override}, None)
+    args = launcher.parse_args(T.train_argv("-", "-", "-", 1, task="reflow", bf16=False))
+    cpu, gpu = launcher.CLDMTask(args, cfg, torch.device("cpu")), launcher.CLDMTask(args, cfg, torch.device("cuda"))
+    init_params(cpu.model, seed=3)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.pipe.load_state_dict(cpu.pipe.state_dict())
+    gen = torch.Generator().manual_seed(25)
+    pair = {"hq": torch.rand(n, size, size, 3, generator=gen) * 2 - 1, "lq": torch.rand(n, size, size, 3, generator=gen)}
+    draws = {"t": torch.tensor([17, 803]), "z_T": torch.randn(n, size // 8, size // 8, 4, generator=gen)}
+    res, walls = {}, {}
+    for label, task in (("cpu", cpu), ("cuda", gpu)):
+        task.pipe.requires_grad_(False)
+        lpips, kept = seeded_lpips(task.device), []
+        on = {k: v.to(task.device) for k, v in pair.items()}
+
+        def step():
+            return reflow_lpips_step(task, on, lpips, {k: v.to(task.device) for k, v in draws.items()}, kept)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        if label == "cuda":
+            m, shapes = tally_held(held, step, "phase 20, cut step on the card")
+        else:
+            m = step()
+        walls[label] = time.perf_counter() - t0
+        res[label] = ({k: float(v) for k, v in m.items()}, [g.cpu() for g in kept])
+    want, want512, f32_args = vae_grad_expected(cfg, n, size, first=True)
+    got512 = d512_tally(shapes)
+    launches = f32_launches(f32_args["fwd_split"], f32_args["fwd_d512"], "phase 20, cut step on the card",
+                            convs=f32_args["convs"], conv_modules=f32_args["conv_modules"])
+    if got512 != want512 or {k: v for k, v in read_counts().items() if k != "filter2d"} != \
+            {k: v for k, v in want.items() if k != "filter2d"}:
+        fail(f"phase 20, cut step on the card: launches {read_counts()} (head dim 512: {got512}), expected {want} "
+             f"({want512})")
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = res["cpu"], res["cuda"]
+    top = max(g.abs().max().item() for g in g_cpu)
+    errs = {"loss": abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"]),
+            "lpips": abs(m_gpu["lpips"] - m_cpu["lpips"]) / abs(m_cpu["lpips"]),
+            "grad": max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu)) / top}
+    print(f"[vae_grad] the cut step (UNet and ControlNet at {CLDM_SMALL_NET}, every layer random; VAE one res block "
+          f"a level, mid block at head dim 512 over {(size // 8) ** 2} tokens; {n} x {size}^2) on the card against the "
+          f"CPU, the same weights, pair and draws: CPU {({k: round(v, 6) for k, v in m_cpu.items()})}; relative "
+          f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {CLDM_F32_BOUND:.0e}); "
+          f"walls card {walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s; at head dim 512 {got512}; f32 launches "
+          f"{launches}", flush=True)
+    if not max(errs.values()) <= CLDM_F32_BOUND or m_gpu["grads_finite"] != 1.0:
+        fail(f"phase 20, cut step: the card differs from the CPU by {errs}")
+    return dict(errs, walls_s=walls, d512=got512, f32_launches=launches, cpu_metrics=m_cpu, card_metrics=m_gpu)
+
+
+def vae_grad_phase(held64, conv_records, norm_records, swin_records):
+    """Phase 20: a gradient through the frozen f32 VAE (``vae_grad_kernels``, ``vae_grad_full``,
+    ``vae_grad_card_against_cpu``). Returns (the kernels' records, the phase's record)."""
+    import torch
+
+    t0 = time.perf_counter()
+    fwd_recs, dq_recs, dkv_recs, norm_grad = vae_grad_kernels()
+    torch.cuda.empty_cache()
+    held = vae_grad_held(fwd_recs, dq_recs, dkv_recs, held64, conv_records, norm_records, swin_records)
+    kernels_s = time.perf_counter() - t0
+    full = vae_grad_full({fn: entry[:2] for fn, entry in held.items()})  # at full width every shape is held
+    card_vs_cpu = vae_grad_card_against_cpu(held)
+    rec = {"kernels_s": kernels_s, "full": full, "card_vs_cpu": card_vs_cpu, "norm_gradient": norm_grad,
+           "phase_s": time.perf_counter() - t0}
+    print(f"[vae_grad] phase 20 wall {rec['phase_s']:.1f} s (kernel checks {kernels_s:.1f} s)", flush=True)
+    return (fwd_recs, dq_recs, dkv_recs), rec
+
+
+def d512_grad_entries(fwd_recs, dq_recs, dkv_recs, vae_grad, bwd_build):
+    """K2's f32 form at head dim 512 in the ``kernels`` line, one entry a pass: the full-width decode's shape at
+    top level, every phase-20 shape below; ``launches`` is phase 20's full-width run (two Reflow steps with the
+    LPIPS term), the cut step's beside; each carries its kernel's build figures."""
+    out = []
+    for name, key, replaces, records in (
+            ("flash_attn_bwd_dq_f32_d512", "dq", "instarevive_tpu/ops/attention.py:127", dq_recs),
+            ("flash_attn_bwd_dkv_f32_d512", "dkv", "instarevive_tpu/ops/attention.py:166", dkv_recs)):
+        main_rec = next(r for r in records if r["name"] == "vae_mid_decode_b2")
+        out.append({
+            "name": name, "route": "cuda", "source": "instarevive_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": replaces, "form": "bwd512_tf32",
+            "launches": sum(step["d512"][key] for step in vae_grad["full"]["steps"]),
+            "launches_per_full_step": vae_grad["full"]["steps"][-1]["d512"][key],
+            "launches_cut_step": vae_grad["card_vs_cpu"]["d512"][key],
+            "max_abs_err": max(r["max_abs_err"] for r in records), "max_rel_err": max(r["max_rel_err"] for r in records),
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"], "main_shape": main_rec["shape"],
+            "shapes": records,
+            "build": {k: v for k, v in bwd_build.items() if k.startswith((f"f32_{key}_d512", "f32_d512"))}})
+    return out
+
+
 def d32_entries(fwd_records, dq_records, dkv_records, toy, fwd_build, bwd_build):
     """K1's and K2's f32 forms at head dim 32 in the ``kernels`` line: the
     toy's self-attention at top level, every head-dim-32 shape below;
@@ -4350,6 +4872,14 @@ def main() -> None:
     from instarevive_tpu_torch.ops import cuda_build
     from instarevive_tpu_torch.pipelines.build import build_pipeline, init_params, set_precision
 
+    start, phase_s, mark = time.perf_counter(), {}, [time.perf_counter()]
+
+    def lap(name):  # seconds of the phase that just ended
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"[phase] {name}: {phase_s[name]:.1f} s ({now - start:.1f} s into the script)", flush=True)
+
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
@@ -4373,49 +4903,74 @@ def main() -> None:
             swin_build = swin_build_report(log)
         if name == "filter2d":
             filter_build = filter_build_report(log)
+    lap("1-2 card, build")
 
     attn_records = kernel_phase()
+    lap("3 K1")
     dq_records, dkv_records, lse_records = backward_phase()
+    lap("3 K2")
     d64_fwd, d64_dq, d64_dkv, held64 = d64_phase()
+    lap("11 head dim 64")
     d32_fwd, d32_dq, d32_dkv, held32 = d32_phase()
+    lap("11 head dim 32")
     planes_records = planes_phase()
     conv_records = conv_phase()
     conv_grads = conv_grad_phase()
+    lap("3 prepass, K3")
     stats_records, apply_records, up_records = norm_phase()
     swin_records = swin_phase()
     from instarevive_tpu_torch.tools import time_degrade
 
     filter_records = time_degrade.hold_filter2d(fail=fail)
+    lap("3 K5, K4, K6")
     cfg = load_config(os.path.join(REPO, "configs", "instarevive_v1.yaml"))
     small_pipeline_phase(cfg, conv_records)
+    lap("4 small pipeline")
     launches, tiled = pipeline_phase(conv_records, swin_records, attn_records)
+    lap("5 pipeline")
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6's images and phase 10's trace, for phase 16
     atexit.register(shutil.rmtree, work, True)
     cli_phase(work)
+    lap("6 CLI")
     serve_phase(cfg, swin_records, launches, conv_records)
+    lap("7 server")
     train = train_phase(cfg, conv_records)
     timing = train[2]
+    lap("8 DMD trainer")
     degrade_launches, degrade_timing = degrade_phase(filter_records)
+    lap("9 degradation")
     swinir_train = swinir_train_phase(cfg, swin_records, filter_records, work)
+    lap("10 SwinIR trainer")
     cldm = cldm_phase(held64, conv_records)
+    lap("12 cldm trainer")
     # the v1 pipeline in bf16 with 13 ControlNet-Half stages, its projections zero as init_params leaves them
     sampling_pipe = init_params(build_pipeline(cfg, dtype=torch.bfloat16, device="cuda", control_depth=CONTROL_DEPTH),
                                 seed=0)
     sample_counts, sample_timing = sample_phase(cfg, sampling_pipe, conv_records, attn_records)
+    lap("13 sampling")
     validate_counts, validate_timing = validate_phase(cfg, sampling_pipe, conv_records, swin_records, attn_records,
                                                       filter_records)
     del sampling_pipe
     torch.cuda.empty_cache()
+    lap("14 validation")
     sample_2k_counts, sample_2k_timing = sample_2k_phase(conv_records, attn_records)
     torch.cuda.empty_cache()
+    lap("15 2K sampling")
     evaluation = evaluation_phase(cfg, work, swin_records)
     torch.cuda.empty_cache()
+    lap("16 evaluation")
     aux = aux_phase(cfg, conv_records, attn_records, filter_records)
     torch.cuda.empty_cache()
+    lap("17 text, data tools, depth, captioner")
     parallel = parallel_phase(conv_records, swin_records, attn_records)
     torch.cuda.empty_cache()
+    lap("18 parallel")
     trainval = trainval_phase(held32, attn_records, lse_records, dq_records, dkv_records, conv_records,
                               (stats_records, apply_records, up_records), work)
+    torch.cuda.empty_cache()
+    lap("19 training validation")
+    d512_grad, vae_grad = vae_grad_phase(held64, conv_records, (stats_records, apply_records, up_records), swin_records)
+    lap("20 gradient through the VAE")
 
     fwd = kernel_entry("flash_attn_fwd", "flash_attn_fwd.cu", "instarevive_tpu/ops/attention.py:63",
                        launches, tiled, attn_records, "dit_self", train)
@@ -4456,7 +5011,14 @@ def main() -> None:
                                  "cldm_f32_step": cldm[2]["card_vs_cpu"]["f32_launches"]},
                      conv_records, conv_build, conv_grads),
         *d32_entries(d32_fwd, d32_dq, d32_dkv, trainval["toy"], fwd_build, bwd_build),
+        *d512_grad_entries(*d512_grad, vae_grad, bwd_build),
     ]
+    f32_d512 = next(e for e in kernels if e["name"] == "flash_attn_fwd_f32_d512")
+    f32_d512["with_lse"] = d512_grad[0]  # phase 20: the same kernel writing the row log-sum-exp
+    f32_d512["launches_phase20_full_steps"] = {
+        "without_lse": sum(step["d512"]["fwd"] for step in vae_grad["full"]["steps"]),
+        "with_lse": sum(step["d512"]["fwd_with_lse"] for step in vae_grad["full"]["steps"])}
+    next(e for e in kernels if e["name"] == "gn_apply")["input_gradient"] = vae_grad["norm_gradient"]
     fwd["launches_depth_call"] = {t: c["flash_attn_fwd"] for t, c in aux["launches"]["depth"].items()}
     # phase 18's runs by mode: one NCCL rank (the main path's shapes) and two gloo ranks (the new shapes), by K1 shape
     fwd["launches_parallel"] = {
@@ -4477,8 +5039,10 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "train": timing, "train_swinir": swinir_train[2], "train_cldm": cldm[2],
                       "degrade": degrade_timing, "sample": sample_timing, "validate": validate_timing,
                       "sample_2k": sample_2k_timing, "evaluate": evaluation, "aux": aux, "parallel": parallel,
-                      "trainval": trainval}),
+                      "trainval": trainval, "vae_grad": vae_grad, "phase_s": phase_s}),
           flush=True)
+    print(f"[phase] the script to here: {time.perf_counter() - start:.1f} s; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

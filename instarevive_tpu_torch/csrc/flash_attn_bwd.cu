@@ -34,10 +34,11 @@
 // gradient of that mean, which is what autograd gives through the plain
 // version.
 //
-// Two forms, each templated on the head dim and instantiated at 64 (the UNet
-// and ControlNet of the LDM trainer) and 72 (the DiT), the f32 form also at 32
+// Three forms: two templated on the head dim and instantiated at 64 (the UNet
+// and ControlNet of the LDM trainer) and 72 (the DiT), the f32 one also at 32
 // (the toy DiT of tools/train_validation.py: one 128-byte box a row, output
-// products m64 n32 k8); head dim 512 takes no gradient:
+// products m64 n32 k8), and an f32 one at head dim 512 (the VAE mid block);
+// bf16 at head dim 512 takes no gradient:
 // * bf16 (namespace bwd16): wgmma on TMA-fed tiles, the design of the forward's
 //   head-dim-64/72 body (flash_attn_fwd.cu, namespace hopper). A warpgroup
 //   owns 64 rows. The block's row operands land once by TMA; the column
@@ -79,6 +80,31 @@
 //   f32 sums truncate, and chained over 4096 queries straight into the
 //   running sums they came to 3.7e-5 of the largest gradient (the f32 bound
 //   is 2e-5; tools/time_flash_bwd.py with that copy of the file).
+// * f32 at head dim 512 (namespace bwd512_tf32; the frozen VAE's decode under
+//   a gradient, the Reflow trainer's LPIPS term): the forward's head-dim-512
+//   block (flash_attn_fwd.cu, d512_tf32) on the backward's arithmetic. A 64 x
+//   512 f32 accumulator is 128 registers a thread over two warpgroups, so a
+//   block owns 64 rows and one output: dQ (the dq pass), or dK or dV (the
+//   dk/dv pass, one grid whose blockIdx.z picks the output; dK's blocks
+//   recompute dP, dV's read P alone). Each warpgroup takes half the head
+//   dims: its partial S (and dP) over them, 64 x 32 a column tile, meets the
+//   other's in shared memory as in the forward, and it sums its 256 output
+//   columns. Shared memory cannot hold the row operands as well (64 rows x
+//   512 f32 are 128 KB raw, twice that in planes), so every operand streams:
+//   a chunk of 64 head dims is the row operand raw (split in registers, as
+//   the forward splits Q) with the column operand's hi and lo planes (32 KB),
+//   or the transposed planes of the output's B operand (16 KB), through two
+//   slots a warpgroup that one of its threads refills. The row operands are
+//   read again for every column tile: a dq block moves 640 KB a 32-column
+//   tile from L2 against the forward's 256 KB. Output tiles go into a fresh
+//   accumulator added into the running sums, as at 32, 64 and 72. The last
+//   64-column chunk of each warpgroup's running sums lives in shared memory
+//   (32 KB a block, each thread its own entries): with all 128 sums in
+//   registers the kernels spilled 188-192 bytes at 255 registers; on an H100
+//   (tools/time_flash_bwd.py with edited copies of this file, 700 W) that
+//   form was no faster at (2,1,4096,4096,512) (dq 1.88-1.90, dk/dv 3.56-3.60
+//   ms against 1.81-1.84 and 3.57-3.63), and 32-column output chunks with two
+//   chunks' sums in shared memory were slower (dk/dv 4.30-4.68 ms).
 //
 // What bounds it on this card: 10 * BH * Nq * Nk * d useful operations against
 // a few MB of operands, far above the ridge point, so operations bound it (the
@@ -100,7 +126,12 @@
 // products, was 7-20% slower. The dk/dv pass at a short key count fills few
 // blocks (Nk = 4: one block per (batch, head), walking every query). A split of
 // the query range, a producer warp and ping-pong between warpgroups are left
-// for later work.
+// for later work. The head-dim-512 form is bound by what a block draws from
+// L2 (about 45-61 GB/s an SM in the forward's measurements): 82 MB a dq or dK
+// block at 4096 keys, a wave of 128 such blocks (one an SM, 198 KB of shared
+// memory) for each pass at the decode's (2, 1, 4096, 4096, 512). Keeping one
+// row operand resident, or dK's and dV's column halves in different blocks,
+// is later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -432,7 +463,7 @@ cudaError_t occupancy(int* smem_bytes, int* blocks_per_sm) {
 }  // namespace bwd16
 
 // ---------------------------------------------------------------------------
-// f32, head dims 32, 64 and 72: split-tf32 wgmma on TMA-fed tiles, the same body.
+// f32, head dims 32, 64 and 72: split-tf32 wgmma on TMA-fed tiles, the same body (512: bwd512_tf32 below).
 
 namespace bwd_tf32 {
 
@@ -790,6 +821,372 @@ cudaError_t occupancy(int kv, int wg, int* smem_bytes, int* blocks_per_sm) {
 
 }  // namespace bwd_tf32
 
+// ---------------------------------------------------------------------------
+// f32, head dim 512: split-tf32 wgmma, every operand streamed through shared memory in 64-head-dim chunks.
+
+namespace bwd512_tf32 {
+
+using namespace hopper;
+
+constexpr int D = 512, BR = 64, BC = 32;        // head dims, rows a block, columns a tile
+constexpr int kWarpgroups = 2, kThreads = 128 * kWarpgroups;
+constexpr int kHalf = D / kWarpgroups;          // a warpgroup's head dims of the scores, and its output columns
+constexpr int kChunkDims = 64;                  // head dims a chunk of a score product's operands
+constexpr int kChunks = kHalf / kChunkDims;     // a warpgroup's chunks of one score product a tile
+constexpr int kSteps = kChunkDims / 8;          // tf32 k-steps of a score product in a chunk
+constexpr int kOutDims = 64;                    // output columns a chunk of the output's B operand
+constexpr int kOutChunks = kHalf / kOutDims;    // a warpgroup's output chunks a tile
+constexpr int kSmemOutChunks = 1;               // the last of them sum in shared memory: registers are short
+
+// A block's output: dQ = dS K (the dq pass), dK = dS^T Q or dV = P^T dO (the dk/dv pass, one each by blockIdx.z).
+enum Kind { kDQ, kDK, kDV };
+
+// Shared memory, from a 1024-byte aligned base: a ring of four 32 KB slots (2 wg and 2 wg + 1 are warpgroup
+// wg's), the partial scores (8 KB a warpgroup a product, S and dP, double-buffered by tile parity), the
+// running sums of the last kSmemOutChunks output chunks (each thread its own, strided by the block's threads),
+// the barriers. A slot holds one chunk. A score chunk: the row operand raw, 64 rows x 64 head dims as two boxes of
+// 32 f32, then the column operand's hi and lo planes, 32 columns x 64 head dims as two boxes each. An output
+// chunk: the transposed planes' hi and lo boxes of 64 head dims x 32 columns. Every box is rows of 128 bytes
+// under the 128-byte swizzle and starts on 1024 bytes.
+constexpr uint32_t kRowBox = BR * 128, kColBox = BC * 128, kTBox = kOutDims * 128;
+constexpr uint32_t kScoreChunk = 2 * kRowBox + 4 * kColBox, kOutChunk = 2 * kTBox;
+constexpr uint32_t kSlot = kScoreChunk;
+constexpr int kSlots = 2 * kWarpgroups;
+constexpr uint32_t kPart = 128 * (BC / 2) * 4;  // 16 f32 scores a thread
+constexpr int kOutRegs = (kOutChunks - kSmemOutChunks) * (kOutDims / 2);  // running sums a thread in registers
+constexpr uint32_t kOffParts = kSlots * kSlot, kOffAcc = kOffParts + 2 * 2 * kWarpgroups * kPart;
+constexpr uint32_t kOffBars = kOffAcc + kSmemOutChunks * kThreads * (kOutDims / 2) * 4;
+constexpr size_t kSmem = 1024 + kOffBars + 8 * 2 * kSlots;  // 1024 bytes of slack to align the base
+static_assert(kOutChunk <= kSlot && kSmem <= 232448, "shared memory over the per-block limit");
+static_assert(kOutRegs % 4 == 0 && kSmemOutChunks <= kOutChunks, "whole output chunks in registers");
+
+// The row operands raw (A: the S rows, B: the dP rows) in boxes of 32 head dims x 64 rows; the column operands'
+// hi ([0]) and lo ([1]) planes (C: the S columns, D: the dP columns) in boxes of 32 x 32; the transposed planes of
+// dQ's, dK's (t1) and dV's (t2) B operand in boxes of 32 columns x kOutDims head dims.
+struct Maps {
+  CUtensorMap a, b, c[2], d[2], t1[2], t2[2];
+};
+
+// One block of KIND: 64 rows (queries for dQ, keys for dK and dV) of head bh. Each warpgroup computes the
+// scores over its half of the head dims, the halves meet in shared memory, and it sums its half of the
+// output columns. The accumulator layout of wgmma's m64 fragments: this thread holds rows g and g + 8 (r =
+// 0, 1) of its warp's 16, and x[4 j + 2 r + e] is column 8 j + 2 t + e of row g + 8 r (t = lane % 4).
+template <int KIND>
+__device__ __forceinline__ void body(unsigned char* smem, const Maps& maps, const uint8_t* __restrict__ mask,
+                                     const float* __restrict__ lse, const float* __restrict__ di,
+                                     float* __restrict__ out, int heads, int nq, int nk, float scale) {
+  constexpr bool KV = KIND != kDQ;         // the dk/dv pass: rows are keys, columns queries
+  constexpr bool WANT_DP = KIND != kDV;    // dV reads P alone
+  constexpr int kScore = (WANT_DP ? 2 : 1) * kChunks, kItems = kScore + kOutChunks;  // a warpgroup's chunks a tile
+  const uint32_t sbase = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const base = smem + (sbase - smem_u32(smem));
+  const uint32_t full = sbase + kOffBars;      // per slot: its chunk has landed
+  const uint32_t empty = full + 8 * kSlots;    // per slot: every warp of its warpgroup is done with it
+
+  const int bh = blockIdx.y, r0 = blockIdx.x * BR;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row group and column pair
+  const int nrow = KV ? nk : nq, ncol = KV ? nq : nk;
+  const int n_tiles = (ncol + BC - 1) / BC, n_chunks = n_tiles * kItems;  // this warpgroup's chunks
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * nk;
+  const float* lse_b = lse + (size_t)bh * nq;
+  const float* di_b = di + (size_t)bh * nq;
+  const float scale_log2 = scale * kLog2e, inv_nk = 1.f / (float)nk;
+  const bool producer = tid == 0;  // issues this warpgroup's copies; no warp is set aside for it
+  const CUtensorMap* tmap = KIND == kDV ? maps.t2 : maps.t1;
+
+  // This warpgroup's chunk i: of tile i / kItems, item j = i % kItems is a chunk of S's operands (j below
+  // kChunks), of dP's (below kScore), at head dims kHalf wg + 64 (j % kChunks), or of the output's B operand,
+  // at head dims kHalf wg + kOutDims (j - kScore); it goes to slot 2 wg + i % 2, whose (i / 2)-th use it is.
+  auto slot = [&](int i) { return sbase + (2 * wg + (i & 1)) * kSlot; };
+  auto load_chunk = [&](int i) {
+    const int tile = i / kItems, j = i % kItems, c0 = tile * BC;
+    const uint32_t dst = slot(i), bar = full + 8 * (2 * wg + (i & 1));
+    if (j < kScore) {
+      const int d0 = kHalf * wg + kChunkDims * (j % kChunks);
+      const bool s_part = j < kChunks;
+      const CUtensorMap* rows = s_part ? &maps.a : &maps.b;
+      const CUtensorMap* cols = s_part ? maps.c : maps.d;
+      mbar_expect_tx(bar, kScoreChunk);
+      tma_load(dst, rows, bar, d0, r0, bh);
+      tma_load(dst + kRowBox, rows, bar, d0 + 32, r0, bh);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        tma_load(dst + 2 * kRowBox + 2 * p * kColBox, &cols[p], bar, d0, c0, bh);
+        tma_load(dst + 2 * kRowBox + (2 * p + 1) * kColBox, &cols[p], bar, d0 + 32, c0, bh);
+      }
+    } else {
+      const int d0 = kHalf * wg + kOutDims * (j - kScore);
+      mbar_expect_tx(bar, kOutChunk);
+      tma_load(dst, &tmap[0], bar, c0, d0, bh);
+      tma_load(dst + kTBox, &tmap[1], bar, c0, d0, bh);
+    }
+  };
+  auto wait_chunk = [&](int i) {
+    __syncwarp();
+    mbar_wait(full + 8 * (2 * wg + (i & 1)), (i >> 1) & 1);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+  };
+  // every warp of this warpgroup is done with chunk i: its slot takes chunk i + 2
+  auto release = [&](int i) {
+    const uint32_t bar = empty + 8 * (2 * wg + (i & 1));
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+    if (producer && i + 2 < n_chunks) {
+      mbar_wait(bar, (i >> 1) & 1);
+      load_chunk(i + 2);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (producer) {
+    load_chunk(0);
+    load_chunk(1);
+  }
+
+  // Per-row values of this thread's rows g and g + 8: L (log2 domain) and di (dq), or the key flag (dk/dv).
+  const int row0 = r0 + warp * 16 + g;
+  float row_x[2], row_y[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (KV) {
+      row_x[r] = key_flag(mb, row, nk);
+      row_y[r] = 0.f;
+    } else {
+      row_x[r] = row < nq ? lse_b[row] * kLog2e : CUDART_INF_F;
+      row_y[r] = row < nq ? di_b[row] : 0.f;
+    }
+  }
+
+  // 64 rows x this warpgroup's 256 output columns: the first kOutRegs sums a thread in registers, the rest in
+  // shared memory (sacc[k * kThreads] is its k-th); one chunk's tile
+  float acc[kOutRegs], ot[kOutDims / 2];
+  float* const sacc = reinterpret_cast<float*>(base + kOffAcc) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kOutRegs; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kHalf / 2 - kOutRegs; ++i) sacc[i * kThreads] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kOutDims / 2; ++i) ot[i] = 0.f;
+  // this thread's row g of its warp's 16 in a raw row box (row g + 8 is 8 rows on, under the same swizzle)
+  const int row_at = (warp * 16 + g) * 32;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int c0 = tile * BC, i0 = tile * kItems;
+
+    // this warpgroup's half of S = A C^T and dP = B D^T, 64 x BC each: each k-step of 8 head dims as lo.hi +
+    // hi.lo + hi.hi, the small terms first; the row operand's A fragment (rows g, g + 8; head dims t, t + 4 of
+    // the step) is read from its raw boxes and split in registers, two fragments in flight
+    float sc[BC / 2], dp[BC / 2];
+    uint32_t ra[2][2][4];  // [fragment][hi, lo]
+#pragma unroll
+    for (int c = 0; c < kScore; ++c) {
+      const int i = i0 + c;
+      wait_chunk(i);
+      const uint32_t s = slot(i), col_hi = s + 2 * kRowBox, col_lo = col_hi + 2 * kColBox;
+      const float* rows = reinterpret_cast<const float*>(base + (s - sbase)) + row_at;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int step = c * kSteps + ks, f = step & 1;
+        // the 128-byte swizzle: 16-byte unit u of row r lies at unit u ^ (r % 8), and r % 8 = g
+        const float* box = rows + (ks / 4) * (kRowBox / 4);
+        const int u = (ks % 4) * 2, at = ((u ^ g) << 2) + t, at4 = (((u + 1) ^ g) << 2) + t;
+        const float v[4] = {box[at], box[8 * 32 + at], box[at4], box[8 * 32 + at4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float h = tf32_rna(v[e]);
+          ra[f][0][e] = __float_as_uint(h);
+          ra[f][1][e] = __float_as_uint(tf32_rna(v[e] - h));
+        }
+        const uint64_t ch = smem_desc(col_hi + (ks / 4) * kColBox, 1024, kSwizzle128) + 2 * (ks % 4);
+        const uint64_t cl = smem_desc(col_lo + (ks / 4) * kColBox, 1024, kSwizzle128) + 2 * (ks % 4);
+        const int more = c % kChunks > 0 || ks > 0;  // the first step of a product starts its sum
+        wgmma_fence();
+        if (c < kChunks) {
+          Wgmma32<BC>::rs(sc, ra[f][1], ch, more);
+          Wgmma32<BC>::rs(sc, ra[f][0], cl, 1);
+          Wgmma32<BC>::rs(sc, ra[f][0], ch, 1);
+        } else {
+          Wgmma32<BC>::rs(dp, ra[f][1], ch, more);
+          Wgmma32<BC>::rs(dp, ra[f][0], cl, 1);
+          Wgmma32<BC>::rs(dp, ra[f][0], ch, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before is done: its fragment may be rewritten, its chunk released
+        if (ks == 0 && c > 0) release(i - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (WANT_DP) fence_regs(dp);
+    release(i0 + kScore - 1);
+
+    // the two halves meet in shared memory: thread tid of either warpgroup holds the same rows and columns, so
+    // each adds the other's values (a + b == b + a: both get the same bits)
+    float* parts = reinterpret_cast<float*>(base + kOffParts) + (tile & 1) * 2 * kWarpgroups * (kPart / 4);
+    float4* mine = reinterpret_cast<float4*>(parts + wg * (kPart / 4));
+    const float4* theirs = reinterpret_cast<const float4*>(parts + (wg ^ 1) * (kPart / 4));
+#pragma unroll
+    for (int i = 0; i < BC / 8; ++i) {
+      mine[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+      if (WANT_DP) mine[kWarpgroups * kPart / 16 + i * 128 + tid] = make_float4(dp[4 * i], dp[4 * i + 1], dp[4 * i + 2], dp[4 * i + 3]);
+    }
+    __syncthreads();  // a part is rewritten two tiles on, after the next barrier: its reader is past it
+#pragma unroll
+    for (int i = 0; i < BC / 8; ++i) {
+      const float4 x = theirs[i * 128 + tid];
+      sc[4 * i] += x.x;
+      sc[4 * i + 1] += x.y;
+      sc[4 * i + 2] += x.z;
+      sc[4 * i + 3] += x.w;
+      if (WANT_DP) {
+        const float4 y = theirs[kWarpgroups * kPart / 16 + i * 128 + tid];
+        dp[4 * i] += y.x;
+        dp[4 * i + 1] += y.y;
+        dp[4 * i + 2] += y.z;
+        dp[4 * i + 3] += y.w;
+      }
+    }
+
+    // P = exp(S scale - L) (masked keys 0; a row or column with every key masked 1 / Nk), and for dQ and dK
+    // dS = P (dP - di) scale (0 where every key is masked); the one the output reads, split into A fragments
+    uint32_t fh[BC / 8][4], fl[BC / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // the column's values read where they are used (registers are short): the key flag (dq), or L in the
+        // log2 domain (+inf past Nq) and di (dk/dv)
+        const int r = e >> 1, col = c0 + nt * 8 + 2 * t + (e & 1);
+        const float l2 = KV ? (col < nq ? lse_b[col] * kLog2e : CUDART_INF_F) : row_x[r];
+        const float keep = KV ? row_x[r] : key_flag(mb, col, nk);
+        const float dii = KV ? (col < nq ? di_b[col] : 0.f) : row_y[r];
+        float& x = sc[4 * nt + e];
+        const bool dead = l2 < kDeadRow;
+        x = dead ? (keep >= 0.f ? inv_nk : 0.f) : (keep > 0.f ? ex2(fmaf(x, scale_log2, -l2)) : 0.f);
+        if (WANT_DP) x = dead ? 0.f : x * (dp[4 * nt + e] - dii) * scale;
+      }
+      split_fragment(sc + 4 * nt, fh[nt], fl[nt]);
+    }
+
+    // the output's tile F Y over this warpgroup's 256 columns, a chunk of kOutDims at a time, each into a fresh
+    // accumulator (the tensor cores' truncating sums run over one tile only) added into the running sums
+#pragma unroll
+    for (int c = 0; c < kOutChunks; ++c) {
+      const int i = i0 + kScore + c;
+      wait_chunk(i);
+      const uint32_t y_hi = slot(i), y_lo = y_hi + kTBox;
+      fence_regs(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j) {
+        const uint64_t yh = smem_desc(y_hi, 1024, kSwizzle128) + 2 * j;
+        const uint64_t yl = smem_desc(y_lo, 1024, kSwizzle128) + 2 * j;
+        Wgmma32<kOutDims>::rs(ot, fl[j], yh, j > 0);
+        Wgmma32<kOutDims>::rs(ot, fh[j], yl, 1);
+        Wgmma32<kOutDims>::rs(ot, fh[j], yh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(ot);
+      release(i);
+#pragma unroll
+      for (int e = 0; e < kOutDims / 2; ++e) {
+        const int at = c * (kOutDims / 2) + e;
+        if (at < kOutRegs)
+          acc[at] += ot[e];
+        else
+          sacc[(at - kOutRegs) * kThreads] += ot[e];
+      }
+    }
+  }
+
+  float* ob = out + (size_t)bh * nrow * D + kHalf * wg;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= nrow) continue;
+    float* orow = ob + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j) {
+      const int at = 4 * j + 2 * r;  // a pair never straddles the registers' end (kOutRegs is a multiple of 4)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          at < kOutRegs ? make_float2(acc[at], acc[at + 1])
+                        : make_float2(sacc[(at - kOutRegs) * kThreads], sacc[(at + 1 - kOutRegs) * kThreads]);
+    }
+  }
+}
+
+// KV = false: the dq pass (out1 = dQ). KV = true: the dk/dv pass, dK's blocks (blockIdx.z = 0, out1) and dV's
+// (blockIdx.z = 1, out2) in one grid, dK's first: they take the longer.
+template <bool KV>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+       const float* __restrict__ di, float* __restrict__ out1, float* __restrict__ out2, int heads, int nq, int nk,
+       float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (!KV)
+    body<kDQ>(smem, maps, mask, lse, di, out1, heads, nq, nk, scale);
+  else if (blockIdx.z == 0)
+    body<kDK>(smem, maps, mask, lse, di, out1, heads, nq, nk, scale);
+  else
+    body<kDV>(smem, maps, mask, lse, di, out2, heads, nq, nk, scale);
+}
+
+// planes: Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, D) f32; the dq pass reads K's and V's, the
+// dk/dv pass Q's and dO's), the transposed planes K^T hi, K^T lo (dq) or Q^T hi, Q^T lo, dO^T hi, dO^T lo (dk/dv),
+// then Q, K, V and dO raw ((bh, n, D) f32).
+template <bool KV>
+cudaError_t launch(const void* const* planes, const void* mask, const void* lse, const void* di, void* out1,
+                   void* out2, int bh, int heads, int nq, int nk, float scale, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const void* const* raw = planes + (KV ? 12 : 10);
+  const void* const* q = planes;
+  const void* const* k = planes + 2;
+  const void* const* v = planes + 4;
+  const void* const* dout = planes + 6;
+  const void* const* c = KV ? q : k;
+  const void* const* d = KV ? dout : v;
+  const int nrow = KV ? nk : nq, ncol = KV ? nq : nk, ncol_pad = (ncol + 7) / 8 * 8;
+  constexpr auto kW128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  Maps maps = {};
+  bool ok = make_map(&maps.a, raw[KV ? 1 : 0], D, nrow, bh, 32, BR, kW128, true) &&
+            make_map(&maps.b, raw[KV ? 2 : 3], D, nrow, bh, 32, BR, kW128, true);
+  for (int p = 0; p < 2; ++p) {
+    ok = ok && make_map(&maps.c[p], c[p], D, ncol, bh, 32, BC, kW128, true) &&
+         make_map(&maps.d[p], d[p], D, ncol, bh, 32, BC, kW128, true) &&
+         make_map(&maps.t1[p], planes[8 + p], ncol_pad, D, bh, 32, kOutDims, kW128, true);
+    if (KV) ok = ok && make_map(&maps.t2[p], planes[10 + p], ncol_pad, D, bh, 32, kOutDims, kW128, true);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  auto fn = kernel<KV>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nrow + BR - 1) / BR, bh, KV ? 2 : 1);
+  fn<<<grid, kThreads, kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+                                        static_cast<const float*>(di), static_cast<float*>(out1),
+                                        static_cast<float*>(out2), heads, nq, nk, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t occupancy(int kv, int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = (int)kSmem;
+  auto fn = kv ? kernel<true> : kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, kSmem);
+}
+
+}  // namespace bwd512_tf32
+
 // The bf16 form at one head dim; cudaErrorInvalidValue for any other.
 template <bool KV>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout, const void* mask,
@@ -824,10 +1221,12 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, c
 }
 
 // The f32 form of one pass (kv = 0: dq into out1; kv = 1: dk into out1, dv into
-// out2) at head dim d (32, 64 or 72) on the split planes of tf32_planes.cu: planes
-// holds Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, d) f32), then
-// K^T hi, K^T lo for dq, or Q^T hi, Q^T lo, dO^T hi, dO^T lo for dk/dv ((bh, d,
-// n rounded up to a multiple of 8) f32). Returns a cudaError_t.
+// out2) at head dim d (32, 64, 72 or 512) on the split planes of tf32_planes.cu:
+// planes holds Q hi, Q lo, K hi, K lo, V hi, V lo, dO hi, dO lo ((bh, n, d) f32),
+// then K^T hi, K^T lo for dq, or Q^T hi, Q^T lo, dO^T hi, dO^T lo for dk/dv
+// ((bh, d, n rounded up to a multiple of 8) f32), and at head dim 512 then Q, K, V
+// and dO raw ((bh, n, d) f32; there the dq pass reads no natural planes of Q
+// and dO, the dk/dv pass none of K and V). Returns a cudaError_t.
 extern "C" int flash_attn_bwd_f32(const void* const* planes, const void* mask, const void* lse, const void* di,
                                   void* out1, void* out2, int kv, int bh, int heads, int nq, int nk, int d,
                                   float scale, void* stream) {
@@ -841,6 +1240,9 @@ extern "C" int flash_attn_bwd_f32(const void* const* planes, const void* mask, c
   if (d == 72)
     return static_cast<int>(kv ? bwd_tf32::launch<72, true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
                                : bwd_tf32::launch<72, false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
+  if (d == 512)
+    return static_cast<int>(kv ? bwd512_tf32::launch<true>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s)
+                               : bwd512_tf32::launch<false>(planes, mask, lse, di, out1, out2, bh, heads, nq, nk, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -854,10 +1256,12 @@ extern "C" int flash_attn_bwd_occupancy(int d, int kv, int* smem_bytes, int* blo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same for the f32 form's block of wg (1 or 2) warpgroups.
+// The same for the f32 form's block of wg (1 or 2) warpgroups (at head dim 512:
+// 2, the only block it has).
 extern "C" int flash_attn_bwd_occupancy_f32(int d, int kv, int wg, int* smem_bytes, int* blocks_per_sm) {
   if (d == 32) return static_cast<int>(bwd_tf32::occupancy<32>(kv, wg, smem_bytes, blocks_per_sm));
   if (d == 64) return static_cast<int>(bwd_tf32::occupancy<64>(kv, wg, smem_bytes, blocks_per_sm));
   if (d == 72) return static_cast<int>(bwd_tf32::occupancy<72>(kv, wg, smem_bytes, blocks_per_sm));
+  if (d == 512 && wg == 2) return static_cast<int>(bwd512_tf32::occupancy(kv, smem_bytes, blocks_per_sm));
   return static_cast<int>(cudaErrorInvalidValue);
 }

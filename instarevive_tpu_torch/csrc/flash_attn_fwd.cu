@@ -5,9 +5,10 @@
 // instarevive_tpu/ops/attention.py (reached through `_flash_fwd_impl` and
 // `flash_attention`): online-softmax attention with f32 scores and
 // accumulators, an optional (B, Nk) boolean key mask whose masked scores are
-// -1e30, and ragged Nq / Nk. With a non-null `lse` the head-dim-64 and -72 forms also
-// write the row log-sum-exp m + log(max(l, 1e-30)) (the kernel's `emit_lse`
-// output), one f32 per query row, which the backward (flash_attn_bwd.cu) reads;
+// -1e30, and ragged Nq / Nk. With a non-null `lse` every form but the bf16
+// one at head dim 512 also writes the row log-sum-exp m + log(max(l, 1e-30))
+// (the kernel's `emit_lse` output), one f32 per query row, which the backward
+// (flash_attn_bwd.cu) reads;
 // a row whose keys are all masked gets exactly -1e30. Inference passes null and
 // pays one branch per row.
 //
@@ -94,8 +95,10 @@
 //   both planes, each warpgroup through two slots of its own that one of its
 //   threads refills as soon as its four warps are done with one. P.V runs
 //   one chunk of 64 output columns at a time into a fresh accumulator folded
-//   into the running output by one FFMA, as at 64 and 72. It writes no
-//   log-sum-exp (head dim 512 has no backward).
+//   into the running output by one FFMA, as at 64 and 72. With a non-null
+//   `lse` it writes the row log-sum-exp as the forms at 32, 64 and 72 do
+//   (the first warpgroup: both hold the same running max and sum), which the
+//   head-dim-512 backward reads.
 // Other head dims are refused.
 //
 // What bounds it on this card: at the DiT and UNet shapes the work is far
@@ -874,8 +877,8 @@ struct Maps {  // Q raw in boxes of 32 head dims x 64 rows; K's hi ([0]) and lo 
 };
 
 __global__ void __launch_bounds__(kThreads, 1)
-kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, float* __restrict__ out, int heads,
-       int nq, int nk, float scale_log2) {
+kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, float* __restrict__ out,
+       float* __restrict__ lse, int heads, int nq, int nk, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
   unsigned char* const base = smem + (sQ - smem_u32(smem));
@@ -1057,13 +1060,18 @@ kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ mask, floa
 #pragma unroll
     for (int j = 0; j < kHalf / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // both warpgroups hold the same running max and sum; the first writes the row's log-sum-exp, as fwd_tf32
+    if (lse != nullptr && wg == 0 && t == 0)
+      lse[(size_t)bh * nq + row] = m_run[r] <= kMaskedScore
+                                       ? kMaskedScore
+                                       : (m_run[r] + log2f(fmaxf(l_run[r], 1e-30f))) * 0.6931471805599453f;
   }
 }
 
 // planes: Q raw ((bh, nq, D) f32), K hi, K lo ((bh, nk, D) f32), V^T hi, V^T lo ((bh, D, nk rounded up to 8)
 // f32, keys in the order of tf32_planes.cu).
-cudaError_t launch(const void* const* planes, const void* mask, void* out, int bh, int heads, int nq, int nk,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* const* planes, const void* mask, void* out, void* lse, int bh, int heads, int nq,
+                   int nk, float scale, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   const int nk_pad = (nk + 7) / 8 * 8;
   Maps maps = {};
@@ -1075,8 +1083,8 @@ cudaError_t launch(const void* const* planes, const void* mask, void* out, int b
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  kernel<<<grid, kThreads, kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<float*>(out), heads,
-                                            nq, nk, scale * 1.4426950408889634f);
+  kernel<<<grid, kThreads, kSmem, stream>>>(maps, static_cast<const uint8_t*>(mask), static_cast<float*>(out),
+                                            static_cast<float*>(lse), heads, nq, nk, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1111,15 +1119,15 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
 // The f32 forms on split planes (tf32_planes.cu). At head dims 32, 64 and 72
 // planes holds the pointers Q hi, Q lo, K hi, K lo ((bh, n, d) f32) and V^T
 // hi, V^T lo ((bh, d, nk rounded up to a multiple of 8) f32); at head dim 512
-// Q raw ((bh, nq, d) f32), K hi, K lo, V^T hi, V^T lo, and lse must be null.
-// mask, out (f32), lse and the rest as flash_attn_fwd. Returns a cudaError_t.
+// Q raw ((bh, nq, d) f32), K hi, K lo, V^T hi, V^T lo. mask, out (f32), lse
+// (at every head dim) and the rest as flash_attn_fwd. Returns a cudaError_t.
 extern "C" int flash_attn_fwd_f32(const void* const* planes, const void* mask, void* out, void* lse, int bh,
                                   int heads, int nq, int nk, int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32) return fwd_tf32::launch<32>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 64) return fwd_tf32::launch<64>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   if (d == 72) return fwd_tf32::launch<72>(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
-  if (d == 512 && lse == nullptr) return d512_tf32::launch(planes, mask, out, bh, heads, nq, nk, scale, s);
+  if (d == 512) return d512_tf32::launch(planes, mask, out, lse, bh, heads, nq, nk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -176,7 +176,10 @@ class LayerNorm(nn.LayerNorm):
 class GroupNorm(DerivedCache, nn.GroupNorm):
     """GroupNorm on NCHW with f32 statistics and an optional SiLU; output in
     x.dtype. On the card x must lie channels-last in memory: the kernels read
-    its NHWC view, and nothing here copies a tensor into that layout."""
+    its NHWC view, and nothing here copies a tensor into that layout. An x
+    that requires grad gets the kernels forward and the plain composition's
+    input gradient backward (``ops/norm_kernels.group_norm_silu``); the
+    affine parameters are read detached, as a frozen model's."""
 
     def affine_f32(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(weight, bias) in f32, as the kernels read them."""

@@ -13,7 +13,7 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   memory; see the source for what bounds it on the H100 and how its design
   answers that. On a CPU tensor the wrapper runs ``sdpa``; on a CUDA tensor
   it launches the kernel or raises. When an input requires grad (head dim 64
-  or 72, in f32 also 32) it goes through a ``torch.autograd.Function``: the
+  or 72, in f32 also 32 and 512) it goes through a ``torch.autograd.Function``: the
   forward kernel also writes the row log-sum-exp, and the backward is the two
   kernels of
   ``csrc/flash_attn_bwd.cu`` (``flash_dq``, ``flash_dkv``), which replace
@@ -32,7 +32,9 @@ Layout: (B, H, N, D), with a (B, Nk) bool key mask (True = keep), as in
   K-major only). At
   head dim 512 the forward reads Q raw and splits it in registers (its
   planes would not fit beside the rest), so it takes two prepass launches (K
-  natural, V transposed) where head dims 32, 64 and 72 take three. The
+  natural, V transposed) where head dims 32, 64 and 72 take three; its
+  backward reads the row operands (Q and dO for dq, K and V for dk/dv) raw
+  too, and the planes of the rest. The
   kernels' sums are f32 and torch's own TF32 stays off, so the f32 bounds are those of
   an f32 kernel.
 * ``attention``: the dispatch. Every unbiased attention on a CUDA tensor goes
@@ -58,9 +60,10 @@ from instarevive_tpu_torch.ops.tf32_planes import tf32_planes
 
 NEG_INF = -1e30
 # The kernels' instantiations by dtype: the UNet/ControlNet heads (64), the DiT's (72), the VAE mid block (512,
-# forward only) and, in f32 only, the toy DiT of tools/train_validation.py (32, hidden 128 over 4 heads)
+# in bf16 forward only) and, in f32 only, the toy DiT of tools/train_validation.py (32, hidden 128 over 4 heads)
 HEAD_DIMS = {torch.bfloat16: (64, 72, 512), torch.float32: (32, 64, 72, 512)}       # the forward kernel
-GRAD_HEAD_DIMS = {torch.bfloat16: (64, 72), torch.float32: (32, 64, 72)}             # the backward kernels
+GRAD_HEAD_DIMS = {torch.bfloat16: (64, 72), torch.float32: (32, 64, 72, 512)}        # the backward kernels
+RAW_HEAD_DIM = 512      # the f32 kernels at this head dim read their row operands raw and split them in registers
 DEAD_ROW = -1e29        # a log-sum-exp below this flags a row whose keys were all masked
 
 
@@ -136,7 +139,7 @@ def _forward(q, k, v, kv_mask, scale, want_lse: bool):
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if want_lse else None
     mask_ptr, lse_ptr = None if kv_mask is None else kv_mask.data_ptr(), None if lse is None else lse.data_ptr()
     if _is_split(q):  # at head dim 512 Q goes raw: the kernel splits it in registers
-        planes = [*([q] if d == 512 else tf32_planes(q)[:2]), *tf32_planes(k)[:2],
+        planes = [*([q] if d == RAW_HEAD_DIM else tf32_planes(q)[:2]), *tf32_planes(k)[:2],
                   *tf32_planes(v, natural=False, transposed=True)[2:]]
         fn = load_library("flash_attn_fwd").flash_attn_fwd_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -179,15 +182,20 @@ def _backward_args(q, k, v, kv_mask, lse, di, do):
 def backward_planes(q, k, v, do, kv: Optional[bool] = None):
     """The split planes the f32 backward kernels read, ``tf32_planes`` of q,
     k, v and dO: for the dq pass (kv False) K also transposed, for the dk/dv
-    pass (kv True) Q and dO also transposed, for both (None) all three."""
+    pass (kv True) Q and dO also transposed, for both (None) all three. (At
+    head dim 512 a pass reads its row operands raw, beside the planes of the
+    others.)"""
     return (tf32_planes(q, transposed=kv is not False), tf32_planes(k, transposed=kv is not True),
             tf32_planes(v), tf32_planes(do, transposed=kv is not False))
 
 
-def _backward_f32(kv: bool, planes, ptrs, outs, b, h, nq, nk, d, scale) -> int:
-    """Launch one f32 backward pass on its planes; returns the CUDA error."""
+def _backward_f32(kv: bool, planes, raw, ptrs, outs, b, h, nq, nk, d, scale) -> int:
+    """Launch one f32 backward pass on its planes (and at head dim 512 the
+    raw ``(q, k, v, do)``); returns the CUDA error."""
     (qn, kn, vn, don) = planes
     split = [*qn[:2], *kn[:2], *vn[:2], *don[:2], *((*qn[2:], *don[2:]) if kv else kn[2:])]
+    if d == RAW_HEAD_DIM:
+        split += list(raw)
     fn = load_library("flash_attn_bwd").flash_attn_bwd_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -206,7 +214,7 @@ def flash_dq(q, k, v, kv_mask, lse, di, do, scale: float, planes=None) -> torch.
     dq = torch.empty_like(q)
     if _is_split(q):
         planes = backward_planes(q, k, v, do, kv=False) if planes is None else planes
-        err = _backward_f32(False, planes, ptrs, (dq,), b, h, nq, nk, d, scale)
+        err = _backward_f32(False, planes, (q, k, v, do), ptrs, (dq,), b, h, nq, nk, d, scale)
     else:
         with torch.cuda.device(q.device):
             err = _bind("flash_attn_bwd", "flash_attn_bwd_dq", 8)(
@@ -225,7 +233,7 @@ def flash_dkv(q, k, v, kv_mask, lse, di, do, scale: float, planes=None) -> Tuple
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if _is_split(q):
         planes = backward_planes(q, k, v, do, kv=True) if planes is None else planes
-        err = _backward_f32(True, planes, ptrs, (dk, dv), b, h, nq, nk, d, scale)
+        err = _backward_f32(True, planes, (q, k, v, do), ptrs, (dk, dv), b, h, nq, nk, d, scale)
     else:
         with torch.cuda.device(q.device):
             err = _bind("flash_attn_bwd", "flash_attn_bwd_dkv", 9)(
@@ -319,8 +327,8 @@ def flash_attention(
     """Flash attention. q: (B,H,Nq,D), k/v: (B,H,Nk,D) in bf16 or f32 with D
     in ``HEAD_DIMS`` of their dtype; kv_mask: (B,Nk) bool. Differentiable in
     q, k, v at the head dims of ``GRAD_HEAD_DIMS`` of their dtype (the
-    backward kernels); head dim 512 has no backward and raises if an input
-    requires grad."""
+    backward kernels); elsewhere (bf16 at 512) an input that requires grad
+    raises, naming its dtype."""
     if not q.is_cuda:
         return sdpa(q, k, v, kv_mask=kv_mask, scale=scale)
     d = _check(q, k, v, kv_mask)[-1]

@@ -12,7 +12,10 @@ The norm is two steps, as in the JAX package: per-(sample, channel) affine
   ``csrc/norm_kernels.cu``, which replace the TPU kernel ``_stats_kernel`` and
   the fold that ``_gn_silu_pallas`` left to XLA.
 * ``group_norm_silu``: ``gn_affine`` then ``apply_kernel``, which replaces the
-  TPU kernel ``_apply_kernel``.
+  TPU kernel ``_apply_kernel``. An input that requires grad goes through
+  ``_GroupNormSilu``: the kernels forward, autograd through
+  ``group_norm_silu_plain`` backward, the input's gradient only (gamma and
+  beta are read detached; one that requires grad raises).
 * ``upsample2x_nearest``: wrapper of ``upsample_kernel``, which replaces the
   TPU kernel ``_upsample_kernel``.
 
@@ -190,11 +193,41 @@ def affine_silu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, silu: bool) -
     return out
 
 
+class _GroupNormSilu(torch.autograd.Function):
+    """The moments, fold and apply kernels forward. The TPU kernels have no
+    backward of their own (XLA differentiates the plain composition around
+    them), so the backward is autograd through ``group_norm_silu_plain``,
+    recomputed from the saved input, as ``ops/gn_conv._GnSiluConv3x3`` does:
+    the input's gradient only (a frozen norm's gamma and beta, which the
+    kernels read detached)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, silu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.groups, ctx.eps, ctx.silu = groups, eps, silu
+        x = x.detach()
+        return affine_silu(x, *gn_affine(x, gamma, beta, groups, eps), silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            out = group_norm_silu_plain(x, gamma, beta, ctx.groups, ctx.eps, ctx.silu)
+            (gx,) = torch.autograd.grad(out, x, grad)
+        return gx, None, None, None, None, None
+
+
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int = 32,
                     eps: float = 1e-6, silu: bool = True) -> torch.Tensor:
     """GroupNorm with f32 statistics and an optional SiLU; x: (N, H, W, C),
     output in x's dtype. ``group_norm_silu.launches`` counts the apply
-    kernel; the moments kernels count under ``gn_affine.launches``."""
+    kernel; the moments kernels count under ``gn_affine.launches``. On the
+    card an x that requires grad takes the kernels forward and the plain
+    composition's input gradient backward (``_GroupNormSilu``)."""
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        check_nhwc(x, "group_norm_silu", grad_ok=True)
+        return _GroupNormSilu.apply(x, gamma, beta, groups, eps, silu)
     return affine_silu(x, *gn_affine(x, gamma, beta, groups, eps), silu)
 
 

@@ -2,7 +2,7 @@
 alone on one CUDA card, bf16 or f32, beside other files of the same kernels.
 
     python -m instarevive_tpu_torch.tools.time_flash_bwd [--source NAME=PATH] [--unchecked NAME=PATH]
-        [--dims 72,64] [--dtype bf16|f32] [--rounds 2] [--iters 50]
+        [--dims 72,64] [--dtype bf16|f32] [--rounds 2] [--iters 50]   # --dims 512: f32 only
 
 Builds ``csrc/flash_attn_bwd.cu`` as committed ("main") and each ``--source``
 (another file with the same C interface, such as an older tree's, unpacked
@@ -78,13 +78,21 @@ D32_CASES = [
     ("toy_cross", (64, 4, 64, 4), None),
     ("ragged_masked", (3, 4, 77, 45), (13, 45, 0)),
 ]
+# The frozen VAE's mid block under a gradient (the Reflow trainer's LPIPS term through the decode), f32 only (no
+# bf16 form at head dim 512): the decode at 512^2 batch 2, and a ragged masked shape with a sample whose keys are
+# all masked (chip_smoke.py's phase 20): (name, (B, H, Nq, Nk), keys kept per sample or None)
+D512_CASES = [
+    ("vae_mid_decode_b2", (2, 1, 4096, 4096), None),
+    ("ragged_d512_masked", (2, 1, 1000, 333), (199, 0)),
+]
 REL_BOUNDS = {"bf16": 1e-2, "f32": 2e-5}  # as chip_smoke.py's BACKWARD_BOUNDS, of each output's largest magnitude
 PEAK_BYTES, PEAK_BF16, PEAK_TF32 = 3.35e12, 989e12, 495e12
 
 
 def cases(dims):
     """(name, (B, H, Nq, Nk, D), kept) of both lists at the head dims asked for."""
-    every = BACKWARD_CASES + [(name, (*shape, d), kept) for d, more in ((64, D64_CASES), (32, D32_CASES))
+    every = BACKWARD_CASES + [(name, (*shape, d), kept) for d, more in ((64, D64_CASES), (32, D32_CASES),
+                                                                         (512, D512_CASES))
                               for name, shape, kept in more]
     return [case for case in every if case[1][4] in dims]
 
@@ -136,7 +144,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", action="append", default=[], help="NAME=PATH of another flash_attn_bwd.cu")
     ap.add_argument("--unchecked", action="append", default=[], help="NAME=PATH of an ablation, timed only")
-    ap.add_argument("--dims", default="72,64", help="head dims of the cases to hold and time (32: f32 only)")
+    ap.add_argument("--dims", default="72,64", help="head dims of the cases to hold and time (32, 512: f32 only)")
     ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)
@@ -174,7 +182,7 @@ def main(argv=None) -> None:
             occ = getattr(lib, occupancy)
             occ.argtypes = [ctypes.c_int] * (2 + len(forms[0])) + [ctypes.POINTER(ctypes.c_int)] * 2
             occ.restype = ctypes.c_int
-            for d in (64, 72):
+            for d in (64, 72, 512):
                 for kv in (0, 1):
                     for form in forms:
                         smem, blocks = ctypes.c_int(), ctypes.c_int()
@@ -200,9 +208,11 @@ def main(argv=None) -> None:
         if f32:  # made once: the kernels' figures leave the prepass out
             qn, kn, vn, don = A.backward_planes(q, k, v, do)
             natural = [*qn[:2], *kn[:2], *vn[:2], *don[:2]]
+            raw = [q, k, v, do] if d == A.RAW_HEAD_DIM else []  # at 512 the row operands go raw too
             planes = {"keep": (qn, kn, vn, don)}  # the tensors the pointers below point into
             for kv, transposed in ((False, [*kn[2:]]), (True, [*qn[2:], *don[2:]])):
-                planes[kv] = (ctypes.c_void_p * (8 + len(transposed)))(*(p.data_ptr() for p in natural + transposed))
+                ptrs = natural + transposed + raw
+                planes[kv] = (ctypes.c_void_p * len(ptrs))(*(p.data_ptr() for p in ptrs))
         held.append((label, (b, h, nq, nk, d), q, k, v, do, mask, lse, di, ref, outs,
                      bounds_ms(b, h, nq, nk, d, keys, f32), planes))
 

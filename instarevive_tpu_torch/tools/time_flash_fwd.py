@@ -7,10 +7,10 @@ f32, beside another file of the same kernel.
 Builds ``csrc/flash_attn_fwd.cu`` as committed ("main") and each ``--source``
 (another file with the same C interface, such as an older tree's, unpacked
 with ``git archive``), one nvcc each, all together. Each build is held
-against ``sdpa`` and, at head dims 64 and 72, ``flash_lse_plain`` at every
+against ``sdpa`` and, where the kernel writes the row log-sum-exp (every
+form but bf16 at head dim 512), ``flash_lse_plain`` at every
 shape of the head dims asked for (bounds of ``chip_smoke.py``: 1e-2 and 2e-2
-of the reference's largest magnitude, and 1e-3; head dim 512 writes no
-log-sum-exp) and timed by calling its C launcher
+of the reference's largest magnitude, and 1e-3), timed with that output, by calling its C launcher
 directly (no wrapper, so the figures are the kernel's), in turns: round r
 runs the builds in order, then reversed. An ``--unchecked`` source is timed
 but not held: an ablation that leaves out part of the work, to see what
@@ -161,7 +161,7 @@ def main(argv=None) -> None:
         v = (torch.rand(b, h, nk, d, device="cuda", generator=gen) * 2 - 1).to(dtype)
         mask = None if kept is None else torch.arange(nk, device="cuda")[None] < torch.tensor(kept, device="cuda")[:, None]
         out = torch.empty_like(q)
-        lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS[dtype] else None  # none at 512
+        lse = torch.empty(b, h, nq, device="cuda") if d in A.GRAD_HEAD_DIMS[dtype] else None  # none in bf16 at 512
         keys = b * nk if mask is None else int(mask.sum().item())
         planes = None
         if f32:  # made once: the kernels' figures leave the prepass out; at 512 Q goes raw

@@ -240,7 +240,8 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
     q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
-    q = torch.randn(1, 1, 8, 512, device=cuda, requires_grad=True)  # head dims 64 and 72 have backward kernels
+    # head dim 512 has a backward kernel in f32 only
+    q = torch.randn(1, 1, 8, 512, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, q, q)
     with torch.no_grad():
@@ -483,6 +484,68 @@ def test_flash_attention_head_dim_32_is_f32_only(cuda):
     assert torch.isfinite(grad).all()
 
 
+# The frozen VAE's mid block under a gradient (the Reflow trainer's LPIPS term through the decode): the decode at
+# 512^2 batch 2, and a ragged shape whose second sample has every key masked (chip_smoke.py phase 20)
+D512_GRAD_CASES = {"vae_mid_decode_b2": (2, 4096, 4096, None), "ragged_one_sample_fully_masked": (2, 1000, 333, [199, 0])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(D512_GRAD_CASES))
+def test_flash_f32_head_dim_512_backward_matches_plain_and_repeats_bitwise(cuda, case):
+    """K2's f32 form at head dim 512 (dq; dK and dV in one grid) against
+    flash_backward_plain at K2's f32 bound, 2e-5 of each output's largest
+    magnitude (v in [-1, 1], as chip_smoke.py); K1's log-sum-exp at 512
+    against flash_lse_plain (1e-4), exactly -1e30 for a sample with no key;
+    one dq and one dk/dv launch behind four prepass launches; the same bits
+    twice."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    b, nq, nk, lens = D512_GRAD_CASES[case]
+    d, scale = 512, 512**-0.5
+    q, k, v, do, mask = _backward_inputs(cuda, torch.float32, b, 1, nq, nk, d, lens, seed=5)
+    v = v.clamp(-1, 1)
+    out, lse = A._forward(q, k, v, mask, scale, want_lse=True)
+    torch.cuda.synchronize()
+    assert (lse - A.flash_lse_plain(q, k, mask, scale)).abs().max().item() <= 1e-4
+    if lens is not None:
+        assert torch.all(lse[lens.index(0)] == NEG_INF)
+    before = (A.flash_dq.launches, A.flash_dkv.launches, A.tf32_planes.launches)
+    got = A.flash_backward(q, k, v, mask, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (A.flash_dq.launches, A.flash_dkv.launches, A.tf32_planes.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 4)
+    want = A.flash_backward_plain(q, k, v, mask, out, lse, do, scale)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b_.shape and torch.isfinite(a).all(), name
+        assert (a - b_).abs().max().item() <= BACKWARD_BOUNDS[torch.float32] * b_.abs().max().item(), name
+    again = A.flash_backward(q, k, v, mask, out, lse, do, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_head_dim_512_takes_a_gradient_in_f32_only(cuda):
+    """f32 at head dim 512 goes through the autograd.Function (K1 with its
+    log-sum-exp, then dq and dk/dv) and agrees with autograd through sdpa;
+    bf16 that requires grad raises, naming its dtype, and launches nothing."""
+    from instarevive_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(2, 1, n, 512, device=cuda, generator=gen) for n in (300, 200, 200, 300))
+    fwd, dq, dkv = A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        flash_attention(*(t.bfloat16().requires_grad_(True) for t in (q, k, v)))
+    assert A.flash_attention.launches == fwd
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    got = grads(flash_attention)
+    assert (A.flash_attention.launches, A.flash_dq.launches, A.flash_dkv.launches) == (fwd + 1, dq + 1, dkv + 1)
+    for a, b_ in zip(got, grads(sdpa)):
+        assert (a - b_).abs().max().item() <= 2e-5 * b_.abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 72])
 def test_flash_attention_f32_and_bf16_at_one_address(cuda, d):
@@ -567,6 +630,30 @@ def test_group_norm_silu_matches_plain(cuda, dtype, silu, n, h, w, c):
     ref = group_norm_silu_plain(x, gamma, beta, silu=silu)
     assert out.dtype == dtype and out.shape == x.shape
     assert (out.float() - ref.float()).abs().max().item() <= NORM_BOUNDS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("n,h,w,c", [(2, 64, 64, 512), (2, 512, 512, 128)])  # the 512^2 decode's AttnBlock, norm_out
+def test_group_norm_silu_with_grad_is_kernels_forward_plain_backward(cuda, dtype, silu, n, h, w, c):
+    """An input that requires grad: the moments, fold and apply kernels
+    forward (the bits of the call without grad), the plain composition's
+    input gradient backward; a gamma that requires grad still raises."""
+    x, gamma, beta = _vae_inputs(cuda, dtype, n, h, w, c)
+    leaf = x.clone().requires_grad_(True)
+    stats, applies = gn_affine.launches, group_norm_silu.launches
+    out = group_norm_silu(leaf, gamma, beta, silu=silu)
+    assert (gn_affine.launches, group_norm_silu.launches) == (stats + 1, applies + 1)
+    with torch.no_grad():
+        assert torch.equal(out, group_norm_silu(x, gamma, beta, silu=silu))
+    grad = torch.randn_like(out)
+    (got,) = torch.autograd.grad(out, leaf, grad)
+    (want,) = torch.autograd.grad(group_norm_silu_plain(leaf, gamma, beta, silu=silu), leaf, grad)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-6 * want.float().abs().max().item()
+    with pytest.raises(RuntimeError, match="no backward"):
+        group_norm_silu(leaf, gamma.clone().requires_grad_(True), beta)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@ forward's log-sum-exp (instarevive_tpu_torch/ops/attention.py) against the JAX
 package: ``jax.vjp`` through its Pallas ``flash_attention`` (dq and dk/dv
 kernels) run in interpret mode, and its forward's ``emit_lse`` output; and
 against torch autograd through the port's ``sdpa``, one fully masked row
-included. Same numpy inputs from a seed, f32, 2e-5 of each output's largest
+included; head dims 64, 72 and 512 (the VAE mid block, f32 only on the card).
+Same numpy inputs from a seed, f32, 2e-5 of each output's largest
 magnitude. The CUDA kernels themselves are held against these plain versions
 on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -59,6 +60,7 @@ CASES = {
     "ragged_cross": (1, 2, 200, 300, 64, [250]),
     "head_dim_72": (1, 2, 130, 77, 72, None),
     "unet_mid_4_keys": (2, 2, 64, 4, 64, None),  # head dim 64 at the UNet's middle block over the zero context
+    "vae_mid_head_dim_512": (2, 1, 128, 100, 512, [100, 57]),  # the VAE mid block's head dim, ragged and masked
 }
 
 
@@ -89,7 +91,7 @@ def test_lse_plain_matches_jax_forward_emit_lse_interpret(masked):
     np.testing.assert_allclose(got.numpy().reshape(b * h, n), np.asarray(lse)[..., 0], atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [64, 72])
+@pytest.mark.parametrize("d", [64, 72, 512])
 @pytest.mark.parametrize("lens", [None, [30, 7, 19], [30, 0, 19]], ids=["unmasked", "masked", "one_row_fully_masked"])
 def test_backward_plain_matches_autograd_through_sdpa(lens, d):
     """A sample with no real key gets the mean of V over the Nk keys in the
@@ -105,6 +107,21 @@ def test_backward_plain_matches_autograd_through_sdpa(lens, d):
         dead = lens.index(0)
         assert got[0][dead].abs().max() == 0 and got[1][dead].abs().max() == 0
         np.testing.assert_allclose(got[2][dead, :, 0].numpy(), do[dead].sum(1) / nk, atol=1e-5)
+
+
+def test_lse_plain_at_head_dim_512_matches_jax_forward_emit_lse_interpret():
+    """The VAE mid block's head dim, whose forward writes the log-sum-exp in
+    f32 for the backward, one sample's keys partly masked (the kernel takes
+    keys padded to its block)."""
+    b, h, nq, nk, d = 2, 1, 128, 128, 512
+    q, k, v, _ = _inputs(b, h, nq, nk, d, seed=12)
+    mask = _mask(b, nk, [128, 57])
+    maskf = jnp.asarray(mask, jnp.float32)[:, None, :]
+    flat = [jnp.asarray(x).reshape(b * h, -1, d) for x in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        _, lse = jax_flash_fwd_impl(*flat, maskf, d**-0.5, True, 128, 128, True)
+    got = tattn.flash_lse_plain(_t(q), _t(k), _t(mask), d**-0.5)
+    np.testing.assert_allclose(got.numpy().reshape(b * h, nq), np.asarray(lse)[..., 0], atol=2e-5, rtol=0)
 
 
 def test_lse_of_a_fully_masked_row_is_the_flag():
